@@ -1,0 +1,46 @@
+"""Carry the JAX package's params into the port's layout.
+
+`params_from_jax` takes the JAX `params` pytree after
+`jax.tree.map(np.asarray, ...)` (nested dicts of numpy arrays) and returns
+the port's params: each segment's leading layer axis unstacked into a list
+of per-layer dicts, matmul weights in bf16 (the JAX path casts them to bf16
+at every use, so this is bit-identical) and norm scales (`scale` leaves) in
+fp32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(name: str, a, device) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, np.float32))
+    return t.to(device=device,
+                dtype=torch.float32 if name == "scale" else torch.bfloat16)
+
+
+def _tree(d: dict, device) -> dict:
+    return {k: _tree(v, device) if isinstance(v, dict) else _leaf(k, v, device)
+            for k, v in d.items()}
+
+
+def _unstack(d: dict, i: int) -> dict:
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
+            for k, v in d.items()}
+
+
+def _count(d: dict) -> int:
+    v = next(iter(d.values()))
+    return _count(v) if isinstance(v, dict) else len(v)
+
+
+def params_from_jax(tree: dict, device="cuda") -> dict:
+    out = {}
+    for name, sub in tree.items():
+        if name.startswith("seg"):
+            out[name] = [_tree(_unstack(sub, i), device)
+                         for i in range(_count(sub))]
+        else:
+            out[name] = _tree(sub, device)
+    return out

@@ -1,0 +1,249 @@
+"""Shared transformer layers, ported from `repro.models.layers`.
+
+Conventions:
+  * params are nested dicts of tensors.  Matmul weights are stored in
+    bf16 (the JAX package keeps fp32 masters and casts them to the
+    activation dtype at every use, so bf16 storage gives the same bf16
+    products); norm scales stay fp32.  Weights are cast to the activation
+    dtype at use, so fp32 activations run in fp32.
+  * activations are bf16; norms, RoPE and the attention / unembedding
+    logits are computed in fp32 (the JAX `preferred_element_type=f32`
+    sites upcast their bf16 operands rather than round a bf16 product).
+  * the KV cache is updated in place (slice assignment), unlike the JAX
+    package's functional updates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Params = dict
+
+
+def truncated_normal(shape, scale: float,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times `scale`, drawn in fp32
+    on the generator's device and stored in bf16 (a matmul weight)."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * scale).to(torch.bfloat16)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """Contract x's last `n_in` dims with w's first `n_in` dims."""
+    lead, out = x.shape[:x.dim() - n_in], w.shape[n_in:]
+    y = x.reshape(*lead, -1) @ w.to(x.dtype).reshape(-1, out.numel())
+    return y.reshape(*lead, *out)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device) -> Params:
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * p["scale"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs        # (.., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm / sliding window / KV cache decode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    window: int | None = None      # sliding-window size (None = global)
+    softmax_scale: float | None = None
+
+
+def init_attention(generator: torch.Generator, dims: AttnDims) -> Params:
+    d, h, kvh, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim
+    s = d ** -0.5
+    p = {
+        "wq": truncated_normal((d, h, hd), s, generator),
+        "wk": truncated_normal((d, kvh, hd), s, generator),
+        "wv": truncated_normal((d, kvh, hd), s, generator),
+        "wo": truncated_normal((h, hd, d), (h * hd) ** -0.5, generator),
+    }
+    if dims.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, generator.device)
+        p["k_norm"] = init_rmsnorm(hd, generator.device)
+    return p
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,KV,hd) -> (B,S,H,hd) by repeating groups (GQA)."""
+    reps = n_heads // k.shape[-2]
+    if reps == 1:
+        return k
+    return torch.repeat_interleave(k, reps, dim=-2)
+
+
+def _grouped_decode_attention(q, ck, cv, *, cache_index: int,
+                              window: int | None, scale=None):
+    """Single-token GQA decode without expanding kv to query heads.
+
+    q: (B,1,H,hd); ck/cv: (B,S,KV,hd).  Attends to cache slots
+    [max(0, cache_index - window + 1), cache_index]: the slice holds
+    exactly the keys the JAX version leaves unmasked.  Logits in fp32."""
+    b, _, h, hd = q.shape
+    g = ck.shape[2]
+    rep = h // g
+    scale = hd ** -0.5 if scale is None else scale
+    lo = 0 if window is None else max(0, cache_index - window + 1)
+    ck = ck[:, lo:cache_index + 1]
+    cv = cv[:, lo:cache_index + 1]
+    qg = q.reshape(b, 1, g, rep, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cv.to(q.dtype))
+    return out.reshape(b, 1, h, hd)
+
+
+def attention(p: Params, dims: AttnDims, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True,
+              kv_cache: Params | None = None, cache_index: int | None = None,
+              force: str | None = None) -> torch.Tensor:
+    """Full attention op.  Training/prefill when x holds several positions;
+    decode when x is (B,1,d) and a cache {"k","v"} with the fill index is
+    given.  The cache is written in place.  `force` goes to
+    `ops.attention` on the prefill path."""
+    s = x.shape[1]
+    q = _matmul(x, p["wq"])
+    k = _matmul(x, p["wk"])
+    v = _matmul(x, p["wv"])
+    if dims.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = apply_rope(q, positions, dims.rope_theta)
+    k = apply_rope(k, positions, dims.rope_theta)
+
+    if kv_cache is not None and s == 1:
+        kv_cache["k"][:, cache_index:cache_index + 1] = k
+        kv_cache["v"][:, cache_index:cache_index + 1] = v
+        out = _grouped_decode_attention(
+            q, kv_cache["k"], kv_cache["v"], cache_index=cache_index,
+            window=dims.window, scale=dims.softmax_scale)
+    else:
+        out = ops.attention(
+            q, _expand_kv(k, dims.n_heads), _expand_kv(v, dims.n_heads),
+            causal=causal, window=dims.window, q_offset=cache_index or 0,
+            scale=dims.softmax_scale, force=force)
+        if kv_cache is not None:
+            base = cache_index or 0
+            kv_cache["k"][:, base:base + s] = k
+            kv_cache["v"][:, base:base + s] = v
+    return _matmul(out, p["wo"], n_in=2)
+
+
+def init_kv_cache(batch: int, max_seq: int, dims: AttnDims,
+                  device) -> Params:
+    """bf16 KV cache of `max_seq` slots per layer.  The JAX package's ring
+    buffer for sliding windows shorter than `max_seq` is not ported."""
+    if dims.window is not None and dims.window < max_seq:
+        raise NotImplementedError("ring-buffer KV cache (window < max_seq)")
+    shape = (batch, max_seq, dims.n_kv_heads, dims.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Gated MLPs (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int) -> Params:
+    s_in, s_out = d_model ** -0.5, d_ff ** -0.5
+    return {
+        "wi_gate": truncated_normal((d_model, d_ff), s_in, generator),
+        "wi_up": truncated_normal((d_model, d_ff), s_in, generator),
+        "wo": truncated_normal((d_ff, d_model), s_out, generator),
+    }
+
+
+_ACTIVATIONS = {"silu": F.silu,
+                "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    gate = _ACTIVATIONS[activation](_matmul(x, p["wi_gate"]))
+    up = _matmul(x, p["wi_up"])
+    return _matmul(gate * up, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def init_embed(generator: torch.Generator, vocab: int, d_model: int,
+               tied: bool = True) -> Params:
+    s = d_model ** -0.5
+    p = {"table": truncated_normal((vocab, d_model), s, generator)}
+    if not tied:
+        p["unembed"] = truncated_normal((d_model, vocab), s, generator)
+    return p
+
+
+def scalar_as(value: float, dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float: multiplying a
+    tensor of that dtype by it matches the JAX `x * jnp.asarray(value,
+    dtype)` without creating a device tensor (a blocking copy)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def embed(p: Params, tokens: torch.Tensor, scale: float = 1.0,
+          dtype=torch.bfloat16) -> torch.Tensor:
+    x = p["table"][tokens].to(dtype)
+    return x if scale == 1.0 else x * scalar_as(scale, dtype)
+
+
+def unembed(p: Params, x: torch.Tensor, cap: float | None = None):
+    """fp32 logits from fp32-upcast operands (the product is never rounded
+    to bf16)."""
+    table = p.get("unembed")
+    w = p["table"].T if table is None else table
+    logits = x.float() @ w.float()
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    return logits

@@ -1,0 +1,121 @@
+"""The port's LM and serving path against `repro.models.lm` and
+`repro.launch.serve` on reduced configs.
+
+Params come from the JAX `model.init` and cross with `params_from_jax`;
+tokens come from a numpy seed.  Bars: forward and prefill logits within
+2e-2 of the largest magnitude, teacher-forced decode steps within 3e-2
+(the bar tests/test_models.py uses for decode against forward).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
+from repro.models import lm as jlm
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import lm as tlm
+
+DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    """(JAX model, JAX params, port model, port params) for a reduced
+    config; read-only, shared across tests."""
+    jm = jlm.build(jconfigs.get(arch, reduced=True))
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tm = tlm.build(tconfigs.get(arch, reduced=True))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jm, jp, tm, tp
+
+
+def _tokens(shape, vocab, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, shape)
+
+
+def _rel(got, want):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / max(1e-6, np.abs(want).max())
+
+
+def test_configs_are_copies():
+    for arch in jconfigs.all_archs():
+        j = jconfigs.get(arch)
+        t = tconfigs.get(arch)
+        assert type(t).__module__.startswith("repro_torch.")
+        assert repr(j) == repr(t)
+        assert repr(jconfigs.get(arch, reduced=True)) == repr(
+            tconfigs.get(arch, reduced=True))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_logits_match_jax(arch):
+    jm, jp, tm, tp = _models(arch)
+    tokens = _tokens((2, 32), tm.cfg.vocab)
+    want, _, _ = jax.jit(jm.forward)(jp, jnp.asarray(tokens))
+    got = tm.forward(tp, torch.from_numpy(tokens))
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= 2e-2
+
+
+def test_teacher_forced_decode_matches_jax():
+    jm, jp, tm, tp = _models("tinyllama-1.1b")
+    b, s, pre = 2, 20, 8
+    tokens = _tokens((b, s), tm.cfg.vocab, seed=2)
+    jcache = jm.init_cache(b, s)
+    jlogits, jcache = jax.jit(jm.prefill)(jp, jnp.asarray(tokens[:, :pre]),
+                                          jcache)
+    tcache = tm.init_cache(b, s, "cpu")
+    tt = torch.from_numpy(tokens)
+    assert _rel(tm.prefill(tp, tt[:, :pre], tcache), jlogits) <= 2e-2
+    step = jax.jit(jm.decode_step)
+    for i in range(pre, s):
+        jlogits, jcache = step(jp, jnp.asarray(tokens[:, i:i + 1]), jcache,
+                               jnp.asarray(i, jnp.int32))
+        got = tm.decode_step(tp, tt[:, i:i + 1], tcache, i)
+        assert _rel(got, jlogits) <= 3e-2, i
+
+
+def test_prefill_at_flash_threshold_matches_jax():
+    """Prompt of FLASH_THRESHOLD tokens: both frameworks take their flash
+    branch (the JAX chunked reference, the port's plain twin)."""
+    jm, jp, tm, tp = _models("tinyllama-1.1b")
+    s = ops.FLASH_THRESHOLD
+    tokens = _tokens((1, s), tm.cfg.vocab, seed=3)
+    want, _ = jax.jit(jm.prefill)(jp, jnp.asarray(tokens),
+                                  jm.init_cache(1, s))
+    cache = tm.init_cache(1, s, "cpu")
+    got = tm.prefill(tp, torch.from_numpy(tokens), cache)
+    assert _rel(got, want) <= 2e-2
+    assert fa.flash_attention.launches == 0
+    assert cache["seg0"][-1]["kv"]["k"][:, s - 1].abs().sum() > 0
+
+
+def test_serve_main_on_cpu():
+    toks = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4"])
+    assert toks.shape == (2, 4) and toks.device.type == "cpu"
+    assert int(toks.min()) >= 0 and int(toks.max()) < 256
+
+
+def test_serve_main_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--gen", "2"])
+
+
+def test_build_is_dense_only():
+    with pytest.raises(NotImplementedError):
+        tlm.build(tconfigs.get("rwkv6-3b", reduced=True))
