@@ -6,16 +6,23 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel);
-  2. each kernel against its plain PyTorch twin on the card, over the
-     masks, dtypes and shapes listed in CASES, within fp32 2e-5 / bf16 2e-2;
-  3. the main path: `repro_torch.launch.serve.main` serving TinyLlama-1.1B
-     at full width (batch 4, prompt 2048, 16 new tokens, random weights
-     from seed 0), with every kernel's launch count read around that run;
-  4. prefill logits through the kernel against those through the plain
-     twin (relative max error <= 2e-2), the same model at reduced width on
-     the GPU against the CPU, and timings: kernel, plain twin and
-     `scaled_dot_product_attention` (a yardstick the port never calls) at
-     the main path's shape, prefill ms and decode ms per token;
+  2. each kernel against its plain PyTorch twin on the card:
+     flash_attention over the masks, dtypes and shapes listed in CASES,
+     within fp32 2e-5 / bf16 2e-2; wkv6 over WKV_CASES and a state-carry
+     case, y and the final state within |got - want| <= 1e-4 + 1e-4 |want|
+     elementwise, the main shape included;
+  3. the main paths, each with every kernel's launch count set to 0 just
+     before and read just after: `repro_torch.launch.serve.main` serving
+     TinyLlama-1.1B and RWKV6-3B at full width (batch 4, prompt 2048, 16
+     new tokens, random weights from seed 0);
+  4. per model: prefill logits through the kernel against those through
+     the plain twin (relative max error <= 2e-2; for RWKV6-3B each block on
+     the same input, and the logits within max(2e-2, 1.5 x the plain
+     twin's distance from a float64 recurrence)), the same model at reduced
+     width on the GPU against the CPU, and timings: kernel and plain twin
+     (and for flash attention `scaled_dot_product_attention`, a yardstick
+     the port never calls) at the main path's shape, prefill ms and decode
+     ms per token;
   5. torch.profiler's device time for one prefill and three decode steps,
      as a share of the timings above, with the heaviest kernels.
 Prints one `{"kernels": [...]}` line, the card line, and last
@@ -54,6 +61,21 @@ CASES = [
 ]
 MAIN = CASES[-1]
 ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 4, 2048, 16
+RWKV_ARCH = "rwkv6-3b"
+# (B, S, H, hd, chunk, decay, with_s0): w = exp(-exp(decay + 0.5 N))
+WKV_CASES = [
+    (1, 128, 2, 32, 32, -3.0, False),
+    (1, 128, 2, 32, 64, -3.0, False),
+    (2, 256, 4, 64, 32, -3.0, False),
+    (2, 256, 4, 64, 64, -3.0, False),
+    (1, 2100, 2, 64, 64, -3.0, False),      # ragged last chunk
+    (4, 1, 40, 64, 32, -3.0, True),         # one decode step
+    (2, 256, 4, 16, 32, -3.0, True),
+    (2, 256, 4, 128, 32, -3.0, True),
+    (2, 256, 4, 64, 64, 2.0, False),        # strong decay
+    (4, 2048, 40, 64, 32, -3.0, True),      # the main path's shape
+]
+WKV_MAIN = WKV_CASES[-1]
 
 
 def fail(msg: str) -> None:
@@ -164,6 +186,260 @@ def check_kernels(fa) -> float:
     return main_err
 
 
+def wkv_inputs(case, seed=0):
+    """r, k, v ~ 0.5 N; w = exp(-exp(decay + 0.5 N)); u ~ 0.1 N;
+    s0 ~ 0.1 N or None; float32 on the card."""
+    b, s, h, hd, _, decay, with_s0 = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (0.5 * n(b, s, h, hd) for _ in "rkv")
+    w = torch.exp(-torch.exp(decay + 0.5 * n(b, s, h, hd)))
+    u = 0.1 * n(h, hd)
+    return r, k, v, w, u, 0.1 * n(b, h, hd, hd) if with_s0 else None
+
+
+WKV_BAR = "elementwise |got - want| <= 1e-4 + 1e-4 |want|"
+
+
+def wkv_ok(got, want) -> tuple[bool, float]:
+    """Whether a WKV6 result is finite and meets WKV_BAR (the bar of
+    tests/test_kernels.py), and its max abs error."""
+    d = (got - want).abs()
+    return (bool(torch.isfinite(got).all().item()
+                 and (d <= 1e-4 + 1e-4 * want.abs()).all().item()),
+            d.max().item())
+
+
+def wkv_bound(case) -> tuple[float, str]:
+    """Least time (ms): r, k, v, w, u and s0 read once, y and s_final
+    written once, against the recurrence's 4*B*S*H*hd^2 fp32 operations."""
+    b, s, h, hd, _, _, with_s0 = case
+    nbytes = 4 * (5 * b * s * h * hd + h * hd
+                  + (2 if with_s0 else 1) * b * h * hd * hd)
+    flops = 4.0 * b * s * h * hd * hd
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_wkv6(wkv) -> float:
+    """Phase 2 for wkv6; returns the max abs error of y at the main path's
+    shape."""
+    main_err = None
+    for case in WKV_CASES:
+        r, k, v, w, u, s0 = wkv_inputs(case)
+        y, s = wkv.wkv6(r, k, v, w, u, s0, chunk=case[4])
+        want_y, want_s = wkv.wkv6_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        ok_y, err_y = wkv_ok(y, want_y)
+        ok_s, err_s = wkv_ok(s, want_s)
+        print(json.dumps({"wkv6_case": list(case), "max_abs_err_y": err_y,
+                          "max_abs_err_state": err_s, "bar": WKV_BAR,
+                          "ok": ok_y and ok_s}), flush=True)
+        if not (ok_y and ok_s):
+            fail(f"wkv6 {case}: error y {err_y}, state {err_s}")
+        if case is WKV_MAIN:
+            main_err = err_y
+        del r, k, v, w, u, s0, y, s, want_y, want_s
+    # state carry: two halves with the carried state against one run
+    case = (2, 600, 40, 64, 32, -3.0, False)
+    r, k, v, w, u, _ = wkv_inputs(case, seed=1)
+    y_all, s_all = wkv.wkv6(r, k, v, w, u)
+    y1, s1 = wkv.wkv6(r[:, :333], k[:, :333], v[:, :333], w[:, :333], u)
+    y2, s2 = wkv.wkv6(r[:, 333:], k[:, 333:], v[:, 333:], w[:, 333:], u, s1)
+    torch.cuda.synchronize()
+    ok_y, err_y = wkv_ok(torch.cat([y1, y2], 1), y_all)
+    ok_s, err_s = wkv_ok(s2, s_all)
+    print(json.dumps({"wkv6_state_carry": list(case), "max_abs_err_y": err_y,
+                      "max_abs_err_state": err_s, "bar": WKV_BAR,
+                      "ok": ok_y and ok_s}), flush=True)
+    if not (ok_y and ok_s):
+        fail(f"wkv6 state carry: error y {err_y}, state {err_s}")
+    return main_err
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def serve_counted(serve, arch, counters) -> tuple:
+    """Phase 3 for one model: every launch counter set to 0 just before
+    `serve.main`, read just after.  Returns (tokens, {kernel: launches},
+    seconds)."""
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks = serve.main(["--arch", arch, "--batch", str(BATCH),
+                       "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return toks, {name: fn.launches for name, fn in counters.items()}, dt
+
+
+def check_tokens(toks, vocab: int, arch: str) -> None:
+    if toks.shape != (BATCH, GEN) or not (0 <= int(toks.min())
+                                          and int(toks.max()) < vocab):
+        fail(f"serve {arch} tokens {tuple(toks.shape)} out of range")
+
+
+def wkv6_f64(r, k, v, w, u, s0=None):
+    """The WKV6 recurrence in float64, rounded to float32 at the end: the
+    exact answer that both the kernel and the plain twin approximate."""
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf = (t.double() for t in (r, k, v, w))
+    uf = u.double()[None, :, :, None]
+    st = (torch.zeros((b, h, hd, hd), dtype=torch.float64, device=r.device)
+          if s0 is None else s0.double())
+    y = torch.empty((b, s, h, hd), dtype=torch.float64, device=r.device)
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv)
+        st = wf[:, t, :, :, None] * st + kv
+    return y.float(), st.float()
+
+
+def check_rwkv_prefill(cfg, lm, wkv, plain, params, prompts, got, want):
+    """Phase 4 for RWKV6-3B, prefill through the kernel against the plain
+    twin.  Layer by layer on the same inputs (the kernel's own effect):
+    relative max error <= 2e-2 for every block.  End to end over 32 layers
+    the bf16 rounding differences that any two fp32 summation orders leave
+    grow with depth, so the logits are held to max(2e-2, 1.5 x the plain
+    twin's own distance from the float64 recurrence)."""
+    from repro_torch.models import layers
+    seg = lm.layer_plan(cfg)[0]
+    dev = prompts.device
+    x = layers.embed(params["embed"], prompts)
+    pos = torch.arange(PROMPT, device=dev)[None]
+    worst = 0.0
+    for lp in params["seg0"]:
+        outs = [lm._apply_block(
+            lp, cfg, seg, x, pos, force=force,
+            cache=lm._init_block_cache(cfg, seg, BATCH, 0, dev))
+            for force in (None, "plain")]
+        worst = max(worst, rel_err(*outs))
+        x = outs[0]
+    plain_fn, wkv.wkv6_plain = wkv.wkv6_plain, wkv6_f64
+    try:
+        exact = plain.prefill(params, prompts,
+                              plain.init_cache(BATCH, PROMPT, dev))
+    finally:
+        wkv.wkv6_plain = plain_fn
+    rel, floor = rel_err(got, want), rel_err(want, exact)
+    bar = max(2e-2, 1.5 * floor)
+    print(f"rwkv prefill: worst block kernel vs plain on the same input "
+          f"{worst:.3e} (bar 2e-2); logits kernel vs plain {rel:.3e} (bar "
+          f"{bar:.3e}); plain vs float64 recurrence {floor:.3e}; kernel vs "
+          f"float64 {rel_err(got, exact):.3e}", flush=True)
+    if worst > 2e-2:
+        fail(f"an rwkv block through the kernel differs from plain: {worst}")
+    if not (torch.isfinite(got).all().item() and rel <= bar):
+        fail(f"rwkv prefill logits through the kernel differ: {rel}")
+
+
+def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
+    """Phases 3-5 for RWKV6-3B; returns the wkv6 entry of the kernels
+    line."""
+    cfg = configs.get(RWKV_ARCH)
+    toks, launches, serve_s = serve_counted(serve, RWKV_ARCH, counters)
+    print(f"serve {RWKV_ARCH}: {serve_s:.3f}s end to end (weights init "
+          f"included), launches {launches} [{card}]", flush=True)
+    want = {"wkv6": cfg.n_layers * GEN, "flash_attention": 0}
+    if launches != want:
+        fail(f"serve {RWKV_ARCH} launched {launches}; want {want} (one "
+             "wkv6 per layer for the prefill and each of the "
+             f"{GEN - 1} decode steps)")
+    check_tokens(toks, cfg.vocab, RWKV_ARCH)
+    del toks
+
+    # 4a. kernel timings at the main path's shape
+    args = wkv_inputs(WKV_MAIN)
+    ms = time_ms(lambda: wkv.wkv6(*args, chunk=WKV_MAIN[4]), 20)
+    plain_ms = time_ms(lambda: wkv.wkv6_plain(*args), 2, warmup=1)
+    bound_ms, bound_by = wkv_bound(WKV_MAIN)
+    print(f"wkv6 {WKV_MAIN[:4]} fp32 with s0: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{card}]", flush=True)
+    del args
+
+    # 4b. prefill through the kernel vs the plain twin; decode timing
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, PROMPT + GEN, dev)
+        before = wkv.wkv6.launches
+        got = model.prefill(params, prompts, cache)
+        torch.cuda.synchronize()
+        if wkv.wkv6.launches - before != cfg.n_layers:
+            fail("rwkv prefill did not launch wkv6 once per layer")
+        t0 = time.perf_counter()
+        want_logits = plain.prefill(params, prompts,
+                                    plain.init_cache(BATCH, PROMPT + GEN, dev))
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+        check_rwkv_prefill(cfg, lm, wkv, plain, params, prompts, got,
+                           want_logits)
+
+        prefill_ms = time_ms(lambda: model.prefill(params, prompts, cache),
+                             3, warmup=1)
+        cache = model.init_cache(BATCH, PROMPT + GEN, dev)
+        tok = model.prefill(params, prompts, cache)[:, -1].argmax(
+            dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(GEN - 1):
+            tok = model.decode_step(params, tok, cache, PROMPT + i)[:, -1] \
+                .argmax(dim=-1, keepdim=True)
+        end.record()
+        end.synchronize()
+        decode_ms = start.elapsed_time(end) / (GEN - 1)
+        print(f"rwkv prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms through "
+              f"the kernel, {plain_prefill_ms:.3f} ms through the plain twin "
+              f"(one call, host clock); decode {decode_ms:.3f} ms/token, "
+              f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH} "
+              f"[{card}]", flush=True)
+
+        # 5. where the time goes
+        report_busy("rwkv prefill", device_kernels(
+            lambda: model.prefill(params, prompts, cache)), prefill_ms, 1)
+
+        def three_steps():
+            for i in range(3):
+                model.decode_step(params, tok, cache, PROMPT + GEN + i)
+        report_busy("rwkv decode step", device_kernels(three_steps),
+                    decode_ms, 3)
+    del params, cache, got, want_logits
+
+    # 4c. the reduced model on the GPU (kernel at hd 16) against the CPU
+    small = configs.get(RWKV_ARCH, reduced=True)
+    sm = lm.build(small)
+    sp = sm.init(torch.Generator("cpu").manual_seed(0))
+    stoks = torch.randint(0, small.vocab, (2, 64),
+                          generator=torch.Generator("cpu").manual_seed(2))
+    cpu_logits = sm.forward(sp, stoks)
+    before = wkv.wkv6.launches
+    gpu_logits = sm.forward(tree_map(lambda t: t.to(dev), sp),
+                            stoks.to(dev)).cpu()
+    rel_small = rel_err(gpu_logits, cpu_logits)
+    print(f"reduced {small.name} forward, GPU vs CPU: rel max err "
+          f"{rel_small:.3e} ({wkv.wkv6.launches - before} wkv6 launches)",
+          flush=True)
+    if rel_small > 2e-2 or wkv.wkv6.launches - before != small.n_layers:
+        fail(f"reduced rwkv forward on the GPU differs from the CPU: "
+             f"{rel_small}")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:78",
+            "launches": launches["wkv6"], "max_abs_err": None, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -173,6 +449,7 @@ def main() -> int:
     import repro_torch.configs as configs
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wkv
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -192,24 +469,19 @@ def main() -> int:
 
     # 2. kernels against their plain twins
     main_err = check_kernels(fa)
+    wkv_main_err = check_wkv6(wkv)
 
-    # 3. the main path, counted
-    fa.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    toks = serve.main(["--arch", ARCH, "--batch", str(BATCH),
-                       "--prompt-len", str(PROMPT), "--gen", str(GEN)])
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
+    # 3. the dense main path, counted
+    counters = {"flash_attention": fa.flash_attention, "wkv6": wkv.wkv6}
+    toks, counts, serve_s = serve_counted(serve, ARCH, counters)
+    launches = counts["flash_attention"]
     cfg = configs.get(ARCH)
     print(f"serve {ARCH}: {serve_s:.3f}s end to end (weights init included), "
-          f"flash_attention launches {launches} [{card}]", flush=True)
-    if launches != cfg.n_layers:
-        fail(f"flash_attention launched {launches} times in the serve run; "
-             f"want one per layer ({cfg.n_layers})")
-    if toks.shape != (BATCH, GEN) or not (0 <= int(toks.min())
-                                          and int(toks.max()) < cfg.vocab):
-        fail(f"serve tokens {tuple(toks.shape)} out of range")
+          f"launches {counts} [{card}]", flush=True)
+    if counts != {"flash_attention": cfg.n_layers, "wkv6": 0}:
+        fail(f"serve {ARCH} launched {counts}; want flash_attention once "
+             f"per layer ({cfg.n_layers}) and no wkv6")
+    check_tokens(toks, cfg.vocab, ARCH)
     del toks
 
     # 4a. kernel timings at the main path's shape
@@ -228,7 +500,7 @@ def main() -> int:
 
     # 4b. prefill through the kernel vs the plain twin; decode timing
     model = lm.build(cfg)
-    plain = lm.build(cfg, attn_force="plain")
+    plain = lm.build(cfg, force="plain")
     dev = torch.device("cuda")
     params = model.init(torch.Generator(dev).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
@@ -295,14 +567,20 @@ def main() -> int:
           f"{rel_small:.3e}", flush=True)
     if rel_small > 2e-2:
         fail(f"reduced forward on the GPU differs from the CPU: {rel_small}")
+    del sp, sp_gpu, cpu_logits, gpu_logits
+    torch.cuda.empty_cache()
+
+    # 3-5 for the RWKV main path
+    wkv_entry = rwkv_path(card, configs, lm, serve, wkv, counters)
+    wkv_entry["max_abs_err"] = wkv_main_err
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
         "launches": launches, "max_abs_err": main_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}]}))
+        "library_ms": lib_ms}, wkv_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

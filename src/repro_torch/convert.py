@@ -4,8 +4,9 @@
 `jax.tree.map(np.asarray, ...)` (nested dicts of numpy arrays) and returns
 the port's params: each segment's leading layer axis unstacked into a list
 of per-layer dicts, matmul weights in bf16 (the JAX path casts them to bf16
-at every use, so this is bit-identical) and norm scales (`scale` leaves) in
-fp32.
+at every use, so this is bit-identical), and in fp32 the norm scales
+(`scale` leaves) and the leaves that the RWKV time-mix reads in fp32
+(FP32_LEAVES).
 """
 
 from __future__ import annotations
@@ -14,10 +15,13 @@ import numpy as np
 import torch
 
 
+FP32_LEAVES = frozenset({"scale", "w0", "w_lora_a", "w_lora_b", "bonus"})
+
+
 def _leaf(name: str, a, device) -> torch.Tensor:
     t = torch.from_numpy(np.array(a, np.float32))
-    return t.to(device=device,
-                dtype=torch.float32 if name == "scale" else torch.bfloat16)
+    return t.to(device=device, dtype=torch.float32 if name in FP32_LEAVES
+                else torch.bfloat16)
 
 
 def _tree(d: dict, device) -> dict:

@@ -1,10 +1,12 @@
-"""Plain PyTorch attention oracles, ported from `repro.kernels.ref`.
+"""Plain PyTorch kernel oracles, ported from `repro.kernels.ref`.
 
 `naive_attention` is the quadratic SDPA oracle.  `flash_attention_ref` is
 the forward of the chunked online-softmax attention (fp32 m, l, acc) and is
 the plain twin of the CUDA kernel in `flash_attention.py`.  Unlike the JAX
 reference, it walks a ragged last KV block instead of dropping the keys past
 the last whole `block_k` (`skv // block_k` in `repro.kernels.ref._flash_fwd`).
+`wkv6_ref` is the sequential WKV6 recurrence, the plain twin of the CUDA
+kernel in `wkv6.py`.
 """
 
 from __future__ import annotations
@@ -73,3 +75,21 @@ def flash_attention_ref(q, k, v, block_k: int = 512, causal: bool = True,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """Sequential WKV6 in fp32.  r,k,v,w: (B,S,H,hd); u: (H,hd);
+    s0: (B,H,hd,hd) or None (zeros).  Per step
+    y_t = r_t (S + diag(u) k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
+    Returns (y: (B,S,H,hd) fp32, s_final: (B,H,hd,hd) fp32)."""
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0.float())
+    y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return y, state

@@ -25,13 +25,14 @@ from repro_torch.kernels import ops
 Params = dict
 
 
-def truncated_normal(shape, scale: float,
-                     generator: torch.Generator) -> torch.Tensor:
+def truncated_normal(shape, scale: float, generator: torch.Generator,
+                     dtype=torch.bfloat16) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times `scale`, drawn in fp32
-    on the generator's device and stored in bf16 (a matmul weight)."""
+    on the generator's device and stored in `dtype` (bf16: a matmul
+    weight)."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(torch.bfloat16)
+    return (t * scale).to(dtype)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain twin, on the GPU.
+"""The CUDA kernels (flash attention, WKV6) against their plain twins, on
+the GPU.
 
 Marked `cuda`: each test skips without a CUDA device.  Run on the GPU
 machine with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
@@ -11,6 +12,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import wkv6 as wkv
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
@@ -77,7 +79,104 @@ def test_model_prefill_launches_one_kernel_per_layer(dev):
     got = lm.build(cfg).prefill(params, tokens,
                                 lm.build(cfg).init_cache(1, 2048, dev))
     assert fa.flash_attention.launches - before == cfg.n_layers
-    plain = lm.build(cfg, attn_force="plain")
+    plain = lm.build(cfg, force="plain")
     want = plain.prefill(params, tokens, plain.init_cache(1, 2048, dev))
     rel = (got - want).abs().max() / want.abs().max()
     assert rel.item() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# WKV6
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(dev, shape, decay=-3.0, with_s0=False, seed=0):
+    """r, k, v ~ 0.5 N; w = exp(-exp(decay + 0.5 N)); u ~ 0.1 N;
+    s0 ~ 0.1 N or None, float32 on `dev`."""
+    b, _, h, hd = shape
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def n(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+    r, k, v = 0.5 * n(*shape), 0.5 * n(*shape), 0.5 * n(*shape)
+    w = torch.exp(-torch.exp(decay + 0.5 * n(*shape)))
+    u = 0.1 * n(h, hd)
+    s0 = 0.1 * n(b, h, hd, hd) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+def _wkv_ok(got, want):
+    """|got - want| <= 1e-4 + 1e-4 |want| elementwise (the bar of
+    tests/test_kernels.py), and finite."""
+    return bool(torch.isfinite(got).all()
+                and ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("shape,chunk,decay,with_s0", [
+    ((1, 128, 2, 32), 32, -3.0, False),
+    ((1, 128, 2, 32), 64, -3.0, False),
+    ((2, 256, 4, 64), 32, -3.0, False),
+    ((2, 256, 4, 64), 64, -3.0, True),
+    ((1, 2100, 2, 64), 64, -3.0, False),      # ragged last chunk
+    ((4, 1, 40, 64), 32, -3.0, True),         # one decode step
+    ((2, 100, 3, 16), 32, -3.0, True),
+    ((2, 100, 3, 128), 128, -3.0, True),
+    ((2, 256, 4, 64), 1, -3.0, False),
+    ((2, 256, 4, 64), 64, 2.0, False),        # strong decay
+])
+def test_wkv6_kernel_matches_plain(dev, shape, chunk, decay, with_s0):
+    r, k, v, w, u, s0 = _wkv_inputs(dev, shape, decay, with_s0)
+    y, s = wkv.wkv6(r, k, v, w, u, s0, chunk=chunk)
+    want_y, want_s = wkv.wkv6_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert _wkv_ok(y, want_y) and _wkv_ok(s, want_s)
+
+
+def test_wkv6_kernel_state_carry(dev):
+    r, k, v, w, u, _ = _wkv_inputs(dev, (2, 300, 4, 64), seed=1)
+    y_all, s_all = wkv.wkv6(r, k, v, w, u)
+    y1, s1 = wkv.wkv6(r[:, :170], k[:, :170], v[:, :170], w[:, :170], u)
+    y2, s2 = wkv.wkv6(r[:, 170:], k[:, 170:], v[:, 170:], w[:, 170:], u, s1)
+    assert _wkv_ok(torch.cat([y1, y2], 1), y_all) and _wkv_ok(s2, s_all)
+
+
+def test_wkv6_kernel_reads_strided_input(dev):
+    """Every other head of a wider tensor, and a token slice: no copies."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, (2, 96, 6, 32), with_s0=True)
+    sl = (slice(None), slice(16, None), slice(None, None, 2))
+    args = [t[sl] for t in (r, k, v, w)]
+    assert not args[0].is_contiguous()
+    y, s = wkv.wkv6(*args, u[::2], s0[:, ::2])
+    want_y, want_s = wkv.wkv6_plain(*args, u[::2], s0[:, ::2])
+    assert _wkv_ok(y, want_y) and _wkv_ok(s, want_s)
+
+
+def test_wkv6_kernel_rejects_what_it_does_not_take(dev):
+    r, k, v, w, u, _ = _wkv_inputs(dev, (1, 8, 2, 48))
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv.wkv6(r, k, v, w, u)
+    r, k, v, w, u, _ = _wkv_inputs(dev, (1, 8, 2, 64))
+    with pytest.raises(ValueError, match="float32"):
+        wkv.wkv6(r.bfloat16(), k, v, w, u)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv.wkv6(r, k, v, w, u, chunk=129)
+
+
+def test_rwkv_model_launches_one_kernel_per_layer_per_step(dev):
+    cfg = ArchConfig(name="gpu-rwkv", family="ssm", n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=4, head_dim=64, d_ff=512,
+                     vocab=512, rwkv=True)
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=dev)
+    cache, pcache = model.init_cache(2, 42, dev), plain.init_cache(2, 42, dev)
+    before = wkv.wkv6.launches
+    got = [model.prefill(params, tokens, cache)]
+    want = [plain.prefill(params, tokens, pcache)]
+    for i in range(2):
+        tok = got[-1][:, -1].argmax(-1, keepdim=True)
+        got.append(model.decode_step(params, tok, cache, 40 + i))
+        want.append(plain.decode_step(params, tok, pcache, 40 + i))
+    assert wkv.wkv6.launches - before == 3 * cfg.n_layers
+    for g, p in zip(got, want):
+        assert ((g - p).abs().max() / p.abs().max()).item() <= 2e-2

@@ -117,5 +117,7 @@ def test_serve_main_defaults_to_cuda():
 
 
 def test_build_is_dense_only():
-    with pytest.raises(NotImplementedError):
-        tlm.build(tconfigs.get("rwkv6-3b", reduced=True))
+    """Only the dense and rwkv families are ported; the others raise."""
+    for arch in ("hymba-1.5b", "deepseek-moe-16b"):
+        with pytest.raises(NotImplementedError):
+            tlm.build(tconfigs.get(arch, reduced=True))
