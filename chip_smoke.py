@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from
-     `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel);
+     `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
+     and print ptxas's register, spill and warning lines;
   2. each kernel against its plain PyTorch twin on the card:
      flash_attention over the masks, dtypes and shapes listed in CASES,
      within fp32 2e-5 / bf16 2e-2; wkv6 over WKV_CASES and a state-carry
@@ -21,8 +22,9 @@ Phases, each fatal on failure:
      twin's distance from a float64 recurrence)), the same model at reduced
      width on the GPU against the CPU, and timings: kernel and plain twin
      (and for flash attention `scaled_dot_product_attention`, a yardstick
-     the port never calls) at the main path's shape, prefill ms and decode
-     ms per token;
+     the port never calls, and the achieved TFLOP/s) at the main path's
+     shape, for flash attention also at hd 128 (4, 2048, 40, 128), prefill
+     ms and decode ms per token;
   5. torch.profiler's device time for one prefill and three decode steps,
      as a share of the timings above, with the heaviest kernels.
 Prints one `{"kernels": [...]}` line, the card line, and last
@@ -57,9 +59,23 @@ CASES = [
     (1, 128, 256, 2, 64, True, None, 128, None),
     (2, 256, 256, 4, 64, True, None, 0, 0.3),
     (1, 2100, 2100, 2, 64, True, None, 0, None),
+    # the edges of the bf16 kernel's 128-row q and 64 / 128-key kv tiles
+    (2, 1, 1, 3, 64, True, None, 0, None),
+    (2, 127, 127, 3, 64, True, None, 0, None),
+    (2, 129, 129, 3, 128, True, None, 0, None),
+    (2, 255, 255, 3, 64, True, None, 0, None),
+    (2, 129, 255, 3, 64, False, None, 0, None),
+    (2, 127, 255, 3, 64, True, None, 128, None),     # Sq < Skv, q_offset
+    (2, 1, 255, 3, 128, True, None, 254, None),      # one query, cache end
+    (2, 300, 300, 3, 64, True, 100, 0, None),        # window ends in a tile
+    (2, 255, 311, 3, 128, True, 200, 56, 0.2),
+    (2, 129, 64, 3, 128, False, None, 0, 0.2),       # Skv below one kv tile
+    (2, 129, 100, 3, 64, True, None, 64, None),
     (4, 2048, 2048, 32, 64, True, None, 0, None),   # the main path's shape
 ]
 MAIN = CASES[-1]
+# Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
+HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
 ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 4, 2048, 16
 RWKV_ARCH = "rwkv6-3b"
 # (B, S, H, hd, chunk, decay, with_s0): w = exp(-exp(decay + 0.5 N))
@@ -144,9 +160,8 @@ def attn_kwargs(case):
     return dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
 
 
-def bound(case, dtype) -> tuple[float, str]:
-    """Least time (ms) for the card: each input read and the output written
-    once, against the visible (q, k) pairs' QK^T and PV operations."""
+def attn_flops(case) -> float:
+    """The QK^T and PV operations of the visible (q, k) pairs."""
     b, sq, skv, h, hd = case[:5]
     causal, window, q_offset, _ = case[5:]
     q_pos = torch.arange(sq, dtype=torch.int64)[:, None] + q_offset
@@ -156,7 +171,14 @@ def bound(case, dtype) -> tuple[float, str]:
         vis &= q_pos >= k_pos
     if window is not None:
         vis &= q_pos - k_pos < window
-    flops = 4.0 * b * h * hd * int(vis.sum())
+    return 4.0 * b * h * hd * int(vis.sum())
+
+
+def bound(case, dtype) -> tuple[float, str]:
+    """Least time (ms) for the card: each input read and the output written
+    once, against the visible (q, k) pairs' QK^T and PV operations."""
+    b, sq, skv, h, hd = case[:5]
+    flops = attn_flops(case)
     nbytes = (2 * b * sq + 2 * b * skv) * h * hd * dtype.itemsize
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -184,6 +206,28 @@ def check_kernels(fa) -> float:
                 main_err = err
             del q, k, v, got, want
     return main_err
+
+
+def time_flash(fa, case, card) -> tuple:
+    """Phase 4a for one causal bf16 shape: the kernel, its plain twin and
+    `scaled_dot_product_attention` (a yardstick the port never calls) on the
+    same inputs, with the bound and the achieved TFLOP/s on the visible
+    pairs.  Returns (ms, plain_ms, sdpa_ms, bound_ms, bound_by)."""
+    q, k, v = qkv(case, torch.bfloat16)
+    kw = attn_kwargs(case)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    bound_ms, bound_by = bound(case, torch.bfloat16)
+    tflops = attn_flops(case) / 1e9
+    print(f"flash_attention {case[:5]} bf16 causal: kernel {ms:.4f} ms "
+          f"({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms ({tflops / lib_ms:.1f} TFLOP/s), bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
+          flush=True)
+    return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
 def wkv_inputs(case, seed=0):
@@ -464,7 +508,7 @@ def main() -> int:
           flush=True)
     for name in built:
         for line in build.log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain twins
@@ -484,19 +528,9 @@ def main() -> int:
     check_tokens(toks, cfg.vocab, ARCH)
     del toks
 
-    # 4a. kernel timings at the main path's shape
-    q, k, v = qkv(MAIN, torch.bfloat16)
-    kw = attn_kwargs(MAIN)
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
-    bound_ms, bound_by = bound(MAIN, torch.bfloat16)
-    print(f"flash_attention {MAIN[:5]} bf16 causal: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
-    del q, k, v, qt, kt, vt
+    # 4a. kernel timings at the main path's shape and at hd 128
+    ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(fa, MAIN, card)
+    time_flash(fa, HD128, card)
 
     # 4b. prefill through the kernel vs the plain twin; decode timing
     model = lm.build(cfg)

@@ -9,31 +9,61 @@
 // moveaxis copies), and masks ragged Sq / Skv tails itself.
 //
 // Bound at the serving path's shape (B=4, S=2048, H=32, hd=64, causal,
-// bf16) on an H100 SXM: the causal half of QK^T and PV is
-// 2*B*H*S^2*hd ~ 68.7 GFLOP, ~69 us at 989 TFLOP/s; q, k, v and o are
+// bf16) on an H100 SXM: the visible half of QK^T and PV is
+// 2*B*H*hd*S*(S+1) ~ 68.8 GFLOP, ~70 us at 989 TFLOP/s; q, k, v and o are
 // ~134 MB, ~40 us at 3.35 TB/s.  So the call is bound by tensor-core
-// operations at ~69 us, ~1.5 ms per 22-layer prefill.
+// operations at ~70 us (~1.5 ms per 22-layer prefill).  At hd 128 (Qwen3-14B
+// heads, H=40) the bound is ~174 us of operations.  The softmax's 2^x runs
+// on the SFUs, 16 per clock per SM: a 128 x 128 tile needs ~0.56 us of
+// them, about as long as its two products need on the tensor cores.
 //
-// Design (simple and exact first; no TMA / wgmma yet):
-//  * bf16: one block of 4 warps per (b*h, 64-row q tile).  Each warp owns
-//    16 q rows, keeps its Q fragments in registers, and walks 64-key K/V
-//    tiles staged through shared memory (K row-major, V transposed) with
-//    mma.sync m16n8k16 (bf16 in, fp32 accumulate).  The softmax runs on
-//    the fp32 accumulator fragments; P is rounded to bf16 only as the A
-//    operand of P @ V.  Shared-memory rows are padded by 8 elements so the
-//    fragment loads of a warp hit 32 distinct banks.
-//  * fp32: the tensor cores would round to tf32, so a SIMT kernel: four
-//    threads per q row, each holding a quarter of q and acc in registers,
-//    over 32-key K/V tiles in shared memory that a warp reads by broadcast.
-//  * KV tiles that are masked for every row of the q tile are skipped
-//    (past the diagonal when causal, before the window when windowed);
-//    the heaviest causal q tiles are scheduled first.
-//  * Keys past Skv get p = 0; rows past Sq are computed and not stored.
-// Masked logits are -1e30, as in the plain version, so a row gives the
-// same result as long as it sees at least one key.
+// bf16 design (the serving path):
+//  * One block per (b*h, 128-row q tile), one block per SM: two consumer
+//    warpgroups own 64 q rows each; a producer warpgroup, of which one
+//    thread works, issues the loads.  ptxas sizes registers by warpgroup
+//    (168 a thread for three), so setmaxnreg gives the consumers 224 and
+//    the producer 56.
+//  * The producer loads the Q tile once and K and V tiles into a ring of 3
+//    (hd 64) or 2 (hd 128) stages of dynamic shared memory with TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle; 113 / 97 KB).  Each tensor has
+//    one 4-D map over (hd, S, H, B) built on the host from the caller's
+//    strides, so strided views load uncopied; a swizzled box row is 64
+//    bf16, so hd 128 takes two boxes per tile.  Per stage a K-full and a
+//    V-full mbarrier (TMA transaction bytes) hand tiles to the consumers,
+//    and a K-empty and a V-empty mbarrier (one arrival per consumer warp)
+//    hand them back as soon as the product that reads them is done.
+//  * S = Q K^T is wgmma.mma_async with Q and K read K-major from shared
+//    memory.  The fp32 online softmax runs in base 2 on the accumulator
+//    fragment (a row on the 4 lanes of a quad, max and sum over four
+//    partial chains).  P is rounded to bf16 in place into the A fragments of
+//    O += P V, wgmma m64n64k16 with P from registers and V read MN-major
+//    from shared memory: no transpose.
+//  * Tiles: at hd 64, 128 keys make S one m64n128k16 per 16-wide k step and
+//    halve the softmax's per-tile bookkeeping against 64.  At hd 128 the
+//    consumer would need more than 224 registers for S (64), O (64) and P
+//    (32) and spills, so it takes 64 keys.  128 q rows let one K/V tile feed
+//    two warpgroups.
+//  * Masks only on tiles that hold a masked pair (the causal diagonal, the
+//    window edge, the Skv tail): there each row's visible keys are a range
+//    [lo, hi) and the others get -inf.  TMA fills rows past Skv and Sq with
+//    zeros; rows past Sq are not stored.
+//  * Schedule: kv_range skips the KV tiles masked for the whole q tile
+//    (past the causal diagonal, before the window).  The grid is 1-D with
+//    the q tiles of one head adjacent, heaviest first, so the blocks that
+//    share a head's K and V run together and read them from L2.
+// fp32 design: the tensor cores would round to tf32, so a SIMT kernel: four
+// threads per q row, each holding a quarter of q and acc in registers, over
+// 32-key K/V tiles in shared memory that a warp reads by broadcast; the same
+// kv_range, heaviest q tiles first.  Masked logits are -1e30 there, as in
+// the plain version.
+// Either kernel gives the plain version's result for a row that sees at
+// least one key.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -78,20 +108,181 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0, int bq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor-core kernel
+// bf16: TMA + mbarrier ring + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;       // q rows per block (16 per warp)
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128;
+constexpr int kBQ = 128;        // q rows per block, 64 per consumer warpgroup
+constexpr int kConsumers = 2;   // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kBox = 64;        // bf16 per 128-byte swizzled row
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+// Tile sizes and the shared-memory layout of a block, in bytes from a
+// 1024-byte-aligned base (the 128-byte swizzle repeats every 1024 bytes):
+// Q, the K stages, the V stages, then the mbarriers (8 bytes each).
+template <int HD>
+struct Cfg {
+  static constexpr int kBK = HD == 64 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kSub = HD / kBox;           // 64-wide column blocks
+  static constexpr int kQBytes = kBQ * HD * 2;
+  static constexpr int kTileBytes = kBK * HD * 2;  // one K or one V tile
+  static constexpr uint32_t kK = kQBytes;          // stage st: + st * kTileBytes
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kQFull = kV + kStages * kTileBytes;
+  static constexpr uint32_t kKFull = kQFull + 8;   // stage st: + 8 st, as the rest
+  static constexpr uint32_t kVFull = kKFull + 8 * kStages;
+  static constexpr uint32_t kKEmpty = kVFull + 8 * kStages;
+  static constexpr uint32_t kVEmpty = kKEmpty + 8 * kStages;
+  static constexpr int kSmem = 1024 + kVEmpty + 8 * kStages;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.  A
+// wait of ~10 s (2^34 cycles) means a lost arrival or transaction: trap,
+// so the launch reports an error instead of hanging the stream.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// one box of `map` at element coordinates (d, s, h, b) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+         "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses to wgmma registers across the
+// fence / wait instructions
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -99,175 +290,332 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Named barriers 1 and 2 order the consumer warpgroups' turns at the
+// tensor cores (0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(256) : "memory");
 }
 
-union Pack8 {
-  uint4 u;
-  uint16_t h[8];  // bf16 bit patterns
-};
-
-// rows [row0, row0+ROWS) of one (b, h) slice -> sm[r*LD + d]; zero past n.
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* sm,
-                                          const __nv_bfloat16* base,
-                                          long long stride_s, int row0,
-                                          int n) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride_s +
-                                            cc * 8);
-    *reinterpret_cast<uint4*>(sm + r * LD + cc * 8) = val;
-  }
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(256) : "memory");
 }
 
-// as load_rows, stored transposed: smT[d*LDT + r].
-template <int HD, int ROWS, int LDT>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* smT,
-                                            const __nv_bfloat16* base,
-                                            long long stride_s, int row0,
-                                            int n) {
-  constexpr int kChunks = HD / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    Pack8 val;
-    val.u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val.u = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride_s +
-                                              cc * 8);
-    uint16_t* dst = reinterpret_cast<uint16_t*>(smT);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(cc * 8 + e) * LDT + r] = val.h[e];
-  }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
+// Accumulator fragments (m64nN f32): thread tid of a warpgroup holds
+// d[4j + 2i + c] at row 16 (tid / 32) + (tid % 32) / 4 + 8i and column
+// 8j + 2 (tid % 4) + c.  The A fragment of a 16-wide k step is the same
+// pairs of two adjacent 8-column slices, rounded to bf16.
+
+// S = Q K^T for one warpgroup (64 x kBK), both operands K-major; issued,
+// not waited for.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const Params p) {
-  constexpr int LD = HD + 8;     // Q / K row pitch
-  constexpr int LDT = kBK + 8;   // V^T row pitch
-  constexpr int KQ = HD / 16;    // k-steps of Q K^T
-  constexpr int NS = kBK / 8;    // n-tiles of S
-  constexpr int NO = HD / 8;     // n-tiles of O
-  __shared__ __align__(16) __nv_bfloat16 sQK[kBQ * LD];  // Q, then K tiles
-  __shared__ __align__(16) __nv_bfloat16 sVt[HD * LDT];
-
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-
-  const auto* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const auto* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const auto* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.sv.b + h * p.sv.h;
-  auto* O = static_cast<__nv_bfloat16*>(p.o) + b * p.so.b + h * p.so.h;
-
-  load_rows<HD, kBQ, LD>(sQK, Q, p.sq.s, q0, p.Sq);
-  __syncthreads();
-  uint32_t qf[KQ][4];
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::kBK / 2],
+                                         uint32_t q_rows, uint32_t k_tile) {
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) {
-    qf[kk][0] = ld32(&sQK[r0 * LD + kk * 16 + 2 * t]);
-    qf[kk][1] = ld32(&sQK[(r0 + 8) * LD + kk * 16 + 2 * t]);
-    qf[kk][2] = ld32(&sQK[r0 * LD + kk * 16 + 8 + 2 * t]);
-    qf[kk][3] = ld32(&sQK[(r0 + 8) * LD + kk * 16 + 8 + 2 * t]);
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(s,
+             sw128_desc(q_rows + (kk / 4) * kBQ * 128 + (kk % 4) * 32, 16, 1024),
+             sw128_desc(k_tile + (kk / 4) * Cfg<HD>::kBK * 128 + (kk % 4) * 32,
+                        16, 1024),
+             kk > 0);
+  wgmma_commit();
+}
+
+// O += P V: V is [key][hd], read MN-major; a k step is 16 keys (2048
+// bytes).  Issued, not waited for.
+template <int HD>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 64][32], const uint32_t (&pa)[Cfg<HD>::kBK / 16][4],
+    uint32_t v_tile) {
+  constexpr int kBK = Cfg<HD>::kBK;
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c) reg_fence(o[c]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+      wgmma_rs(o[c], pa[kk],
+               sw128_desc(v_tile + c * kBK * 128 + kk * 2048, kBK * 128, 1024));
+  wgmma_commit();
+}
+
+// The producer: one thread loads Q, then K and V tile by tile into the ring,
+// each stage once the consumers have released its previous tile.
+template <int HD>
+__device__ __forceinline__ void produce(const CUtensorMap& tq,
+                                        const CUtensorMap& tk,
+                                        const CUtensorMap& tv, uint32_t base,
+                                        int q0, int h, int b, int lo,
+                                        int n_tiles) {
+  using C = Cfg<HD>;
+  mbar_expect_tx(base + C::kQFull, C::kQBytes);
+  for (int c = 0; c < C::kSub; ++c)
+    tma_load(base + c * kBQ * 128, &tq, base + C::kQFull, c * kBox, q0, h, b);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % C::kStages, k0 = (lo + it) * C::kBK;
+    const uint32_t parity = (it / C::kStages - 1) & 1;
+    const uint32_t kt = base + C::kK + st * C::kTileBytes;
+    const uint32_t vt = base + C::kV + st * C::kTileBytes;
+    const uint32_t k_full = base + C::kKFull + 8 * st;
+    const uint32_t v_full = base + C::kVFull + 8 * st;
+    if (it >= C::kStages) mbar_wait(base + C::kKEmpty + 8 * st, parity);
+    mbar_expect_tx(k_full, C::kTileBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(kt + c * C::kBK * 128, &tk, k_full, c * kBox, k0, h, b);
+    if (it >= C::kStages) mbar_wait(base + C::kVEmpty + 8 * st, parity);
+    mbar_expect_tx(v_full, C::kTileBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(vt + c * C::kBK * 128, &tv, v_full, c * kBox, k0, h, b);
   }
-  __syncthreads();  // sQK now holds K tiles
+}
 
-  float o[NO][4];
+// The online softmax of one S tile (N fp32 per thread), in place: S -> P =
+// exp2(S * scale_log2 - m), the running max m and sum l of this thread's
+// two rows updated, and corr the factor that rescales O to the new max.
+// When `masked`, the keys outside row r's visible range [lo[r], hi[r])
+// (relative to this thread's first column) get -inf, so p = 0; m starts
+// at -1e30, so a row that has seen no key yet keeps finite m and l = 0.
+// Max and sum run over four partial chains per row.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool masked, const int (&lo)[2],
+                                             const int (&hi)[2],
+                                             float scale_log2) {
+  if (masked) {
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + (e & 1), r = e >> 1;
+        s[4 * j + e] = col >= lo[r] && col < hi[r] ? s[4 * j + e] * scale_log2
+                                                   : -INFINITY;
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] *= scale_log2;
+  }
+  float part[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      part[r][k] = fmaxf(s[4 * k + 2 * r], s[4 * k + 2 * r + 1]);
+#pragma unroll
+  for (int j = 4; j < N / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      part[r][j % 4] = fmaxf(part[r][j % 4],
+                             fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a row lives on the 4 lanes of a quad
+    float mx = fmaxf(fmaxf(part[r][0], part[r][1]),
+                     fmaxf(part[r][2], part[r][3]));
+    mx = fmaxf(m[r], mx);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    corr[r] = exp2_approx(m[r] - mx);
+    m[r] = mx;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[r][k] = s[4 * k + 2 * r] + s[4 * k + 2 * r + 1];
+#pragma unroll
+  for (int j = 4; j < N / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      part[r][j % 4] += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)  // per-lane partial sum; quad-reduced at the end
+    l[r] = l[r] * corr[r] + ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
+}
+
+// P, rounded to bf16, as the A fragments of P V
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&s)[N],
+                                       uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// Consumer warpgroup WG owns q rows [q0 + 64 WG, q0 + 64 WG + 64).
+// Iteration it issues S_it = Q K_it^T and O += P_{it-1} V_{it-1} together,
+// waits for S_it, runs its softmax, waits for P V and rescales O to the new
+// row max.  (ptxas schedules the wait for P V ahead of the softmax's
+// exponentials, so within a warpgroup the two do not overlap; the overlap
+// comes from the two warpgroups taking turns at issuing, through named
+// barriers: one's softmax runs under the other's products.)  The first
+// tile's S and the last tile's P V stand outside the loop, so that every
+// product is waited for on the path that issued it: a product waited for
+// on another path makes ptxas serialize them all.  WG is a template
+// argument and every shared-memory address derives from the block's base,
+// so the wgmma descriptors are warp-uniform; where ptxas cannot prove
+// that, it serializes the wgmma instructions too.
+template <int HD, int WG>
+__device__ __forceinline__ void consume(const Params& p, uint32_t base,
+                                        int q0, int h, int b, int lo,
+                                        int n_tiles) {
+  using C = Cfg<HD>;
+  constexpr int kBK = C::kBK, kS = kBK / 2;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int row0 = q0 + 64 * WG + 16 * (threadIdx.x % 128 / 32) + lane / 4;
   const float scale_log2 = p.scale * kLog2e;  // softmax in base 2
-  const int qpos[2] = {q0 + r0 + p.q_offset, q0 + r0 + 8 + p.q_offset};
+  const uint32_t q_rows = base + WG * 64 * 128;  // this warpgroup's Q rows
+  // keys visible to this thread's rows row0 and row0 + 8: [klo, khi)
+  int klo[2], khi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + 8 * r + p.q_offset;
+    khi[r] = p.causal ? min(qpos + 1, p.Skv) : p.Skv;
+    klo[r] = p.window > 0 ? qpos - p.window + 1 : 0;
+  }
+  const int wq_first = q0 + 64 * WG + p.q_offset;  // the warpgroup's q positions
+  const int wq_last = wq_first + 63;
+  // softmax of kv tile k0 in s: masked only where a pair of the warpgroup is
+  auto softmax = [&](float (&s)[kS], float (&m)[2], float (&l)[2],
+                     float (&corr)[2], int k0) {
+    const bool masked = k0 + kBK > p.Skv ||
+                        (p.causal && k0 + kBK - 1 > wq_first) ||
+                        (p.window > 0 && wq_last - k0 >= p.window);
+    const int lo_rel[2] = {klo[0] - k0 - 2 * t, klo[1] - k0 - 2 * t};
+    const int hi_rel[2] = {khi[0] - k0 - 2 * t, khi[1] - k0 - 2 * t};
+    softmax_tile(s, m, l, corr, masked, lo_rel, hi_rel, scale_log2);
+  };
 
-  int lo, hi;
-  kv_range(p, q0, kBQ, kBK, lo, hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kBK;
-    load_rows<HD, kBK, LD>(sQK, K, p.sk.s, k0, p.Skv);
-    load_rows_t<HD, kBK, LDT>(sVt, V, p.sv.s, k0, p.Skv);
-    __syncthreads();
+  float o[C::kSub][32];
+#pragma unroll
+  for (int c = 0; c < C::kSub; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
 
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = &sQK[(8 * j + g) * LD + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk)
-        mma_bf16(s[j], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
+  uint32_t pa[kBK / 16][4];  // P of the previous tile
 
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-        const float x = visible(p, qpos[e >> 1], kpos) ? s[j][e] * scale_log2
-                                                       : kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // a row lives on the 4 lanes of a quad
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= corr[r];  // per-lane partial sum; quad-reduced at the end
+  mbar_wait(base + C::kQFull, 0);
+  if (n_tiles > 0) {
+    if (WG == 1) bar_arrive(1);  // warpgroup 0 issues first
+    {  // tile 0: S only
+      float s[kS];
+      mbar_wait(base + C::kKFull, 0);
+      bar_sync(1 + WG);
+      issue_qk<HD>(s, q_rows, base + C::kK);
+      if (WG == 0 || n_tiles > 1) bar_arrive(2 - WG);
+      wgmma_wait<0>();
+      reg_fence(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(base + C::kKEmpty);
+      softmax(s, m, l, corr, lo * kBK);
+      pack_p(s, pa);
     }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % C::kStages;
+      const int pst = (it - 1) % C::kStages;  // tile it - 1
+      float s[kS];
+      mbar_wait(base + C::kKFull + 8 * st, (it / C::kStages) & 1);
+      mbar_wait(base + C::kVFull + 8 * pst, ((it - 1) / C::kStages) & 1);
+      bar_sync(1 + WG);
+      issue_qk<HD>(s, q_rows, base + C::kK + st * C::kTileBytes);
+      issue_pv<HD>(o, pa, base + C::kV + pst * C::kTileBytes);
+      if (WG == 0 || it + 1 < n_tiles) bar_arrive(2 - WG);  // the other's turn
+      wgmma_wait<1>();  // S_it
+      reg_fence(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(base + C::kKEmpty + 8 * st);
+      softmax(s, m, l, corr, (lo + it) * kBK);
+      wgmma_wait<0>();  // P_{it-1} V_{it-1}: V and pa are free
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+      for (int c = 0; c < C::kSub; ++c) {
+        reg_fence(o[c]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-        const float pe = kpos < p.Skv ? exp2f(s[j][e] - m[e >> 1]) : 0.f;
-        s[j][e] = pe;
-        l[e >> 1] += pe;
+        for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i >> 1) & 1];
       }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(base + C::kVEmpty + 8 * pst);
+      pack_p(s, pa);
     }
-    // P's accumulator fragments are the A fragments of P @ V.
+    const int pst = (n_tiles - 1) % C::kStages;  // the last tile's P V
+    mbar_wait(base + C::kVFull + 8 * pst, ((n_tiles - 1) / C::kStages) & 1);
+    issue_pv<HD>(o, pa, base + C::kV + pst * C::kTileBytes);
+    wgmma_wait<0>();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vrow = &sVt[(8 * n + g) * LDT + kk * 16 + 2 * t];
-        mma_bf16(o[n], a, ld32(vrow), ld32(vrow + 8));
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < C::kSub; ++c) reg_fence(o[c]);
   }
 
+  auto* O = static_cast<__nv_bfloat16*>(p.o) + b * p.so.b + h * p.so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + r0 + 8 * r;
+    const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = O + row * p.so.s + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int c = 0; c < C::kSub; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 64 * c + 8 * j) =
+            pack_bf16(o[c][4 * j + 2 * r] * inv, o[c][4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kBQ;  // heaviest first
+  const int b = bh / p.H, h = bh % p.H;
+  int lo, hi;
+  kv_range(p, q0, kBQ, C::kBK, lo, hi);
+  const int n_tiles = max(hi - lo, 0);  // tile it is kv tile lo + it
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kQFull, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(base + C::kKFull + 8 * st, 1);
+      mbar_init(base + C::kVFull + 8 * st, 1);
+      // one arrival per consumer warp
+      mbar_init(base + C::kKEmpty + 8 * st, 4 * kConsumers);
+      mbar_init(base + C::kVEmpty + 8 * st, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The role comes from a warp-uniform warp index (threadIdx alone would
+  // make the branches divergent in ptxas's eyes).  setmaxnreg moves
+  // registers from the producer warpgroup to the consumers:
+  // (168 - 56) x 128 = (224 - 168) x 256.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= 4 * kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 4 * kConsumers && threadIdx.x % 32 == 0)
+      produce<HD>(tq, tk, tv, base, q0, h, b, lo, n_tiles);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    if (warp < 4)
+      consume<HD, 0>(p, base, q0, h, b, lo, n_tiles);
+    else
+      consume<HD, 1>(p, base, q0, h, b, lo, n_tiles);
   }
 }
 
@@ -382,22 +730,94 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
-template <int HD>
-void launch(const Params& p, int dtype, int bh, cudaStream_t stream) {
-  if (dtype == 1) {
-    dim3 grid(bh, (p.Sq + kBQ - 1) / kBQ);
-    flash_fwd_bf16<HD><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    dim3 grid(bh, (p.Sq + kFBQ - 1) / kFBQ);
-    flash_fwd_f32<HD><<<grid, kFThreads, 0, stream>>>(p);
+// cuTensorMapEncodeTiled, taken from the driver through the runtime so that
+// the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 13000
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// A 4-D map over (hd, S, H, B) of a bf16 (B, S, H, hd) tensor with the
+// caller's strides: boxes of 64 x `rows`, 128-byte swizzle, zeros outside.
+// A dimension of size 1 gets a stride that TMA accepts, as it is never
+// stepped.
+bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int H, int B,
+              const Strides& st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long sizes[3] = {S, H, B}, strides[3] = {st.s, st.h, st.b};
+  long long widest = hd;
+  for (long long s : strides) widest = s > widest ? s : widest;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), 1, 1, 1};
+  cuuint64_t gstrides[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(sizes[i] > 1 ? sizes[i] : 1);
+    gstrides[i] = 2ull * static_cast<cuuint64_t>(sizes[i] > 1 ? strides[i]
+                                                              : widest);
+  }
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estrides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, gstrides, box, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, HD, p.Sq, p.H, B, p.sq, kBQ) ||
+      !make_map(&tk, p.k, HD, p.Skv, p.H, B, p.sk, Cfg<HD>::kBK) ||
+      !make_map(&tv, p.v, HD, p.Skv, p.H, B, p.sv, Cfg<HD>::kBK))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      static_cast<long long>(B) * p.H * ((p.Sq + kBQ - 1) / kBQ);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_fwd_bf16<HD>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<HD>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_bf16<HD><<<static_cast<unsigned>(blocks), kThreads,
+                       Cfg<HD>::kSmem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
+  if (dtype == 1) return launch_bf16<HD>(p, B, stream);
+  dim3 grid(B * p.H, (p.Sq + kFBQ - 1) / kFBQ);
+  flash_fwd_f32<HD><<<grid, kFThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, as
 // (batch, seq, head); the head_dim stride must be 1.  window <= 0 means
-// no window.  Returns cudaGetLastError() after the launch (0 = success).
+// no window.  Returns cudaGetLastError() after the launch (0 = success),
+// or cudaErrorInvalidValue when a bf16 tensor map cannot be built.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Sq, int Skv, int hd, long long q_sb, long long q_ss,
@@ -424,11 +844,7 @@ extern "C" int flash_attention_fwd(
   if ((dtype != 0 && dtype != 1) || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    launch<64>(p, dtype, B * H, st);
-  else
-    launch<128>(p, dtype, B * H, st);
-  return (int)cudaGetLastError();
+  return hd == 64 ? launch<64>(p, dtype, B, st) : launch<128>(p, dtype, B, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -42,6 +42,18 @@ def _qkv(dev, b, sq, h, hd, dtype, skv=None, seed=0):
     (True, None, 128, None, 128, 256),
     (False, None, 0, 0.3, 200, 333),
     (True, None, 0, None, 2100, 2100),
+    # the edges of the bf16 kernel's 128-row q and 64 / 128-key kv tiles
+    (True, None, 0, None, 1, 1),
+    (True, None, 0, None, 127, 127),
+    (True, None, 0, None, 129, 129),
+    (True, None, 0, None, 255, 255),
+    (False, None, 0, None, 129, 255),
+    (True, None, 128, None, 127, 255),        # Sq < Skv, q_offset
+    (True, None, 254, None, 1, 255),          # one query at the cache's end
+    (True, 100, 0, None, 300, 300),           # window ends inside a tile
+    (True, 200, 56, 0.2, 255, 311),
+    (False, None, 0, 0.2, 129, 64),           # Skv below one kv tile
+    (True, None, 64, None, 129, 100),
 ])
 def test_kernel_matches_plain(dev, dtype, hd, causal, window, q_offset,
                               scale, sq, skv):
@@ -59,6 +71,19 @@ def test_kernel_reads_strided_q(dev):
     q, k, v = _qkv(dev, 1, 256, 2, 64, torch.bfloat16)
     got = fa.flash_attention(q[:, 128:], k, v, q_offset=128)
     want = fa.flash_attention_plain(q[:, 128:], k, v, q_offset=128)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_kernel_reads_strided_kv(dev, hd):
+    """k and v as every other head of wider tensors, each a token slice:
+    the tensor maps take the caller's strides."""
+    q, _, _ = _qkv(dev, 2, 200, 2, hd, torch.bfloat16)
+    _, kw, vw = _qkv(dev, 2, 1, 4, hd, torch.bfloat16, skv=272, seed=1)
+    k, v = kw[:, 72:, ::2], vw[:, :200, 1::2]
+    assert not (k.is_contiguous() or v.is_contiguous())
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
