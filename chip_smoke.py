@@ -9,9 +9,10 @@ Phases, each fatal on failure:
      and print ptxas's register, spill and warning lines;
   2. each kernel against its plain PyTorch twin on the card:
      flash_attention over the masks, dtypes and shapes listed in CASES,
-     within fp32 2e-5 / bf16 2e-2; wkv6 over WKV_CASES and a state-carry
-     case, y and the final state within |got - want| <= 1e-4 + 1e-4 |want|
-     elementwise, the main shape included;
+     within fp32 2e-5 / bf16 2e-2; wkv6 over WKV_CASES (one with rows that
+     take the kernel's 4-byte copy path) and a state-carry case, y and the
+     final state within |got - want| <= 1e-4 + 1e-4 |want| elementwise,
+     the main shape included;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: `repro_torch.launch.serve.main` serving
      TinyLlama-1.1B and RWKV6-3B at full width (batch 4, prompt 2048, 16
@@ -23,8 +24,9 @@ Phases, each fatal on failure:
      width on the GPU against the CPU, and timings: kernel and plain twin
      (and for flash attention `scaled_dot_product_attention`, a yardstick
      the port never calls, and the achieved TFLOP/s) at the main path's
-     shape, for flash attention also at hd 128 (4, 2048, 40, 128), prefill
-     ms and decode ms per token;
+     shape, for flash attention also at hd 128 (4, 2048, 40, 128), for wkv6
+     also the decode step's call (4, 1, 40, 64) (device time from the
+     profiler), prefill ms and decode ms per token;
   5. torch.profiler's device time for one prefill and three decode steps,
      as a share of the timings above, with the heaviest kernels.
 Prints one `{"kernels": [...]}` line, the card line, and last
@@ -78,18 +80,22 @@ MAIN = CASES[-1]
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
 ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 4, 2048, 16
 RWKV_ARCH = "rwkv6-3b"
-# (B, S, H, hd, chunk, decay, with_s0): w = exp(-exp(decay + 0.5 N))
+# (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
+# pad > 0 lays r, k, v, w out one element into a wider buffer with a token
+# stride of H*hd + pad elements (the kernel's 4-byte copy path)
+WKV_DECODE = (4, 1, 40, 64, 32, -3.0, True, 0)    # one decode step
 WKV_CASES = [
-    (1, 128, 2, 32, 32, -3.0, False),
-    (1, 128, 2, 32, 64, -3.0, False),
-    (2, 256, 4, 64, 32, -3.0, False),
-    (2, 256, 4, 64, 64, -3.0, False),
-    (1, 2100, 2, 64, 64, -3.0, False),      # ragged last chunk
-    (4, 1, 40, 64, 32, -3.0, True),         # one decode step
-    (2, 256, 4, 16, 32, -3.0, True),
-    (2, 256, 4, 128, 32, -3.0, True),
-    (2, 256, 4, 64, 64, 2.0, False),        # strong decay
-    (4, 2048, 40, 64, 32, -3.0, True),      # the main path's shape
+    (1, 128, 2, 32, 32, -3.0, False, 0),
+    (1, 128, 2, 32, 64, -3.0, False, 0),
+    (2, 256, 4, 64, 32, -3.0, False, 0),
+    (2, 256, 4, 64, 64, -3.0, False, 0),
+    (1, 2100, 2, 64, 64, -3.0, False, 0),      # ragged last chunk
+    WKV_DECODE,
+    (2, 256, 4, 16, 32, -3.0, True, 0),
+    (2, 256, 4, 128, 32, -3.0, True, 0),
+    (2, 256, 4, 64, 64, 2.0, False, 0),        # strong decay
+    (2, 300, 40, 64, 32, -3.0, True, 1),       # misaligned rows
+    (4, 2048, 40, 64, 32, -3.0, True, 0),      # the main path's shape
 ]
 WKV_MAIN = WKV_CASES[-1]
 
@@ -130,6 +136,17 @@ def device_kernels(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_ms(fn, name: str, calls: int = 50):
+    """Mean device time (ms) of the device kernels whose name holds `name`,
+    over `calls` calls of fn, from torch.profiler; None where it saw none."""
+    rows = [e for e in device_kernels(lambda: [fn() for _ in range(calls)])
+            if name in e.key]
+    if not rows:
+        return None
+    return (sum(e.self_device_time_total for e in rows) / 1e3
+            / sum(e.count for e in rows))
 
 
 def report_busy(label: str, rows: list, wall_ms: float, per: int) -> None:
@@ -230,16 +247,29 @@ def time_flash(fa, case, card) -> tuple:
     return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
+def misaligned(t, pad):
+    """`t` (B,S,H,hd) copied into a view of a wider buffer whose base sits
+    one element in and whose token stride is H*hd + pad elements."""
+    b, s, h, hd = t.shape
+    ts = h * hd + pad
+    view = torch.zeros(1 + b * s * ts, device=t.device).as_strided(
+        t.shape, (s * ts, ts, hd, 1), 1)
+    return view.copy_(t)
+
+
 def wkv_inputs(case, seed=0):
     """r, k, v ~ 0.5 N; w = exp(-exp(decay + 0.5 N)); u ~ 0.1 N;
-    s0 ~ 0.1 N or None; float32 on the card."""
-    b, s, h, hd, _, decay, with_s0 = case
+    s0 ~ 0.1 N or None; float32 on the card, r, k, v, w `misaligned`
+    where the case has a pad."""
+    b, s, h, hd, _, decay, with_s0, pad = case
     g = torch.Generator("cuda").manual_seed(seed)
 
     def n(*shape):
         return torch.randn(shape, generator=g, device="cuda")
     r, k, v = (0.5 * n(b, s, h, hd) for _ in "rkv")
     w = torch.exp(-torch.exp(decay + 0.5 * n(b, s, h, hd)))
+    if pad:
+        r, k, v, w = (misaligned(t, pad) for t in (r, k, v, w))
     u = 0.1 * n(h, hd)
     return r, k, v, w, u, 0.1 * n(b, h, hd, hd) if with_s0 else None
 
@@ -259,7 +289,7 @@ def wkv_ok(got, want) -> tuple[bool, float]:
 def wkv_bound(case) -> tuple[float, str]:
     """Least time (ms): r, k, v, w, u and s0 read once, y and s_final
     written once, against the recurrence's 4*B*S*H*hd^2 fp32 operations."""
-    b, s, h, hd, _, _, with_s0 = case
+    b, s, h, hd, _, _, with_s0, _ = case
     nbytes = 4 * (5 * b * s * h * hd + h * hd
                   + (2 if with_s0 else 1) * b * h * hd * hd)
     flops = 4.0 * b * s * h * hd * hd
@@ -273,6 +303,8 @@ def check_wkv6(wkv) -> float:
     main_err = None
     for case in WKV_CASES:
         r, k, v, w, u, s0 = wkv_inputs(case)
+        if case[-1] and wkv.copy_bytes(r, k, v, w) != 4:
+            fail(f"wkv6 {case} would not take the 4-byte copy path")
         y, s = wkv.wkv6(r, k, v, w, u, s0, chunk=case[4])
         want_y, want_s = wkv.wkv6_plain(r, k, v, w, u, s0)
         torch.cuda.synchronize()
@@ -287,7 +319,7 @@ def check_wkv6(wkv) -> float:
             main_err = err_y
         del r, k, v, w, u, s0, y, s, want_y, want_s
     # state carry: two halves with the carried state against one run
-    case = (2, 600, 40, 64, 32, -3.0, False)
+    case = (2, 600, 40, 64, 32, -3.0, False, 0)
     r, k, v, w, u, _ = wkv_inputs(case, seed=1)
     y_all, s_all = wkv.wkv6(r, k, v, w, u)
     y1, s1 = wkv.wkv6(r[:, :333], k[:, :333], v[:, :333], w[:, :333], u)
@@ -404,6 +436,20 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
     print(f"wkv6 {WKV_MAIN[:4]} fp32 with s0: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
           f"[{card}]", flush=True)
+    # the decode step's call: one launch is shorter than the host's work
+    # around it, so its device time comes from the profiler
+    args = wkv_inputs(WKV_DECODE)
+    call_ms = time_ms(lambda: wkv.wkv6(*args, chunk=WKV_DECODE[4]), 200)
+    dev_ms = kernel_device_ms(
+        lambda: wkv.wkv6(*args, chunk=WKV_DECODE[4]), "wkv6_kernel")
+    dec_plain_ms = time_ms(lambda: wkv.wkv6_plain(*args), 20)
+    dec_bound_ms, dec_bound_by = wkv_bound(WKV_DECODE)
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"wkv6 {WKV_DECODE[:4]} fp32 with s0 (decode step): kernel {dev} "
+          f"device time per launch (profiler), {call_ms:.4f} ms per call "
+          f"with the host's work; plain {dec_plain_ms:.4f} ms per call, "
+          f"bound {dec_bound_ms:.4f} ms ({dec_bound_by}) [{card}]",
+          flush=True)
     del args
 
     # 4b. prefill through the kernel vs the plain twin; decode timing

@@ -13,41 +13,100 @@
 // normalisation overflows fp32 once half a chunk's summed -log w passes
 // ~88).
 //
-// Bound at the serving path's shape (B=4, S=2048, H=40, hd=64, fp32) on
-// an H100 SXM: r, k, v, w in and y out are 5 x 83.9 MB, plus 5.2 MB of
-// state in and out, ~0.127 ms at 3.35 TB/s; the recurrence is
-// 4*B*S*H*hd^2 ~ 5.4 GFLOP, ~0.080 ms at 67 TFLOP/s fp32.  So it is bound
-// by bytes.
+// Bounds at the serving path's prefill shape (B=4, S=2048, H=40, hd=64,
+// fp32, with s0) on an H100 SXM:
+//  * bytes: r, k, v, w in and y out are 5 x 83.9 MB, plus 5.2 MB of state
+//    in and out: 0.127 ms at 3.35 TB/s;
+//  * instructions: the recurrence needs at least 3 fp32 instructions per
+//    state element per token (k v, the state FMA, the output FMA), 126 M
+//    warp instructions, ~0.14 ms at 132 SMs x 4 warp instructions per
+//    clock x ~1.75 GHz.  As FLOP (4 B S H hd^2 = 5.4 GFLOP) it is 0.08 ms at
+//    67 TFLOP/s fp32.
+// The kernel keeps the sequential fp32 recurrence (tf32 tensor cores would
+// miss the 1e-4 bar) and works on both bounds: every input byte is read
+// from device memory once (the second column block of a head finds r, k,
+// w in L2), under the walk; the walk spends 4 fp32 instructions per state
+// element and token (the folded bonus adds one to the floor's 3), plus
+// ~1.2 for shared loads and the y reduction.  What binds it is the
+// instruction rate and shared-memory bandwidth, not bytes.
 //
-// Design (the sequential recurrence, parallel over state elements; simple
-// and exact first, no TMA / tensor cores: tf32 would miss the 1e-4 bar):
+// Design:
 //  * Column j of S depends only on v[:, j], so the grid is
 //    (B*H, hd / VT): each block owns VT value columns of one head.  A
-//    thread holds 8 rows of one column in registers; the G = hd / 8
-//    threads of a column are neighbouring lanes of one warp.
-//  * A block stages `chunk` tokens of r, k, w (hd wide) and v (VT wide)
-//    in shared memory with coalesced loads, computes each token's bonus
-//    scalar r_t . (u * k_t) once (one warp per token), then walks the
-//    tokens in order: per token a thread reads its rows of r, k, w as
-//    two float4 broadcasts, forms its part of r_t S with the state before
-//    the update, updates its rows, and the G lanes of a column sum their
-//    parts with xor-shuffles.  y is collected in shared memory and stored
-//    coalesced after the chunk.
-//  * Tokens past S are never loaded or walked; `chunk` only sets how many
-//    tokens are staged at a time and does not change the result.
+//    thread holds ROWS rows of COLS columns in registers (hd 64: 4 x 4);
+//    the G = hd / ROWS threads of a column group are neighbouring lanes of
+//    one warp.  COLS > 1 matters: a thread reads 3 ROWS + COLS floats of
+//    shared memory a token for its ROWS x COLS state elements, and with
+//    one column a thread the walk was bound by those reads (the times of
+//    tools/wkv6_variants.py are in PERF.md).
+//  * Staging ring.  Tokens are staged `chunk` at a time (the caller's
+//    `chunk`, fewer where two stages would not fit in shared memory) into
+//    a ring of kStages = 2 stages with cp.async: r, k, w (hd wide) and
+//    v (VT wide) of chunk c+1 load while chunk c is walked, and one
+//    barrier per chunk both publishes the arrived stage and frees the
+//    one walked before.  Two copy paths, chosen per call by the wrapper:
+//    16-byte `cp.async.cg` when every base pointer and (b, s, h) stride of
+//    r, k, v, w is a multiple of 4 elements, else 4-byte `cp.async.ca`;
+//    neighbouring threads copy neighbouring addresses on both.  Tokens
+//    past S are never loaded or walked, and `chunk` does not change the
+//    result.
+//  * The bonus is folded into the walk.  Each thread keeps u for its rows
+//    in registers and forms its part of y_j = sum_i r_i (S_ij + u_i k_i v_j)
+//    with the state before the update, reusing k_i v_j for the update.
+//  * y without shuffles on the chain.  A thread keeps its partial sums of
+//    G consecutive tokens in registers; then one transposing butterfly
+//    over the G lanes (G - 1 shuffles per column) leaves lane g with the
+//    whole sum of token g, which it stores straight to y: the lanes of a
+//    warp write whole 32-byte sectors.
+//  * Residency.  At the prefill shape the grid is 320 blocks of 128
+//    threads; a block's shared memory (two stages of 32 tokens, 2 x 28 KB,
+//    plus the 8.3 KB state tile) stays under a third of an SM's 228 KB and
+//    launch bounds cap registers at 170, so three blocks fit on every SM
+//    and the whole grid is resident in one wave.
+//  * Coalesced state.  s0 is copied (cp.async, lanes along j) into a
+//    padded (VT, hd + 1) tile in shared memory and read from there; the
+//    final state goes back through the same tile, so both cross device
+//    memory as whole rows (lanes along j), and the padding keeps the
+//    tile's column-wise copies free of bank conflicts.
+//  * tools/wkv6_variants.py builds and times other hd-64 layouts and ring
+//    depths (it edits the Pick<64> and kStages lines).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 namespace {
 
-constexpr int kRows = 8;  // state rows a thread holds (one column)
+constexpr int kStages = 2;
+constexpr size_t kSmemMax = 227 * 1024;  // a block's opt-in shared memory
+
+// ROWS state rows and COLS state columns a thread, VT columns a block, and
+// the blocks an SM must hold (launch bounds: registers <= 64K / (MINB NT)).
+template <int HD_, int ROWS_, int COLS_, int VT_, int MINB_>
+struct Cfg {
+  static constexpr int HD = HD_, ROWS = ROWS_, COLS = COLS_, VT = VT_;
+  static constexpr int G = HD / ROWS;        // lanes per column group
+  static constexpr int NT = G * VT / COLS;   // threads per block
+  static constexpr int kMinBlocks = MINB_;
+  static constexpr int kTokenFloats = 3 * HD + VT;  // r k w | v
+  static constexpr int kTileFloats = (VT * (HD + 1) + 3) / 4 * 4;
+  static_assert(ROWS % 4 == 0 && HD % ROWS == 0 && 32 % G == 0, "rows");
+  static_assert(VT % 4 == 0 && HD % VT == 0 && VT % COLS == 0, "columns");
+  static_assert(COLS == 1 || COLS == 2 || COLS == 4, "columns per thread");
+  static_assert(NT % 32 == 0, "whole warps");
+};
 
 template <int HD>
-struct Cfg {
-  static constexpr int kG = HD / kRows;                        // lanes per column
-  static constexpr int kVT = (HD < 256 / kG) ? HD : 256 / kG;  // columns per block
-  static constexpr int kThreads = kG * kVT;
-};
+struct Pick;
+template <>
+struct Pick<16> { using T = Cfg<16, 4, 2, 16, 2>; };
+template <>
+struct Pick<32> { using T = Cfg<32, 8, 2, 32, 2>; };
+template <>
+struct Pick<64> { using T = Cfg<64, 4, 4, 32, 3>; };
+template <>
+struct Pick<128> { using T = Cfg<128, 8, 2, 16, 2>; };
 
 struct Params {
   const float* r;
@@ -56,135 +115,323 @@ struct Params {
   const float* w;
   const float* u;   // (H, hd), contiguous
   const float* s0;  // (B, H, hd, hd), contiguous, or null for zeros
-  float* y;
+  float* y;         // 16-byte aligned, strides multiples of 4
   float* s_final;   // (B, H, hd, hd), contiguous
   long long sr[3], sk[3], sv[3], sw[3], sy[3];  // element strides of b, s, h
-  int H, S, chunk;
+  int H, S;
+  int chunk;  // tokens per stage
+  int vec;    // 1: 16-byte copies, 0: 4-byte copies
 };
 
-template <int HD>
-__global__ void __launch_bounds__(Cfg<HD>::kThreads)
-    wkv6_kernel(const Params p) {
-  constexpr int G = Cfg<HD>::kG;
-  constexpr int VT = Cfg<HD>::kVT;
-  constexpr int NT = Cfg<HD>::kThreads;
-  constexpr int NW = (NT + 31) / 32;
+// One block's (batch, head): base pointers (the token strides are read
+// from the kernel's parameters).
+struct Head {
+  const float *r, *k, *v, *w;
+  float* y;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int W>  // floats per copy: 4 (16 bytes, L2 only) or 1 (4 bytes)
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage layout, C tokens: r (C, HD) | k (C, HD) | w (C, HD) | v (C, VT).
+template <class K, int W>
+__device__ __forceinline__ void load_chunk(const Params& p, const Head& a,
+                                           float* stage, int C, long long t0,
+                                           int n, int j0) {
+  float* rs = stage;
+  float* ks = rs + C * K::HD;
+  float* ws = ks + C * K::HD;
+  float* vs = ws + C * K::HD;
+  constexpr int Q = K::HD / W;
+#pragma unroll 1
+  for (int x = threadIdx.x; x < n * Q; x += K::NT) {
+    const int t = x / Q, i = (x % Q) * W;
+    const long long tt = t0 + t;
+    cp_async<W>(rs + t * K::HD + i, a.r + tt * p.sr[1] + i);
+    cp_async<W>(ks + t * K::HD + i, a.k + tt * p.sk[1] + i);
+    cp_async<W>(ws + t * K::HD + i, a.w + tt * p.sw[1] + i);
+  }
+  constexpr int QV = K::VT / W;
+#pragma unroll 1
+  for (int x = threadIdx.x; x < n * QV; x += K::NT) {
+    const int t = x / QV, jj = (x % QV) * W;
+    cp_async<W>(vs + t * K::VT + jj, a.v + (t0 + t) * p.sv[1] + j0 + jj);
+  }
+}
+
+template <class K>
+__device__ __forceinline__ void load_chunk(const Params& p, const Head& a,
+                                           float* stage, int C, long long t0,
+                                           int n, int j0) {
+  if (p.vec)
+    load_chunk<K, 4>(p, a, stage, C, t0, n, j0);
+  else
+    load_chunk<K, 1>(p, a, stage, C, t0, n, j0);
+}
+
+template <int N>
+__device__ __forceinline__ void load_cols(const float* s, float (&d)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(s);
+    d[0] = x.x, d[1] = x.y, d[2] = x.z, d[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(s);
+    d[0] = x.x, d[1] = x.y;
+  } else {
+    d[0] = s[0];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_cols(float* s, const float (&d)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(s) = make_float4(d[0], d[1], d[2], d[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(s) = make_float2(d[0], d[1]);
+  else
+    s[0] = d[0];
+}
+
+// mask ? a : b, bitwise: a select the compiler cannot turn into an indexed
+// load from the partial-sum array (which would put it in local memory).
+__device__ __forceinline__ float pick(unsigned mask, float a, float b) {
+  return __uint_as_float((__float_as_uint(a) & mask) |
+                         (__float_as_uint(b) & ~mask));
+}
+
+// One step of the transposing butterfly over 2 O lanes and 2 O tokens, then
+// the next: lanes with bit O keep tokens [O, 2 O) of the remaining block,
+// the others [0, O), each summed with its partner's.
+template <int O, int COLS, int G>
+__device__ __forceinline__ void butterfly(float (&part)[COLS][G], int g) {
+  if constexpr (O > 0) {
+    const unsigned hi = (g & O) ? ~0u : 0u;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int x = 0; x < O; ++x) {
+        const float lo_v = part[c][x], hi_v = part[c][x + O];
+        const float send = pick(hi, lo_v, hi_v);
+        const float keep = pick(hi, hi_v, lo_v);
+        part[c][x] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+    butterfly<O / 2>(part, g);
+  }
+}
+
+// Walks tokens t0 .. t0 + m - 1 (m <= G; kFull: m == G) of one stage whose
+// first token is `base` in the sequence, and stores their y.
+// Thread (g, cg) holds rows 4 (g + G q) + e, q < ROWS / 4, e < 4, of
+// columns cg COLS + c, c < COLS.  Each token's partial sums over the
+// thread's rows stay in registers until the group ends; then one
+// transposing butterfly over the G lanes sums them, leaving lane g with
+// token t0 + g: G - 1 shuffles per column per group instead of
+// log2(G) per column per token, and no shuffle on the walk's chain.
+template <class K, bool kFull>
+__device__ __forceinline__ void walk_group(const Params& p, const Head& a,
+                                           long long base, int j0,
+                                           const float* stage, int C, int t0,
+                                           int m, int g, int cg,
+                                           const float (&ur)[K::ROWS],
+                                           float (&st)[K::COLS][K::ROWS]) {
+  constexpr int HD = K::HD, VT = K::VT, G = K::G;
+  constexpr int ROWS = K::ROWS, COLS = K::COLS;
+  const float* rs = stage;
+  const float* ks = rs + C * HD;
+  const float* ws = ks + C * HD;
+  const float* vs = ws + C * HD;
+  float part[COLS][G];
+#pragma unroll
+  for (int tt = 0; tt < G; ++tt) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) part[c][tt] = 0.f;
+    if (kFull || tt < m) {
+      const int t = t0 + tt;
+      const float4* r4 = reinterpret_cast<const float4*>(rs + t * HD) + g;
+      const float4* k4 = reinterpret_cast<const float4*>(ks + t * HD) + g;
+      const float4* w4 = reinterpret_cast<const float4*>(ws + t * HD) + g;
+      float vj[COLS];
+      load_cols<COLS>(vs + t * VT + cg * COLS, vj);
+#pragma unroll
+      for (int q = 0; q < ROWS / 4; ++q) {
+        const float4 rr = r4[G * q], kk = k4[G * q], ww = w4[G * q];
+        const float rv[4] = {rr.x, rr.y, rr.z, rr.w};
+        const float kv4[4] = {kk.x, kk.y, kk.z, kk.w};
+        const float wv[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = 4 * q + e;
+#pragma unroll
+          for (int c = 0; c < COLS; ++c) {
+            const float kv = kv4[e] * vj[c];
+            part[c][tt] =
+                fmaf(rv[e], fmaf(ur[o], kv, st[c][o]), part[c][tt]);
+            st[c][o] = fmaf(wv[e], st[c][o], kv);
+          }
+        }
+      }
+    }
+  }
+  butterfly<G / 2>(part, g);
+  if (kFull || g < m) {
+    float out[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) out[c] = part[c][0];
+    store_cols<COLS>(a.y + (base + t0 + g) * p.sy[1] + j0 + cg * COLS, out);
+  }
+}
+
+// Walks the n tokens of one stage, G at a time.
+template <class K>
+__device__ __forceinline__ void walk(const Params& p, const Head& a,
+                                     long long base, int j0,
+                                     const float* stage, int C, int n, int g,
+                                     int cg, const float (&ur)[K::ROWS],
+                                     float (&st)[K::COLS][K::ROWS]) {
+  int t0 = 0;
+#pragma unroll 1
+  for (; t0 + K::G <= n; t0 += K::G)
+    walk_group<K, true>(p, a, base, j0, stage, C, t0, K::G, g, cg, ur, st);
+  if (t0 < n)
+    walk_group<K, false>(p, a, base, j0, stage, C, t0, n - t0, g, cg, ur,
+                         st);
+}
+
+template <class K>
+__global__ void __launch_bounds__(K::NT, K::kMinBlocks)
+    wkv6_kernel(const __grid_constant__ Params p) {
+  constexpr int HD = K::HD, VT = K::VT, G = K::G, NT = K::NT;
+  constexpr int ROWS = K::ROWS, COLS = K::COLS;
   extern __shared__ float4 smem4[];
-  float* rs = reinterpret_cast<float*>(smem4);
-  const int C = p.chunk;
-  float* ks = rs + C * HD;
-  float* ws = ks + C * HD;
-  float* vs = ws + C * HD;  // (C, VT)
-  float* ys = vs + C * VT;  // (C, VT)
-  float* bon = ys + C * VT; // (C,)
+  float* tile = reinterpret_cast<float*>(smem4);  // (VT, HD + 1)
+  float* ring = tile + K::kTileFloats;
+  const int C = p.chunk, S = p.S;
+  const int stage_floats = C * K::kTokenFloats;
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int j0 = blockIdx.y * VT;
   const int tid = threadIdx.x;
-  const int g = tid % G, c = tid / G;
-  const int j = j0 + c;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  const float* rb = p.r + b * p.sr[0] + h * p.sr[2];
-  const float* kb = p.k + b * p.sk[0] + h * p.sk[2];
-  const float* vb = p.v + b * p.sv[0] + h * p.sv[2];
-  const float* wb = p.w + b * p.sw[0] + h * p.sw[2];
-  float* yb = p.y + b * p.sy[0] + h * p.sy[2];
-  const float* ub = p.u + (long long)h * HD;
+  const int g = tid % G, cg = tid / G;
+  Head a;
+  a.r = p.r + b * p.sr[0] + h * p.sr[2];
+  a.k = p.k + b * p.sk[0] + h * p.sk[2];
+  a.v = p.v + b * p.sv[0] + h * p.sv[2];
+  a.w = p.w + b * p.sw[0] + h * p.sw[2];
+  a.y = p.y + b * p.sy[0] + h * p.sy[2];
   const long long sbase = (long long)bh * HD * HD;
 
-  // Thread g holds rows 4*(g + G*q) + e, q < kRows/4, e < 4, of column j.
-  float st[kRows];
+  float ur[ROWS];
 #pragma unroll
-  for (int q = 0; q < kRows / 4; ++q)
+  for (int q = 0; q < ROWS / 4; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * (g + G * q) + e;
-      st[4 * q + e] = p.s0 ? p.s0[sbase + (long long)i * HD + j] : 0.f;
-    }
+    for (int e = 0; e < 4; ++e)
+      ur[4 * q + e] = p.u[(long long)h * HD + 4 * (g + G * q) + e];
 
-  for (int t0 = 0; t0 < p.S; t0 += C) {
-    const int n = min(C, p.S - t0);
-    for (int idx = tid; idx < n * HD; idx += NT) {
-      const long long t = t0 + idx / HD;
-      const int i = idx % HD;
-      rs[idx] = rb[t * p.sr[1] + i];
-      ks[idx] = kb[t * p.sk[1] + i];
-      ws[idx] = wb[t * p.sw[1] + i];
+  // Prologue: s0 into the tile, then the first kStages - 1 chunks.
+  if (p.s0) {
+    const float* s0b = p.s0 + sbase + j0;
+    for (int x = tid; x < HD * VT; x += NT) {
+      const int i = x / VT, jj = x % VT;
+      cp_async<1>(tile + jj * (HD + 1) + i, s0b + (long long)i * HD + jj);
     }
-    for (int idx = tid; idx < n * VT; idx += NT) {
-      const long long t = t0 + idx / VT;
-      vs[idx] = vb[t * p.sv[1] + j0 + idx % VT];
-    }
-    __syncthreads();
-    for (int t = warp; t < n; t += NW) {  // bonus: r_t . (u * k_t)
-      float s = 0.f;
-      for (int i = lane; i < HD; i += 32)
-        s = fmaf(rs[t * HD + i] * ub[i], ks[t * HD + i], s);
+  }
+  cp_commit();
+  const int nch = (S + C - 1) / C;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) bon[t] = s;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < n; ++t) {
-      const float4* r4 = reinterpret_cast<const float4*>(rs + t * HD);
-      const float4* k4 = reinterpret_cast<const float4*>(ks + t * HD);
-      const float4* w4 = reinterpret_cast<const float4*>(ws + t * HD);
-      const float vj = vs[t * VT + c];
-      float part = 0.f;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch)
+      load_chunk<K>(p, a, ring + s * stage_floats, C, (long long)s * C,
+                    min(C, S - s * C), j0);
+    cp_commit();
+  }
+  cp_wait<kStages - 1>();
+  __syncthreads();
+  float st[COLS][ROWS];
 #pragma unroll
-      for (int q = 0; q < kRows / 4; ++q) {
-        const float4 rr = r4[g + G * q];
-        const float4 kk = k4[g + G * q];
-        const float4 ww = w4[g + G * q];
-        const int o = 4 * q;
-        part = fmaf(rr.x, st[o + 0], part);
-        part = fmaf(rr.y, st[o + 1], part);
-        part = fmaf(rr.z, st[o + 2], part);
-        part = fmaf(rr.w, st[o + 3], part);
-        st[o + 0] = fmaf(ww.x, st[o + 0], kk.x * vj);
-        st[o + 1] = fmaf(ww.y, st[o + 1], kk.y * vj);
-        st[o + 2] = fmaf(ww.z, st[o + 2], kk.z * vj);
-        st[o + 3] = fmaf(ww.w, st[o + 3], kk.w * vj);
-      }
+  for (int c = 0; c < COLS; ++c)
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (g == 0) ys[t * VT + c] = fmaf(vj, bon[t], part);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < n * VT; idx += NT) {
-      const long long t = t0 + idx / VT;
-      yb[t * p.sy[1] + j0 + idx % VT] = ys[idx];
-    }
-    // The next chunk's staging writes rs/ks/ws/vs/bon only (all read
-    // before the barrier above); ys is rewritten after two more barriers.
+    for (int q = 0; q < ROWS / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[c][4 * q + e] =
+            p.s0 ? tile[(cg * COLS + c) * (HD + 1) + 4 * (g + G * q) + e]
+                 : 0.f;
+
+  for (int ci = 0; ci < nch; ++ci) {
+    cp_wait<kStages - 2>();  // chunk ci has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; chunk ci - 1 is walked
+    const int cn = ci + kStages - 1;  // into the stage chunk ci - 1 used
+    if (cn < nch)
+      load_chunk<K>(p, a, ring + (cn % kStages) * stage_floats, C,
+                    (long long)cn * C, min(C, S - cn * C), j0);
+    cp_commit();
+    walk<K>(p, a, (long long)ci * C, j0, ring + (ci % kStages) * stage_floats,
+            C, min(C, S - ci * C), g, cg, ur, st);
   }
 
+  // The final state leaves through the tile, whole rows at a time.
 #pragma unroll
-  for (int q = 0; q < kRows / 4; ++q)
+  for (int c = 0; c < COLS; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * (g + G * q) + e;
-      p.s_final[sbase + (long long)i * HD + j] = st[4 * q + e];
-    }
+    for (int q = 0; q < ROWS / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(cg * COLS + c) * (HD + 1) + 4 * (g + G * q) + e] =
+            st[c][4 * q + e];
+  __syncthreads();
+  float* sf = p.s_final + sbase + j0;
+  for (int x = tid; x < HD * VT; x += NT) {
+    const int i = x / VT, jj = x % VT;
+    sf[(long long)i * HD + jj] = tile[jj * (HD + 1) + i];
+  }
 }
 
-template <int HD>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int VT = Cfg<HD>::kVT;
-  const size_t smem =
-      sizeof(float) * ((size_t)p.chunk * (3 * HD + 2 * VT) + p.chunk);
+template <class K>
+cudaError_t launch(Params p, int B, cudaStream_t stream) {
+  const size_t token_bytes = sizeof(float) * K::kTokenFloats;
+  const size_t tile_bytes = sizeof(float) * K::kTileFloats;
+  const int fit = (int)((kSmemMax - tile_bytes) / (kStages * token_bytes));
+  p.chunk = std::min(std::min(p.chunk, p.S), fit);
+  const size_t smem = tile_bytes + kStages * p.chunk * token_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * p.H, HD / VT);
-  wkv6_kernel<HD><<<grid, Cfg<HD>::kThreads, smem, stream>>>(p);
+  const dim3 grid(B * p.H, K::HD / K::VT);
+  wkv6_kernel<K><<<grid, K::NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Whether a (B, S, H, hd) tensor allows 16-byte copies along hd: its base
+// 16-byte aligned and each stride of a dimension longer than 1 a multiple
+// of 4 elements.
+bool aligned16(const void* ptr, const long long* st, int B, int S, int H) {
+  const int dims[3] = {B, S, H};
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  for (int d = 0; d < 3; ++d)
+    if (dims[d] > 1 && st[d] % 4) return false;
+  return true;
 }
 
 }  // namespace
@@ -197,7 +444,7 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long w_sb, long long w_ss, long long w_sh,
                         long long y_sb, long long y_ss, long long y_sh,
-                        int chunk, void* stream) {
+                        int chunk, int vec, void* stream) {
   if (B < 1 || S < 1 || H < 1 || chunk < 1 || chunk > 128)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -215,15 +462,23 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   long long* dst[5] = {p.sr, p.sk, p.sv, p.sw, p.sy};
   for (int a = 0; a < 5; ++a)
     for (int d = 0; d < 3; ++d) dst[a][d] = strides[a][d];
+  // y is stored up to 16 bytes at a time; r, k, v, w are copied 16 bytes at
+  // a time only where the caller says they allow it, and that is checked.
+  const void* ins[4] = {r, k, v, w};
+  if (!aligned16(y, p.sy, B, S, H)) return (int)cudaErrorMisalignedAddress;
+  for (int a = 0; a < 4 && vec; ++a)
+    if (!aligned16(ins[a], strides[a], B, S, H))
+      return (int)cudaErrorMisalignedAddress;
   p.H = H;
   p.S = S;
   p.chunk = chunk;
+  p.vec = vec ? 1 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return (int)launch<16>(p, B, st);
-    case 32: return (int)launch<32>(p, B, st);
-    case 64: return (int)launch<64>(p, B, st);
-    case 128: return (int)launch<128>(p, B, st);
+    case 16: return (int)launch<Pick<16>::T>(p, B, st);
+    case 32: return (int)launch<Pick<32>::T>(p, B, st);
+    case 64: return (int)launch<Pick<64>::T>(p, B, st);
+    case 128: return (int)launch<Pick<128>::T>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,16 +21,33 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 128
 
 
-@functools.cache
-def _fwd():
-    lib = build.library("wkv6")
+def bind(lib: ctypes.CDLL):
+    """(wkv6_fwd, wkv6_error_string) of a library built from `csrc/wkv6.cu`,
+    with their ctypes signatures."""
     fn = lib.wkv6_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 15
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_error_string.restype = ctypes.c_char_p
     return fn, lib.wkv6_error_string
+
+
+@functools.cache
+def _fwd():
+    return bind(build.library("wkv6"))
+
+
+def copy_bytes(*ts: torch.Tensor) -> int:
+    """The width of the kernel's copies for these (B,S,H,hd) tensors: 16
+    bytes where every base address is 16-byte aligned and every stride of
+    a dimension longer than 1 is a multiple of 4 elements, else 4."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(
+                n > 1 and st % 4 for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return 4
+    return 16
 
 
 def _check(r, k, v, w, u, s0, chunk):
@@ -73,11 +90,20 @@ def wkv6_plain(r, k, v, w, u, s0=None):
 def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
     """r, k, v, w: (B,S,H,hd) float32; u: (H,hd); s0: (B,H,hd,hd) or None
     (zeros).  Any S >= 1; hd in HEAD_DIMS on the GPU.  `chunk` is how many
-    tokens the kernel stages in shared memory at a time (1..128); it does
-    not change the result.  Returns (y: (B,S,H,hd), s_final: (B,H,hd,hd)),
-    both float32."""
+    tokens the kernel stages in shared memory at a time (1..128, fewer
+    where two stages would not fit); it does not change the result.
+    Returns (y: (B,S,H,hd), s_final: (B,H,hd,hd)), both float32."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)
+    y, s_final = launch(_fwd(), r, k, v, w, u, s0, chunk)
+    wkv6.launches += 1
+    return y, s_final
+
+
+def launch(fwd, r, k, v, w, u, s0, chunk):
+    """Check the CUDA inputs and run the kernel of `fwd` (from `bind`) on
+    them; returns (y, s_final).  Counts nothing: `wkv6` counts its own
+    launches."""
     _check(r, k, v, w, u, s0, chunk)
     b, s, h, hd = r.shape
     y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
@@ -85,17 +111,17 @@ def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
     s0 = None if s0 is None else s0.contiguous()
     s_final = torch.empty((b, h, hd, hd), dtype=torch.float32,
                           device=r.device)
-    fwd, errstr = _fwd()
-    err = fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-              u.data_ptr(), None if s0 is None else s0.data_ptr(),
-              y.data_ptr(), s_final.data_ptr(), b, s, h, hd,
-              *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-              *w.stride()[:3], *y.stride()[:3], chunk,
-              torch.cuda.current_stream(r.device).cuda_stream)
+    fn, errstr = fwd
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), None if s0 is None else s0.data_ptr(),
+             y.data_ptr(), s_final.data_ptr(), b, s, h, hd,
+             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *w.stride()[:3], *y.stride()[:3], chunk,
+             int(copy_bytes(r, k, v, w) == 16),
+             torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    wkv6.launches += 1
     return y, s_final
 
 

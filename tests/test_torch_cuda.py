@@ -148,6 +148,9 @@ def _wkv_ok(got, want):
     ((2, 100, 3, 128), 128, -3.0, True),
     ((2, 256, 4, 64), 1, -3.0, False),
     ((2, 256, 4, 64), 64, 2.0, False),        # strong decay
+    ((4, 1, 8, 128), 32, -3.0, True),         # hd 128 decode step
+    ((2, 300, 4, 64), 128, -3.0, False),      # the ring wraps, ragged tail
+    ((2, 300, 4, 32), 128, -3.0, True),
 ])
 def test_wkv6_kernel_matches_plain(dev, shape, chunk, decay, with_s0):
     r, k, v, w, u, s0 = _wkv_inputs(dev, shape, decay, with_s0)
@@ -173,6 +176,27 @@ def test_wkv6_kernel_reads_strided_input(dev):
     assert not args[0].is_contiguous()
     y, s = wkv.wkv6(*args, u[::2], s0[:, ::2])
     want_y, want_s = wkv.wkv6_plain(*args, u[::2], s0[:, ::2])
+    assert _wkv_ok(y, want_y) and _wkv_ok(s, want_s)
+
+
+def _misaligned(t, pad=1):
+    """`t` (B,S,H,hd) copied into a view of a wider buffer whose base sits
+    one element in and whose token stride is H*hd + pad elements."""
+    b, s, h, hd = t.shape
+    ts = h * hd + pad
+    view = torch.zeros(1 + b * s * ts, device=t.device).as_strided(
+        t.shape, (s * ts, ts, hd, 1), 1)
+    return view.copy_(t)
+
+
+def test_wkv6_kernel_reads_misaligned_rows(dev):
+    """Rows that allow no 16-byte copies take the kernel's 4-byte path."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, (2, 77, 3, 64), with_s0=True)
+    args = [_misaligned(t) for t in (r, k, v, w)]
+    assert wkv.copy_bytes(*args) == 4 and wkv.copy_bytes(r, k, v, w) == 16
+    y, s = wkv.wkv6(*args, u, s0, chunk=32)
+    want_y, want_s = wkv.wkv6_plain(*args, u, s0)
+    torch.cuda.synchronize()
     assert _wkv_ok(y, want_y) and _wkv_ok(s, want_s)
 
 

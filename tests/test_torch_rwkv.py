@@ -78,7 +78,8 @@ def _rel(got, want):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 2, 32), (2, 256, 4, 64)])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 32), (2, 256, 4, 64),
+                                   (4, 1, 40, 64)])   # RWKV6-3B decode step
 @pytest.mark.parametrize("with_s0", [False, True])
 def test_wkv6_plain_vs_jax_ref(shape, with_s0):
     (jr, jk, jv, jw, ju, js0), t = _both(_wkv_inputs(shape, seed=0,
@@ -104,6 +105,28 @@ def test_wkv6_state_carry_composition():
     want_y, want_s = jwkv6_ref(jr, jk, jv, jw, ju)
     _close(y_all, want_y, 1e-4)
     _close(s_all, want_s, 1e-4)
+
+
+def _misaligned(t, pad=1):
+    """`t` (B,S,H,hd) copied into a view of a wider buffer whose base sits
+    one element in and whose token stride is H*hd + pad elements: the
+    layout that takes the CUDA kernel's 4-byte copy path."""
+    b, s, h, hd = t.shape
+    ts = h * hd + pad
+    view = torch.zeros(1 + b * s * ts).as_strided(t.shape, (s * ts, ts, hd, 1),
+                                                  1)
+    return view.copy_(t)
+
+
+def test_wkv6_plain_reads_misaligned_view():
+    arrs = _wkv_inputs((2, 77, 3, 64), seed=3, with_s0=True)
+    (jr, jk, jv, jw, ju, js0), (r, k, v, w, u, s0) = _both(arrs)
+    views = [_misaligned(t) for t in (r, k, v, w)]
+    assert wkv.copy_bytes(*views) == 4 and wkv.copy_bytes(r, k, v, w) == 16
+    want_y, want_s = jwkv6_ref(jr, jk, jv, jw, ju, js0)
+    got_y, got_s = wkv.wkv6_plain(*views, u, s0)
+    _close(got_y, want_y, 1e-4)
+    _close(got_s, want_s, 1e-4)
 
 
 def _tpu_chunk_form(r, k, v, w, u, chunk):
