@@ -7,16 +7,28 @@ Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
      and print ptxas's register, spill and warning lines;
-  2. each kernel against its plain PyTorch twin on the card:
-     flash_attention over the masks, dtypes and shapes listed in CASES,
-     within fp32 2e-5 / bf16 2e-2; wkv6 over WKV_CASES (one with rows that
-     take the kernel's 4-byte copy path) and a state-carry case, y and the
-     final state within |got - want| <= 1e-4 + 1e-4 |want| elementwise,
-     the main shape included;
+  2. each kernel against its plain PyTorch twin on the card, over the
+     masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
+     CASES: the flash forward within fp32 2e-5 / bf16 2e-2 (max abs), its
+     lse within 1e-4 (relative max); the flash backward's dq, dk and dv
+     against autograd of the plain twin within fp32 2e-5 / bf16 2e-2
+     (relative max), on rows that see a key (a case with rows that see none
+     checks that the kernel's dq stays finite there); wkv6 over WKV_CASES
+     (one with rows that take the kernel's 4-byte copy path) and a
+     state-carry case, y and the final state within |got - want| <= 1e-4 +
+     1e-4 |want| elementwise, the main shape included;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: `repro_torch.launch.serve.main` serving
      TinyLlama-1.1B and RWKV6-3B at full width (batch 4, prompt 2048, 16
-     new tokens, random weights from seed 0);
+     new tokens, random weights from seed 0), and
+     `repro_torch.launch.train.build_trainer`'s step training
+     TinyLlama-1.1B at full width (batch 4, seq 2048, fp32 masters,
+     remat "full", 3 steps after a warm-up: exactly 44 flash forwards and
+     22 flash backwards a step; step ms, tokens/s, peak memory, finite
+     losses), then one step through the kernels against one through the
+     plain twins from the same params and batch, and the reduced dense
+     configs at 2048 tokens (forward and one train step) through the
+     kernels;
   4. per model: prefill logits through the kernel against those through
      the plain twin (relative max error <= 2e-2; for RWKV6-3B each block on
      the same input, and the logits within max(2e-2, 1.5 x the plain
@@ -24,9 +36,10 @@ Phases, each fatal on failure:
      width on the GPU against the CPU, and timings: kernel and plain twin
      (and for flash attention `scaled_dot_product_attention`, a yardstick
      the port never calls, and the achieved TFLOP/s) at the main path's
-     shape, for flash attention also at hd 128 (4, 2048, 40, 128), for wkv6
-     also the decode step's call (4, 1, 40, 64) (device time from the
-     profiler), prefill ms and decode ms per token;
+     shape, for flash attention also at hd 128 (4, 2048, 40, 128) and
+     Gemma-7B's hd 256 (2, 2048, 16, 256), for the flash backward beside
+     SDPA's backward, for wkv6 also the decode step's call (4, 1, 40, 64)
+     (device time from the profiler), prefill ms and decode ms per token;
   5. torch.profiler's device time for one prefill and three decode steps,
      as a share of the timings above, with the heaviest kernels.
 Prints one `{"kernels": [...]}` line, the card line, and last
@@ -37,13 +50,14 @@ when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -73,11 +87,32 @@ CASES = [
     (2, 255, 311, 3, 128, True, 200, 56, 0.2),
     (2, 129, 64, 3, 128, False, None, 0, 0.2),       # Skv below one kv tile
     (2, 129, 100, 3, 64, True, None, 64, None),
+    # head dims 16, 32 and 256 (the SIMT path in bf16 too): its 64-row
+    # (32 at hd 256) q tiles and 32-key (16) kv tiles, and the masks
+    (2, 512, 512, 4, 16, True, None, 0, None),
+    (2, 512, 512, 4, 32, False, None, 0, 0.3),
+    (1, 512, 512, 2, 256, True, 128, 0, None),
+    (2, 65, 33, 3, 16, False, None, 0, None),
+    (2, 127, 129, 3, 32, True, None, 2, None),
+    (2, 33, 47, 3, 256, True, None, 14, 0.2),
+    (2, 300, 300, 3, 32, True, 100, 0, None),
+    (1, 300, 100, 2, 64, True, 50, 0, None),      # rows past 148 see no key
+    (2, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's heads
     (4, 2048, 2048, 32, 64, True, None, 0, None),   # the main path's shape
 ]
 MAIN = CASES[-1]
+GEMMA = CASES[-2]
 # Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
+DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+TRAIN_STEPS = 3
+# Relative L2 error per gradient leaf of a TinyLlama-1.1B training step,
+# kernels against plain twins from the same params and batch.  Activations
+# are bf16, so the two differ by where bf16 rounds: measured 1.9e-2
+# (median) and 2.3e-2 (worst of 201 leaves) on the H100; on the CPU the
+# port's own gradients move by up to 2.0e-2 between bf16 and fp32
+# activations (reduced TinyLlama).  The bar is about twice that noise.
+GRAD_BAR = 5e-2
 ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 4, 2048, 16
 RWKV_ARCH = "rwkv6-3b"
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
@@ -149,9 +184,10 @@ def kernel_device_ms(fn, name: str, calls: int = 50):
             / sum(e.count for e in rows))
 
 
-def report_busy(label: str, rows: list, wall_ms: float, per: int) -> None:
+def report_busy(label: str, rows: list, wall_ms: float, per: int,
+                top: int = 6) -> None:
     """Device-busy share of a phase: profiled kernel time over the phase's
-    unprofiled time (both per call), plus the heaviest kernels."""
+    unprofiled time (both per call), plus the `top` heaviest kernels."""
     if not rows:
         print(f"{label}: device time not measured (no CUDA profiler events)")
         return
@@ -160,7 +196,7 @@ def report_busy(label: str, rows: list, wall_ms: float, per: int) -> None:
     print(f"{label}: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms "
           f"({100 * dev_ms / wall_ms:.1f} %), {launches:.0f} device "
           "kernels/copies per call", flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3 / per:9.3f} ms "
               f"x{e.count // per:<5d} {e.key[:90]}")
 
@@ -191,38 +227,118 @@ def attn_flops(case) -> float:
     return 4.0 * b * h * hd * int(vis.sum())
 
 
+def roofline(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The larger of the operations' time at `peak` FLOP/s and the bytes'
+    at PEAK_BYTES, in ms, and which one it is."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def bound(case, dtype) -> tuple[float, str]:
     """Least time (ms) for the card: each input read and the output written
     once, against the visible (q, k) pairs' QK^T and PV operations."""
     b, sq, skv, h, hd = case[:5]
     flops = attn_flops(case)
     nbytes = (2 * b * sq + 2 * b * skv) * h * hd * dtype.itemsize
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_F32_FLOPS)
 
 
-def check_kernels(fa) -> float:
-    """Phase 2; returns the max abs error at the main path's shape, bf16."""
-    main_err = None
+def seen_rows(case):
+    """(Sq,) bool on the card: the query rows that see at least one key."""
+    _, sq, skv, _, _, causal, window, q_offset, _ = case
+    q_pos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    k_pos = torch.arange(skv, device="cuda")[None, :]
+    vis = torch.ones(sq, skv, dtype=torch.bool, device="cuda")
+    if causal:
+        vis &= q_pos >= k_pos
+    if window is not None:
+        vis &= q_pos - k_pos < window
+    return vis.any(dim=1)
+
+
+def rel_err(got, want, floor: float = 1e-30) -> float:
+    """max |got - want| over max(max |want|, floor)."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(floor)).item()
+
+
+def check_backward(fa, case, dtype, q, k, v, seen) -> float:
+    """Phase 2 for the backward kernel at one case: dq, dk, dv against
+    autograd of the plain twin on the same q, k, v and dO (dO zero on rows
+    that see no key, where the two differ by design), and the kernel's dq
+    finite with a dO that is not.  Errors are relative to max(max |want|,
+    1): a gradient can be 0 by cancellation (at Sq = Skv = 1 the one key
+    has p = 1, so ds = dO.v - delta = 0 and dq = dk = 0), and there a ratio
+    of two rounding residues says nothing.  Returns the worst relative max error and
+    the worst max abs error."""
+    kw = attn_kwargs(case)
+    g = torch.Generator("cuda").manual_seed(7)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    do_seen = do * seen[None, :, None, None]
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, do_seen, lse, **kw)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_plain(qr, kr, vr, **kw).backward(do_seen)
+    errs = [rel_err(a, b.grad, floor=1.0) for a, b in zip(got, (qr, kr, vr))]
+    abs_err = max((a.float() - b.grad.float()).abs().max().item()
+                  for a, b in zip(got, (qr, kr, vr)))
+    finite = all(torch.isfinite(t).all().item() for t in got)
+    if not seen.all():
+        dq_full = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)[0]
+        finite = finite and torch.isfinite(dq_full).all().item()
+    torch.cuda.synchronize()
+    ok = finite and max(errs) <= TOL[dtype]
+    print(json.dumps({"bwd_case": list(case), "dtype": str(dtype),
+                      "rel_max_err_dq_dk_dv": errs, "tol": TOL[dtype],
+                      "finite": finite, "ok": ok}), flush=True)
+    if not ok:
+        fail(f"flash_attention_bwd {case} {dtype}: errors {errs}, finite "
+             f"{finite}")
+    return max(errs), abs_err
+
+
+def check_kernels(fa, ref) -> tuple:
+    """Phase 2 for flash attention, forward (output and lse) and backward;
+    returns the forward's and the backward's max abs errors at the main
+    path's shape, bf16."""
+    main_err = main_bwd_err = None
     for case in CASES:
+        seen = seen_rows(case)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(case, dtype)
             kw = attn_kwargs(case)
-            got = fa.flash_attention(q, k, v, **kw)
-            want = fa.flash_attention_plain(q, k, v, **kw)
+            got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+            want, want_lse = ref.flash_fwd(q, k, v, min(512, case[2]), **kw)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.isfinite(got).all().item() and err <= TOL[dtype]
+            err = (got.float() - want.float())[:, seen].abs().max().item()
+            lse_err = rel_err(lse[:, :, seen], want_lse[:, :, seen])
+            ok = (torch.isfinite(got).all().item() and err <= TOL[dtype]
+                  and lse_err <= 1e-4)
             print(json.dumps({"case": list(case), "dtype": str(dtype),
                               "max_abs_err": err, "tol": TOL[dtype],
+                              "lse_rel_max_err": lse_err, "lse_tol": 1e-4,
                               "ok": ok}), flush=True)
             if not ok:
-                fail(f"flash_attention {case} {dtype}: error {err}")
+                fail(f"flash_attention {case} {dtype}: error {err}, lse "
+                     f"{lse_err}")
+            _, bwd_err = check_backward(fa, case, dtype, q, k, v, seen)
             if case is MAIN and dtype == torch.bfloat16:
-                main_err = err
-            del q, k, v, got, want
-    return main_err
+                main_err, main_bwd_err = err, bwd_err
+            del q, k, v, got, lse, want, want_lse
+    # the backward on strided k and v: every other head of wider tensors,
+    # token slices of them (the forward's own strided cases are GPU tests)
+    for hd in (64, 128):
+        case = (2, 200, 200, 2, hd, True, None, 0, None)
+        q, _, _ = qkv(case, torch.bfloat16)
+        _, k_wide, v_wide = qkv((2, 1, 272, 4, hd) + case[5:], torch.bfloat16,
+                                seed=1)
+        k, v = k_wide[:, 72:, ::2], v_wide[:, :200, 1::2]
+        if k.is_contiguous() or v.is_contiguous():
+            fail("the strided backward case is not strided")
+        print(f"strided k / v, hd {hd}:", flush=True)
+        check_backward(fa, case, torch.bfloat16, q, k, v, seen_rows(case))
+    return main_err, main_bwd_err
 
 
 def time_flash(fa, case, card) -> tuple:
@@ -245,6 +361,190 @@ def time_flash(fa, case, card) -> tuple:
           f"{bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
           flush=True)
     return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+def bwd_bound(case, dtype) -> tuple[float, str]:
+    """Least time (ms) for the backward: q, k, v, o, dO and lse read and
+    dq, dk, dv written once, against the five products over the visible
+    pairs (S, dP, dQ, dK, dV: 2.5 x the forward's two)."""
+    b, sq, skv, h, hd = case[:5]
+    flops = 2.5 * attn_flops(case)
+    nbytes = (4 * b * sq + 4 * b * skv) * h * hd * dtype.itemsize \
+        + 4 * b * h * sq
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_F32_FLOPS)
+
+
+def time_flash_bwd(fa, ref, case, card) -> tuple:
+    """Phase 4a for the backward at one causal bf16 shape: the kernel (its
+    three launches), its plain twin and SDPA's backward (SDPA forward and
+    backward less its forward; a yardstick the port never calls) on the
+    same inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms,
+    bound_by)."""
+    q, k, v = qkv(case, torch.bfloat16)
+    kw = attn_kwargs(case)
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(7),
+                     device="cuda").bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                 5)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
+        q, k, v, out, do, lse, min(512, case[2]), **kw), 3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                      20)
+    lib_ms = both_ms - time_ms(sdpa, 20)
+    bound_ms, bound_by = bwd_bound(case, torch.bfloat16)
+    tflops = 2.5 * attn_flops(case) / 1e9
+    print(f"flash_attention_bwd {case[:5]} bf16 causal: kernel {ms:.4f} ms "
+          f"({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+          f"backward {lib_ms:.4f} ms (forward + backward {both_ms:.4f}), "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
+          flush=True)
+    return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+def train_batches(cfg, n: int, seq: int = PROMPT) -> list:
+    """Batches 0..n-1 of the training data pipeline, on the card."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=BATCH))
+    return [{k: torch.from_numpy(a).to("cuda", torch.long)
+             for k, a in data.batch(i).items()} for i in range(n)]
+
+
+def set_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def train_path(card, configs, train, counters) -> dict:
+    """Phase 3 for training: `build_trainer` on TinyLlama-1.1B at full
+    width, a warm-up step, then TRAIN_STEPS steps with the counts set to 0
+    just before and read just after (and each step's own counts checked).
+    Returns the numbers for the report."""
+    cfg = configs.get(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, step, _ = train.build_trainer(cfg, device="cuda", remat="full")
+    batches = train_batches(cfg, TRAIN_STEPS + 2)
+    state, m = step(state, batches[0])
+    losses = [float(m["loss"])]
+    setup_s = time.perf_counter() - t0
+    times, per_step = [], []
+    set_counts(counters)
+    for b in batches[1:TRAIN_STEPS + 1]:
+        before = read_counts(counters)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))   # waits for the device
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: n - before[k]
+                         for k, n in read_counts(counters).items()})
+    launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = sorted(times)[len(times) // 2]
+    print(f"train {ARCH} batch {BATCH} x seq {PROMPT}, fp32 masters, remat "
+          f"full: setup and warm-up step {setup_s:.3f}s; steps "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms (median {step_ms:.3f} "
+          f"ms, {BATCH * PROMPT * 1e3 / step_ms:.1f} tokens/s); peak memory "
+          f"{peak_gb:.3f} GB; losses {losses}; launches per step "
+          f"{per_step}, over the {TRAIN_STEPS} steps {launches} [{card}]",
+          flush=True)
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
+    if any(n != want for n in per_step):
+        fail(f"train {ARCH} launched {per_step}; want {want} a step (a "
+             "forward per layer, its recompute, and a backward per layer)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train {ARCH}: a loss is not finite: {losses}")
+    report_busy("train step", device_kernels(
+        lambda: step(state, batches[-1])), step_ms, 1, top=12)
+    del state
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "launches": launches}
+
+
+def train_vs_plain(card, configs, lm) -> None:
+    """Phase 4 for training: from the same fp32 params and batch, the loss
+    and every gradient leaf of one step through the kernels against the
+    same through the plain twins (autograd of `ref.flash_attention_ref`).
+    The loss within 2e-2 relative; each leaf's relative L2 error within
+    GRAD_BAR (see there)."""
+    cfg = configs.get(ARCH)
+    params = lm.build(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                dtype=torch.float32)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = train_batches(cfg, 1)[0]
+    got = {}
+    for force in (None, "plain"):
+        loss = lm.build(cfg, force=force, remat="full").loss(params, batch)
+        got[force] = (loss.item(), torch.autograd.grad(loss, leaves))
+    (loss_k, gk), (loss_p, gp) = got[None], got["plain"]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    l2 = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+          for a, b in zip(gk, gp)]
+    worst = max(range(len(l2)), key=l2.__getitem__)
+    print(f"train step kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.3e}, bar 2e-2); gradient leaves: worst relative "
+          f"L2 error {l2[worst]:.3e} (leaf {worst} of {len(l2)}, bar "
+          f"{GRAD_BAR}), median {sorted(l2)[len(l2) // 2]:.3e}, worst "
+          f"relative max error {max(rel_err(a, b) for a, b in zip(gk, gp)):.3e} "
+          f"[{card}]", flush=True)
+    if loss_rel > 2e-2 or l2[worst] > GRAD_BAR:
+        fail(f"a training step through the kernels differs from the plain "
+             f"twins: loss {loss_rel}, gradient leaf {worst} {l2[worst]}")
+    del params, leaves, gk, gp, got
+    torch.cuda.empty_cache()
+
+
+def reduced_dense(card, configs, lm, train, counters) -> None:
+    """Phase 4 for C1: each reduced dense config (head dims 16 and 32) at
+    2 x 2048 tokens through the kernels: the forward against the plain
+    twins (relative max <= 2e-2) with one flash launch per layer, and one
+    train step with two flash forwards and one backward per layer and a
+    finite loss."""
+    for arch in DENSE:
+        cfg = configs.get(arch, reduced=True)
+        model, state, step, _ = train.build_trainer(cfg, device="cuda")
+        batch = train_batches(cfg, 1)[0]
+        batch = {k: t[:2] for k, t in batch.items()}
+        set_counts(counters)
+        with torch.no_grad():
+            logits = model.forward(state.params, batch["tokens"])
+            fwd = read_counts(counters)
+            want = lm.build(cfg, force="plain").forward(state.params,
+                                                        batch["tokens"])
+        rel = rel_err(logits, want)
+        set_counts(counters)
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        trained = read_counts(counters)
+        n = cfg.n_layers
+        print(f"reduced {cfg.name} (hd {cfg.head_dim}) at 2 x {PROMPT}: "
+              f"forward kernels vs plain rel max err {rel:.3e}, launches "
+              f"{fwd}; train step loss {loss:.4f}, launches {trained} [{card}]",
+              flush=True)
+        if (rel > 2e-2 or not math.isfinite(loss)
+                or fwd != {"flash_attention": n, "flash_attention_bwd": 0,
+                           "wkv6": 0}
+                or trained != {"flash_attention": 2 * n,
+                               "flash_attention_bwd": n, "wkv6": 0}):
+            fail(f"reduced {cfg.name} through the kernels: rel {rel}, loss "
+                 f"{loss}, launches {fwd} / {trained}")
+        del model, state, step, logits, want
 
 
 def misaligned(t, pad):
@@ -293,8 +593,7 @@ def wkv_bound(case) -> tuple[float, str]:
     nbytes = 4 * (5 * b * s * h * hd + h * hd
                   + (2 if with_s0 else 1) * b * h * hd * hd)
     flops = 4.0 * b * s * h * hd * hd
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline(flops, nbytes, PEAK_F32_FLOPS)
 
 
 def check_wkv6(wkv) -> float:
@@ -333,10 +632,6 @@ def check_wkv6(wkv) -> float:
     if not (ok_y and ok_s):
         fail(f"wkv6 state carry: error y {err_y}, state {err_s}")
     return main_err
-
-
-def rel_err(got, want) -> float:
-    return ((got - want).abs().max() / want.abs().max()).item()
 
 
 def serve_counted(serve, arch, counters) -> tuple:
@@ -420,7 +715,8 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
     toks, launches, serve_s = serve_counted(serve, RWKV_ARCH, counters)
     print(f"serve {RWKV_ARCH}: {serve_s:.3f}s end to end (weights init "
           f"included), launches {launches} [{card}]", flush=True)
-    want = {"wkv6": cfg.n_layers * GEN, "flash_attention": 0}
+    want = {"wkv6": cfg.n_layers * GEN, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     if launches != want:
         fail(f"serve {RWKV_ARCH} launched {launches}; want {want} (one "
              "wkv6 per layer for the prefill and each of the "
@@ -537,10 +833,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch.configs as configs
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wkv
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import lm
 
     card = card_line()
@@ -558,25 +854,30 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain twins
-    main_err = check_kernels(fa)
+    main_err, main_bwd_err = check_kernels(fa, ref)
     wkv_main_err = check_wkv6(wkv)
 
     # 3. the dense main path, counted
-    counters = {"flash_attention": fa.flash_attention, "wkv6": wkv.wkv6}
+    counters = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "wkv6": wkv.wkv6}
     toks, counts, serve_s = serve_counted(serve, ARCH, counters)
     launches = counts["flash_attention"]
     cfg = configs.get(ARCH)
     print(f"serve {ARCH}: {serve_s:.3f}s end to end (weights init included), "
           f"launches {counts} [{card}]", flush=True)
-    if counts != {"flash_attention": cfg.n_layers, "wkv6": 0}:
+    if counts != {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
+                  "wkv6": 0}:
         fail(f"serve {ARCH} launched {counts}; want flash_attention once "
-             f"per layer ({cfg.n_layers}) and no wkv6")
+             f"per layer ({cfg.n_layers}) and nothing else")
     check_tokens(toks, cfg.vocab, ARCH)
     del toks
 
-    # 4a. kernel timings at the main path's shape and at hd 128
+    # 4a. kernel timings at the main path's shape, at hd 128 and hd 256
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(fa, MAIN, card)
     time_flash(fa, HD128, card)
+    time_flash(fa, GEMMA, card)
+    bwd = time_flash_bwd(fa, ref, MAIN, card)
 
     # 4b. prefill through the kernel vs the plain twin; decode timing
     model = lm.build(cfg)
@@ -650,6 +951,11 @@ def main() -> int:
     del sp, sp_gpu, cpu_logits, gpu_logits
     torch.cuda.empty_cache()
 
+    # 3-4 for the training main path, and C1's reduced configs
+    trained = train_path(card, configs, train, counters)
+    train_vs_plain(card, configs, lm)
+    reduced_dense(card, configs, lm, train, counters)
+
     # 3-5 for the RWKV main path
     wkv_entry = rwkv_path(card, configs, lm, serve, wkv, counters)
     wkv_entry["max_abs_err"] = wkv_main_err
@@ -660,7 +966,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:78",
         "launches": launches, "max_abs_err": main_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}, wkv_entry]}))
+        "library_ms": lib_ms}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: it replaces the jnp VJP of flash_attention_ref
+        "replaces": "src/repro/kernels/ref.py:106",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": main_bwd_err, "ms": bwd[0], "plain_ms": bwd[1],
+        "bound_ms": bwd[3], "bound_by": bwd[4], "library_ms": bwd[2]},
+        wkv_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

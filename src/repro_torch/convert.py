@@ -6,7 +6,8 @@ the port's params: each segment's leading layer axis unstacked into a list
 of per-layer dicts, matmul weights in bf16 (the JAX path casts them to bf16
 at every use, so this is bit-identical), and in fp32 the norm scales
 (`scale` leaves) and the leaves that the RWKV time-mix reads in fp32
-(FP32_LEAVES).
+(FP32_LEAVES).  With `dtype=torch.float32` every leaf is fp32: the JAX
+package's own fp32 masters, for training.
 """
 
 from __future__ import annotations
@@ -18,15 +19,16 @@ import torch
 FP32_LEAVES = frozenset({"scale", "w0", "w_lora_a", "w_lora_b", "bonus"})
 
 
-def _leaf(name: str, a, device) -> torch.Tensor:
+def _leaf(name: str, a, device, dtype) -> torch.Tensor:
     t = torch.from_numpy(np.array(a, np.float32))
-    return t.to(device=device, dtype=torch.float32 if name in FP32_LEAVES
-                else torch.bfloat16)
+    if dtype is None:
+        dtype = torch.float32 if name in FP32_LEAVES else torch.bfloat16
+    return t.to(device=device, dtype=dtype)
 
 
-def _tree(d: dict, device) -> dict:
-    return {k: _tree(v, device) if isinstance(v, dict) else _leaf(k, v, device)
-            for k, v in d.items()}
+def _tree(d: dict, device, dtype) -> dict:
+    return {k: _tree(v, device, dtype) if isinstance(v, dict)
+            else _leaf(k, v, device, dtype) for k, v in d.items()}
 
 
 def _unstack(d: dict, i: int) -> dict:
@@ -39,12 +41,14 @@ def _count(d: dict) -> int:
     return _count(v) if isinstance(v, dict) else len(v)
 
 
-def params_from_jax(tree: dict, device="cuda") -> dict:
+def params_from_jax(tree: dict, device="cuda", dtype=None) -> dict:
+    """`dtype`: None for the serving layout above, or one dtype for every
+    leaf (torch.float32: training masters)."""
     out = {}
     for name, sub in tree.items():
         if name.startswith("seg"):
-            out[name] = [_tree(_unstack(sub, i), device)
+            out[name] = [_tree(_unstack(sub, i), device, dtype)
                          for i in range(_count(sub))]
         else:
-            out[name] = _tree(sub, device)
+            out[name] = _tree(sub, device, dtype)
     return out

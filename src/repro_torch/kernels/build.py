@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles, at first
 use, into `_build/lib<name>-<digest>.so` (git-ignored); the digest covers
-the source and the flags, so an edited source builds anew.  nvcc's output,
+the source, the shared headers `csrc/*.cuh` and the flags, so an edited
+source or header builds anew.  nvcc's output,
 including `-Xptxas -v`'s register and shared-memory report, is kept in
 `_build/<name>.log`.
 """
@@ -20,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,8 +44,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

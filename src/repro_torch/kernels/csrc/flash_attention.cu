@@ -17,7 +17,7 @@
 // on the SFUs, 16 per clock per SM: a 128 x 128 tile needs ~0.56 us of
 // them, about as long as its two products need on the tensor cores.
 //
-// bf16 design (the serving path):
+// bf16 design at hd 64 and 128 (the serving and training path):
 //  * One block per (b*h, 128-row q tile), one block per SM: two consumer
 //    warpgroups own 64 q rows each; a producer warpgroup, of which one
 //    thread works, issues the loads.  ptxas sizes registers by warpgroup
@@ -51,13 +51,27 @@
 //    (past the causal diagonal, before the window).  The grid is 1-D with
 //    the q tiles of one head adjacent, heaviest first, so the blocks that
 //    share a head's K and V run together and read them from L2.
-// fp32 design: the tensor cores would round to tf32, so a SIMT kernel: four
-// threads per q row, each holding a quarter of q and acc in registers, over
-// 32-key K/V tiles in shared memory that a warp reads by broadcast; the same
-// kv_range, heaviest q tiles first.  Masked logits are -1e30 there, as in
-// the plain version.
+// SIMT design, for fp32 at every head dim (the tensor cores would round to
+// tf32) and for bf16 at head dims 16, 32 and 256 (Gemma-7B's 256, and the
+// reduced configs' 16 and 32): TPR threads per q row (4, or 8 at hd 256, so
+// a thread holds at most 32 floats each of q and acc in registers), over
+// K/V tiles of 32 keys (16 at hd 256: two fp32 tiles stay within the 48 KB
+// of static shared memory) that a warp reads by broadcast; the same
+// kv_range, heaviest q tiles first.  bf16 is loaded, converted to fp32 on
+// the way into registers and shared memory, and rounded once at the store.
+// Masked logits are -1e30 there, as in the plain version.  This path is
+// simple and right, not fast: at Gemma-7B's (B, 2048, 16, 256) it does the
+// work of the wgmma path on the fp32 FMA units (67 TFLOP/s peak).
 // Either kernel gives the plain version's result for a row that sees at
 // least one key.
+//
+// lse (optional, for the backward): a null pointer writes nothing, so
+// serving pays nothing.  Otherwise each row writes, in fp32 at
+// lse[(b * H + h) * Sq + row], the natural log of its softmax denominator
+// over the *scaled* logits, lse = m + log(max(l, 1e-30)), as
+// src/repro/kernels/ref.py:118 computes it.  The wgmma path keeps m in base
+// 2 (its softmax runs on exp2 with log2(e) folded into the scale), so it
+// writes m * ln(2) + log(l).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -66,20 +80,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+using flash::kNegInf;
+using flash::Strides;
 
-struct Strides {
-  long long b, s, h;  // element strides; head_dim is contiguous
-};
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) fp32, or null
   Strides sq, sk, sv, so;
   int H, Sq, Skv;
   int causal, window, q_offset;  // window <= 0: none
@@ -87,24 +103,14 @@ struct Params {
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  return kpos < p.Skv && (!p.causal || qpos >= kpos) &&
-         (p.window <= 0 || qpos - kpos < p.window);
+  return flash::visible(p.Skv, p.causal, p.window, qpos, kpos);
 }
 
 // KV tiles [lo, hi) that hold a visible key for some row of q tile [q0, q0+bq).
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int bq,
                                          int bk, int& lo, int& hi) {
-  const int n_kv = (p.Skv + bk - 1) / bk;
-  lo = 0;
-  hi = n_kv;
-  if (p.causal) {
-    const int q_last = min(q0 + bq, p.Sq) - 1 + p.q_offset;
-    hi = min(n_kv, q_last / bk + 1);
-  }
-  if (p.window > 0) {
-    const int first_key = q0 + p.q_offset - p.window + 1;
-    if (first_key > 0) lo = first_key / bk;
-  }
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, q0, bq, bk,
+                  lo, hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,6 +566,9 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
+    if (p.lse != nullptr && t == 0)  // m is in base 2
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+          m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = O + row * p.so.s + 2 * t;
 #pragma unroll
@@ -620,64 +629,73 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: SIMT kernel
+// SIMT kernel: fp32 at every head dim, bf16 at 16, 32 and 256
 // ---------------------------------------------------------------------------
 
-constexpr int kFBQ = 64;        // q rows per block, 4 threads per row
-constexpr int kFBK = 32;        // keys per tile
 constexpr int kFThreads = 256;
 constexpr int kFChunk = 8;      // keys per online-softmax update
 
+// TPR threads per q row; a thread holds the float4 chunks {TPR i + t} of its
+// row's q and acc (at most 32 floats each).  BK keys per K/V tile: two fp32
+// tiles in static shared memory, at most 32 KB.
 template <int HD>
+struct Simt {
+  static constexpr int kTPR = HD == 256 ? 8 : 4;
+  static constexpr int kBQ = kFThreads / kTPR;  // q rows per block
+  static constexpr int kBK = HD == 256 ? 16 : 32;
+  static constexpr int kC4 = HD / (4 * kTPR);   // float4 chunks a thread
+};
+
+template <int HD, typename T>
 __global__ void __launch_bounds__(kFThreads)
-    flash_fwd_f32(const Params p) {
-  constexpr int DPT = HD / 4;   // dims per thread: {16i + 4t + e}
-  __shared__ __align__(16) float sK[kFBK * HD];
-  __shared__ __align__(16) float sV[kFBK * HD];
+    flash_fwd_simt(const Params p) {
+  using S = Simt<HD>;
+  constexpr int TPR = S::kTPR, C4 = S::kC4, BK = S::kBK;
+  __shared__ __align__(16) float sK[BK * HD];
+  __shared__ __align__(16) float sV[BK * HD];
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFBQ;
-  const int t = threadIdx.x % 4;
-  const int qi = q0 + threadIdx.x / 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * S::kBQ;  // heaviest first
+  const int t = threadIdx.x % TPR;
+  const int qi = q0 + threadIdx.x / TPR;
   const int qpos = qi + p.q_offset;
 
-  const float* Q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const float* K = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const float* V = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
-  float* O = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
+  const T* Q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* K = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* V = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+  T* O = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
 
-  float q[DPT], acc[DPT];
+  float q[4 * C4], acc[4 * C4];
 #pragma unroll
-  for (int i = 0; i < HD / 16; ++i) {
+  for (int i = 0; i < C4; ++i) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qi < p.Sq)
-      x = *reinterpret_cast<const float4*>(Q + qi * p.sq.s + 16 * i + 4 * t);
+    if (qi < p.Sq) x = flash::load4(Q + qi * p.sq.s + 4 * (TPR * i + t));
     q[4 * i + 0] = x.x * p.scale;  // (q * scale) . k, as the plain version
     q[4 * i + 1] = x.y * p.scale;
     q[4 * i + 2] = x.z * p.scale;
     q[4 * i + 3] = x.w * p.scale;
   }
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
+  for (int d = 0; d < 4 * C4; ++d) acc[d] = 0.f;
   float m = kNegInf, l = 0.f;
 
   int lo, hi;
-  kv_range(p, q0, kFBQ, kFBK, lo, hi);
+  kv_range(p, q0, S::kBQ, BK, lo, hi);
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kFBK;
-    for (int c = threadIdx.x; c < kFBK * HD / 4; c += kFThreads) {
+    const int k0 = kt * BK;
+    for (int c = threadIdx.x; c < BK * HD / 4; c += kFThreads) {
       const int r = c / (HD / 4), cc = c % (HD / 4);
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < p.Skv) {
-        kx = *reinterpret_cast<const float4*>(K + (k0 + r) * p.sk.s + 4 * cc);
-        vx = *reinterpret_cast<const float4*>(V + (k0 + r) * p.sv.s + 4 * cc);
+        kx = flash::load4(K + (k0 + r) * p.sk.s + 4 * cc);
+        vx = flash::load4(V + (k0 + r) * p.sv.s + 4 * cc);
       }
       *reinterpret_cast<float4*>(&sK[r * HD + 4 * cc]) = kx;
       *reinterpret_cast<float4*>(&sV[r * HD + 4 * cc]) = vx;
     }
     __syncthreads();
 
-    for (int j0 = 0; j0 < kFBK; j0 += kFChunk) {
+    for (int j0 = 0; j0 < BK; j0 += kFChunk) {
       float s[kFChunk];
       float mx = m;
 #pragma unroll
@@ -685,15 +703,14 @@ __global__ void __launch_bounds__(kFThreads)
         const float* krow = &sK[(j0 + jj) * HD + 4 * t];
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < HD / 16; ++i) {
-          const float4 kv = *reinterpret_cast<const float4*>(krow + 16 * i);
+        for (int i = 0; i < C4; ++i) {
+          const float4 kv = *reinterpret_cast<const float4*>(krow + 4 * TPR * i);
           d = fmaf(q[4 * i + 0], kv.x, d);
           d = fmaf(q[4 * i + 1], kv.y, d);
           d = fmaf(q[4 * i + 2], kv.z, d);
           d = fmaf(q[4 * i + 3], kv.w, d);
         }
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        d = flash::row_sum<TPR>(d);
         s[jj] = visible(p, qpos, k0 + j0 + jj) ? d : kNegInf;
         mx = fmaxf(mx, s[jj]);
       }
@@ -701,15 +718,15 @@ __global__ void __launch_bounds__(kFThreads)
       m = mx;
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[d] *= corr;
+      for (int d = 0; d < 4 * C4; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kFChunk; ++jj) {
         const float pe = k0 + j0 + jj < p.Skv ? expf(s[jj] - m) : 0.f;
         l += pe;
         const float* vrow = &sV[(j0 + jj) * HD + 4 * t];
 #pragma unroll
-        for (int i = 0; i < HD / 16; ++i) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 16 * i);
+        for (int i = 0; i < C4; ++i) {
+          const float4 vv = *reinterpret_cast<const float4*>(vrow + 4 * TPR * i);
           acc[4 * i + 0] = fmaf(pe, vv.x, acc[4 * i + 0]);
           acc[4 * i + 1] = fmaf(pe, vv.y, acc[4 * i + 1]);
           acc[4 * i + 2] = fmaf(pe, vv.z, acc[4 * i + 2]);
@@ -723,10 +740,13 @@ __global__ void __launch_bounds__(kFThreads)
   if (qi < p.Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < HD / 16; ++i)
-      *reinterpret_cast<float4*>(O + qi * p.so.s + 16 * i + 4 * t) =
-          make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
-                      acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+    for (int i = 0; i < C4; ++i)
+      flash::store4(O + qi * p.so.s + 4 * (TPR * i + t),
+                    make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
+                                acc[4 * i + 2] * inv, acc[4 * i + 3] * inv));
+    if (p.lse != nullptr && t == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+          m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -804,32 +824,44 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int HD, typename T>
+int launch_simt(const Params& p, int B, cudaStream_t stream) {
+  const int n_qt = (p.Sq + Simt<HD>::kBQ - 1) / Simt<HD>::kBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidConfiguration;
+  flash_fwd_simt<HD, T><<<dim3(B * p.H, n_qt), kFThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
-  if (dtype == 1) return launch_bf16<HD>(p, B, stream);
-  dim3 grid(B * p.H, (p.Sq + kFBQ - 1) / kFBQ);
-  flash_fwd_f32<HD><<<grid, kFThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch_simt<HD, float>(p, B, stream);
+  if constexpr (HD == 64 || HD == 128)
+    return launch_bf16<HD>(p, B, stream);
+  else
+    return launch_simt<HD, __nv_bfloat16>(p, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, as
-// (batch, seq, head); the head_dim stride must be 1.  window <= 0 means
-// no window.  Returns cudaGetLastError() after the launch (0 = success),
-// or cudaErrorInvalidValue when a bf16 tensor map cannot be built.
+// dtype: 0 = float32, 1 = bfloat16.  hd: 16, 32, 64, 128 or 256.  Strides
+// are in elements, as (batch, seq, head); the head_dim stride must be 1.
+// window <= 0 means no window.  lse: (B, H, Sq) fp32, or null for none.
+// Returns cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for an unsupported dtype / head dim or when a bf16
+// tensor map cannot be built.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int Sq, int Skv, int hd, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, int q_offset,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B, int H, int Sq, int Skv, int hd, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, int causal, int window,
+    int q_offset, float scale, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.sq = {q_sb, q_ss, q_sh};
   p.sk = {k_sb, k_ss, k_sh};
   p.sv = {v_sb, v_ss, v_sh};
@@ -841,10 +873,16 @@ extern "C" int flash_attention_fwd(
   p.window = window;
   p.q_offset = q_offset;
   p.scale = scale;
-  if ((dtype != 0 && dtype != 1) || (hd != 64 && hd != 128))
-    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd == 64 ? launch<64>(p, dtype, B, st) : launch<128>(p, dtype, B, st);
+  switch (hd) {
+    case 16: return launch<16>(p, dtype, B, st);
+    case 32: return launch<32>(p, dtype, B, st);
+    case 64: return launch<64>(p, dtype, B, st);
+    case 128: return launch<128>(p, dtype, B, st);
+    case 256: return launch<256>(p, dtype, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,11 +1,23 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its wrapper.
+"""Flash attention: the hand-written CUDA forward and backward kernels,
+their wrappers, and the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel `repro.kernels.flash_attention.
-flash_attention`.  The kernel lives in `csrc/flash_attention.cu` (see its
-header for the design and its bound on an H100); it is built by nvcc on
-first use and called through ctypes.  On a CPU tensor the wrapper runs the
-plain twin, `flash_attention_plain`; on a CUDA tensor it launches the
-kernel or raises.  `flash_attention.launches` counts kernel launches.
+The forward replaces the Pallas TPU kernel `repro.kernels.flash_attention.
+flash_attention`.  The backward has no TPU counterpart: the JAX package
+differentiates through the plain jnp VJP of `repro.kernels.ref.
+flash_attention_ref`, and the backward kernel computes the same function.
+The kernels live in `csrc/flash_attention.cu` and
+`csrc/flash_attention_bwd.cu` (see their headers for the designs and their
+bounds on an H100); they are built by nvcc on first use and called through
+ctypes.  On CPU tensors each wrapper runs its plain twin (`ref.flash_fwd`,
+`ref.flash_attention_bwd_plain`); on CUDA tensors it launches its kernel or
+raises.  `flash_attention.launches` counts forward launches and
+`flash_attention_bwd.launches` backward calls (three kernels each).
+
+`FlashAttention` is the way to differentiate through the kernels: its
+forward asks the kernel for lse and saves q, k, v, o and lse, its backward
+runs the backward kernel.  Called directly under grad mode with an input
+that requires grad, the CUDA forward raises rather than hand back an output
+that carries no gradient.
 """
 
 from __future__ import annotations
@@ -17,15 +29,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
-def _fwd():
-    lib = build.library("flash_attention")
+def bind(lib: ctypes.CDLL):
+    """(flash_attention_fwd, flash_attention_error_string) of a library
+    built from `csrc/flash_attention.cu`, with their ctypes signatures."""
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -34,12 +46,37 @@ def _fwd():
     return fn, lib.flash_attention_error_string
 
 
-def _check(q, k, v, window, q_offset):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes float32 or bfloat16")
+@functools.cache
+def _fwd():
+    return bind(build.library("flash_attention"))
+
+
+@functools.cache
+def _bwd():
+    lib = build.library("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return fn, lib.flash_attention_bwd_error_string
+
+
+def _check(q, k, v, window, q_offset, **like_q):
+    """Raise on what the kernels do not take: q (B,Sq,H,hd), k and v
+    (B,Skv,H,hd), and the tensors of `like_q` shaped as q, all on one CUDA
+    device, in one of _DTYPES, hd in HEAD_DIMS, with a contiguous head_dim
+    and 16-byte aligned rows and strides."""
+    ts = {"q": q, "k": k, "v": v, **like_q}
+    if not all(t.is_cuda and t.device == q.device for t in ts.values()):
+        raise ValueError(f"flash_attention: {', '.join(ts)} must lie on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts.values()):
+        raise ValueError("flash_attention: dtypes "
+                         f"{'/'.join(str(t.dtype) for t in ts.values())}; "
+                         "the kernel takes float32 or bfloat16")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; want "
@@ -48,10 +85,14 @@ def _check(q, k, v, window, q_offset):
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, hd):
         raise ValueError("flash_attention: q and k/v differ in batch, heads "
                          "or head_dim (expand GQA before the call)")
+    for name, t in like_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)}; "
+                             f"want q's {tuple(q.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     align = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in ts.items():
         if (t.stride(-1) != 1 or any(s % align for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
@@ -61,37 +102,49 @@ def _check(q, k, v, window, q_offset):
         raise ValueError(f"flash_attention: window {window} < 1")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
-    if -(-q.shape[1] // 64) > 65535:
-        raise ValueError("flash_attention: Sq beyond 64 * 65535")
+    if max(-(-q.shape[1] // 16), -(-k.shape[1] // 16)) > 65535:
+        raise ValueError("flash_attention: Sq or Skv beyond 16 * 65535")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int | None = None, q_offset: int = 0,
                           scale: float | None = None) -> torch.Tensor:
-    """The kernel's plain twin, on any device: `ref.flash_attention_ref`
-    with `block_k = min(512, Skv)`, as the JAX dispatcher calls it."""
+    """The forward kernel's plain twin, on any device and differentiable:
+    `ref.flash_attention_ref` with `block_k = min(512, Skv)`, as the JAX
+    dispatcher calls it."""
     return ref.flash_attention_ref(q, k, v, min(512, k.shape[1]), causal,
                                    window, q_offset, scale)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None, q_offset: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B,Sq,H,hd); k,v: (B,Skv,H,hd) with H already GQA-expanded.
-    Any Sq and Skv; hd in HEAD_DIMS on the GPU.  Returns (B,Sq,H,hd) in
-    q's dtype."""
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        scale: float | None = None, want_lse: bool = False):
+    """The forward: q (B,Sq,H,hd); k, v (B,Skv,H,hd), H already
+    GQA-expanded; any Sq and Skv; hd in HEAD_DIMS on the GPU.  Returns
+    (out (B,Sq,H,hd) in q's dtype, lse), lse the fp32 (B,H,Sq) natural log
+    of each row's softmax denominator over the scaled logits when
+    `want_lse`, else None (the kernel then writes none)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, scale=scale)
+        out, lse = ref.flash_fwd(q, k, v, min(512, k.shape[1]), causal,
+                                 window, q_offset, scale)
+        return out, lse if want_lse else None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: an input requires grad, and the kernel's output "
+            "would carry none; differentiate through FlashAttention.apply "
+            "(ops.attention does), or call under torch.no_grad()")
     _check(q, k, v, window, q_offset)
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5 if scale is None else float(scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if sq == 0:
-        return out
+        return out, lse
     fwd, errstr = _fwd()
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              None if lse is None else lse.data_ptr(),
               _DTYPES[q.dtype], b, h, sq, skv, hd,
               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
               *out.stride()[:3], int(causal), window or 0, q_offset, scale,
@@ -100,7 +153,87 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """The forward's output alone (no lse).  On a CPU tensor the plain twin,
+    differentiable; on CUDA tensors the kernel, which raises under grad
+    mode for an input that requires grad (see `FlashAttention`)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, scale=scale)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        scale: float | None = None):
+    """The backward: q, k, v as the forward took them, its output o, the
+    output's gradient do (shaped as q) and its lse (fp32 (B,H,Sq), from
+    `flash_attention_fwd(..., want_lse=True)`).  Returns (dq, dk, dv) in
+    the inputs' dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             min(512, k.shape[1]), causal,
+                                             window, q_offset, scale)
+    _check(q, k, v, window, q_offset, o=o, do=do)
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse {lse.dtype} "
+                         f"{tuple(lse.shape)}; want contiguous float32 "
+                         f"{(b, h, sq)} on {q.device}")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if sq == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    fn, errstr = _bwd()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, sq, skv,
+             hd, strides, int(causal), window or 0, q_offset, scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention_bwd kernel launch failed: "
+                           f"{errstr(err).decode()} ({err})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention that autograd differentiates: the forward kernel
+    with lse, then the backward kernel (their plain twins on CPU tensors).
+    `FlashAttention.apply(q, k, v, causal, window, q_offset, scale)`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, q_offset=0,
+                scale=None):
+        opts = dict(causal=causal, window=window, q_offset=q_offset,
+                    scale=scale)
+        out, lse = flash_attention_fwd(q, k, v, want_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None

@@ -2,12 +2,17 @@
 
 `attention(...)` is what the model layer calls: naive SDPA below
 FLASH_THRESHOLD query positions (the quadratic logits are cheap there);
-at or above it, the CUDA flash kernel for CUDA tensors and its plain twin
-for CPU tensors.  Every path honours `scale`.
+at or above it, the CUDA flash kernels for CUDA tensors and their plain
+twin for CPU tensors.  Serving and training take the same path: where
+autograd needs a gradient the kernel path is `FlashAttention` (forward
+with lse, backward kernel); under `torch.no_grad` / `inference_mode` it is
+the forward alone, which writes no lse and saves nothing.  Every path
+honours `scale` and is differentiable.
 
 `rwkv_mix(...)` runs the WKV6 recurrence: the CUDA kernel for CUDA
 tensors, its plain twin for CPU tensors.  Both return the final state
-(the JAX dispatcher's Pallas path returns None there).
+(the JAX dispatcher's Pallas path returns None there).  The kernel has no
+backward yet: on CUDA inputs that require grad it raises.
 """
 
 from __future__ import annotations
@@ -37,6 +42,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
         if not q.is_cuda:
             raise ValueError("attention(force='kernel') needs CUDA tensors; "
                              f"got {q.device}")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return fa.FlashAttention.apply(q, k, v, causal, window,
+                                           q_offset, scale)
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, scale=scale)
     if impl == "plain":
@@ -48,8 +57,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 def rwkv_mix(r, k, v, w, u, *, s0=None, force: str | None = None):
     """WKV6.  r,k,v,w: (B,S,H,hd) float32; u: (H,hd); s0: (B,H,hd,hd) or
-    None.  `force` is "kernel" (needs CUDA tensors) or "plain".  Returns
-    (y, s_final), both float32."""
+    None.  `force` is "kernel" (needs CUDA tensors; raises
+    NotImplementedError for inputs that require grad) or "plain"
+    (differentiable).  Returns (y, s_final), both float32."""
     impl = force or ("kernel" if r.is_cuda else "plain")
     if impl == "kernel":
         if not r.is_cuda:

@@ -1,12 +1,15 @@
 """Plain PyTorch kernel oracles, ported from `repro.kernels.ref`.
 
 `naive_attention` is the quadratic SDPA oracle.  `flash_attention_ref` is
-the forward of the chunked online-softmax attention (fp32 m, l, acc) and is
-the plain twin of the CUDA kernel in `flash_attention.py`.  Unlike the JAX
-reference, it walks a ragged last KV block instead of dropping the keys past
-the last whole `block_k` (`skv // block_k` in `repro.kernels.ref._flash_fwd`).
+the chunked online-softmax attention (fp32 m, l, acc) with the reference's
+recompute VJP, as a `torch.autograd.Function`: `flash_fwd` is its forward
+(the plain twin of the CUDA forward kernel, lse included) and
+`flash_attention_bwd_plain` its backward (the plain twin of the CUDA
+backward kernel).  Unlike the JAX reference, both walk a ragged last KV
+block instead of dropping the keys past the last whole `block_k` (the JAX
+forward's `skv // block_k`, R5) or raising (its VJP's reshape, R8).
 `wkv6_ref` is the sequential WKV6 recurrence, the plain twin of the CUDA
-kernel in `wkv6.py`.
+kernel in `wkv6.py`; autograd differentiates it as it stands.
 """
 
 from __future__ import annotations
@@ -42,14 +45,16 @@ def naive_attention(q, k, v, *, causal: bool = True,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
 
 
-def flash_attention_ref(q, k, v, block_k: int = 512, causal: bool = True,
-                        window: int | None = None, q_offset: int = 0,
-                        scale: float | None = None) -> torch.Tensor:
+def flash_fwd(q, k, v, block_k: int = 512, causal: bool = True,
+              window: int | None = None, q_offset: int = 0,
+              scale: float | None = None):
     """Memory-efficient exact attention: O(Sq*block_k) live logits.
 
     Shapes as `naive_attention`; k/v may also hold a single shared head
-    (broadcast over q's heads) and v may have its own feature dim.  The
-    output is `acc / max(l, 1e-30)` cast to q's dtype."""
+    (broadcast over q's heads) and v may have its own feature dim.  Returns
+    (out, lse): out = acc / max(l, 1e-30) in q's dtype, and the fp32
+    (B,H,Sq) lse = m + log(max(l, 1e-30)) of the scaled logits, as the
+    reference's VJP computes it (src/repro/kernels/ref.py:118)."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5 if scale is None else scale
@@ -73,8 +78,73 @@ def flash_attention_ref(q, k, v, block_k: int = 512, causal: bool = True,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + p @ vs
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    l = l.clamp_min(1e-30)
+    out = acc / l[..., None]
+    return out.transpose(1, 2).to(q.dtype), m + torch.log(l)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, block_k: int = 512,
+                              causal: bool = True, window: int | None = None,
+                              q_offset: int = 0, scale: float | None = None):
+    """The reference's recompute VJP (src/repro/kernels/ref.py:106-154),
+    KV block by KV block: delta = rowsum(dO * o); per block p = exp(s -
+    lse), ds = p (dO v^T - delta) scale, dq += ds k, dk = ds^T q, dv =
+    p^T dO.  `o` and `lse` are `flash_fwd`'s.  Returns (dq, dk, dv) in the
+    inputs' dtypes (a shared k/v head gets the sum over q's heads)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    qf = q.float().transpose(1, 2)                      # (B,H,Sq,hd)
+    kf = k.float().transpose(1, 2)                      # (B,H|1,Skv,hd)
+    vf = v.float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)                    # (B,H,Sq,hd_v)
+    delta = (dof * o.float().transpose(1, 2)).sum(dim=-1)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for start in range(0, skv, block_k):
+        ks = kf[:, :, start:start + block_k]
+        vs = vf[:, :, start:start + block_k]
+        s = (qf * scale) @ ks.transpose(-1, -2)
+        k_pos = torch.arange(start, start + ks.shape[2], device=q.device)
+        s = s.masked_fill(~_mask(q_pos, k_pos, causal, window), NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        ds = p * (dof @ vs.transpose(-1, -2) - delta[..., None]) * scale
+        dq = dq + ds @ ks
+        dk_i = ds.transpose(-1, -2) @ qf
+        dv_i = p.transpose(-1, -2) @ dof
+        if kf.shape[1] != h:                            # one shared head
+            dk_i = dk_i.sum(dim=1, keepdim=True)
+            dv_i = dv_i.sum(dim=1, keepdim=True)
+        dks.append(dk_i)
+        dvs.append(dv_i)
+    dk = torch.cat(dks, dim=2).transpose(1, 2)
+    dv = torch.cat(dvs, dim=2).transpose(1, 2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class _FlashRef(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, block_k, causal, window, q_offset, scale):
+        out, lse = flash_fwd(q, k, v, block_k, causal, window, q_offset,
+                             scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (block_k, causal, window, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, out, do, lse, *ctx.args),
+                None, None, None, None, None)
+
+
+def flash_attention_ref(q, k, v, block_k: int = 512, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """`flash_fwd`'s output, differentiated by `flash_attention_bwd_plain`
+    (recompute, O(Sq*block_k) live logits in both directions)."""
+    return _FlashRef.apply(q, k, v, block_k, causal, window, q_offset, scale)
 
 
 def wkv6_ref(r, k, v, w, u, s0=None):

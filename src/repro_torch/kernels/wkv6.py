@@ -4,8 +4,11 @@ its wrapper.
 Replaces the Pallas TPU kernel `repro.kernels.rwkv6.wkv6`.  The kernel
 lives in `csrc/wkv6.cu` (see its header for the design and its bound on an
 H100); it is built by nvcc on first use and called through ctypes.  On a
-CPU tensor the wrapper runs the plain twin, `wkv6_plain`; on a CUDA tensor
-it launches the kernel or raises.  `wkv6.launches` counts kernel launches.
+CPU tensor the wrapper runs the plain twin, `wkv6_plain`, which autograd
+differentiates; on a CUDA tensor it launches the kernel or raises.  The
+kernel has no backward yet, so under grad mode it raises for an input that
+requires grad instead of handing back an output without a gradient.
+`wkv6.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 128
+NO_BACKWARD = ("the wkv6 kernel has no backward yet (ROADMAP A3: RWKV "
+               "training with a wkv6 backward kernel); on the CPU the plain "
+               "recurrence is differentiable")
 
 
 def bind(lib: ctypes.CDLL):
@@ -95,6 +101,10 @@ def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
     Returns (y: (B,S,H,hd), s_final: (B,H,hd,hd)), both float32."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise NotImplementedError(f"wkv6: an input requires grad, but "
+                                  f"{NO_BACKWARD}")
     y, s_final = launch(_fwd(), r, k, v, w, u, s0, chunk)
     wkv6.launches += 1
     return y, s_final

@@ -2,8 +2,9 @@
 with its data-dependent decay, and the channel-mix.
 
 Storage follows `layers`: matmul weights and the `mu_*` token-shift mixes
-in bf16 (the JAX package casts them to the activation dtype at every use),
-while the leaves that the JAX time-mix reads in fp32 stay fp32: the decay
+in bf16 for serving (the JAX package casts them to the activation dtype at
+every use) or in the init's `dtype` (fp32 masters for training), while the
+leaves that the JAX time-mix reads in fp32 stay fp32: the decay
 base `w0`, its LoRA `w_lora_a` / `w_lora_b` and the bonus `u`.
 
 The WKV recurrence goes through `ops.rwkv_mix` (the CUDA kernel on the GPU)
@@ -35,19 +36,20 @@ class RWKVDims:
         return self.d_model // self.n_heads
 
 
-def init_rwkv_tmix(generator: torch.Generator, dims: RWKVDims) -> Params:
+def init_rwkv_tmix(generator: torch.Generator, dims: RWKVDims,
+                   dtype=torch.bfloat16) -> Params:
     d, dev = dims.d_model, generator.device
     s = d ** -0.5
     tn = layers.truncated_normal
 
     def mix():
-        return torch.full((d,), 0.5, dtype=torch.bfloat16, device=dev)
+        return torch.full((d,), 0.5, dtype=dtype, device=dev)
     return {
         "mu_r": mix(), "mu_k": mix(), "mu_v": mix(), "mu_w": mix(),
-        "wr": tn((d, d), s, generator),
-        "wk": tn((d, d), s, generator),
-        "wv": tn((d, d), s, generator),
-        "wg": tn((d, d), s, generator),
+        "wr": tn((d, d), s, generator, dtype),
+        "wk": tn((d, d), s, generator, dtype),
+        "wv": tn((d, d), s, generator, dtype),
+        "wg": tn((d, d), s, generator, dtype),
         "w0": torch.full((d,), -5.0, dtype=torch.float32, device=dev),
         "w_lora_a": tn((d, dims.decay_lora), s, generator, torch.float32),
         "w_lora_b": tn((dims.decay_lora, d), dims.decay_lora ** -0.5,
@@ -55,7 +57,7 @@ def init_rwkv_tmix(generator: torch.Generator, dims: RWKVDims) -> Params:
         "bonus": torch.zeros((dims.n_heads, dims.head_dim),
                              dtype=torch.float32, device=dev),
         "ln_out": layers.init_rmsnorm(d, dev),
-        "wo": tn((d, d), s, generator),
+        "wo": tn((d, d), s, generator, dtype),
     }
 
 
@@ -99,14 +101,15 @@ def rwkv_tmix(p: Params, dims: RWKVDims, x: torch.Tensor, *,
                  "s": s_last.to(torch.bfloat16)}
 
 
-def init_rwkv_cmix(generator: torch.Generator, dims: RWKVDims) -> Params:
+def init_rwkv_cmix(generator: torch.Generator, dims: RWKVDims,
+                   dtype=torch.bfloat16) -> Params:
     d = dims.d_model
     return {
-        "mu": torch.full((d,), 0.5, dtype=torch.bfloat16,
-                         device=generator.device),
-        "wk": layers.truncated_normal((d, dims.d_ff), d ** -0.5, generator),
+        "mu": torch.full((d,), 0.5, dtype=dtype, device=generator.device),
+        "wk": layers.truncated_normal((d, dims.d_ff), d ** -0.5, generator,
+                                      dtype),
         "wv": layers.truncated_normal((dims.d_ff, d), dims.d_ff ** -0.5,
-                                      generator),
+                                      generator, dtype),
     }
 
 

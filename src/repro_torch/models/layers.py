@@ -1,11 +1,13 @@
 """Shared transformer layers, ported from `repro.models.layers`.
 
 Conventions:
-  * params are nested dicts of tensors.  Matmul weights are stored in
-    bf16 (the JAX package keeps fp32 masters and casts them to the
-    activation dtype at every use, so bf16 storage gives the same bf16
-    products); norm scales stay fp32.  Weights are cast to the activation
-    dtype at use, so fp32 activations run in fp32.
+  * params are nested dicts of tensors.  For serving, matmul weights are
+    stored in bf16 (the JAX package keeps fp32 masters and casts them to
+    the activation dtype at every use, so bf16 storage gives the same bf16
+    products); for training they are fp32 masters, as in the JAX package
+    (the init functions take a `dtype`).  Norm scales stay fp32.  Weights
+    are cast to the activation dtype at use, so fp32 activations run in
+    fp32.
   * activations are bf16; norms, RoPE and the attention / unembedding
     logits are computed in fp32 (the JAX `preferred_element_type=f32`
     sites upcast their bf16 operands rather than round a bf16 product).
@@ -97,14 +99,16 @@ class AttnDims:
     softmax_scale: float | None = None
 
 
-def init_attention(generator: torch.Generator, dims: AttnDims) -> Params:
+def init_attention(generator: torch.Generator, dims: AttnDims,
+                   dtype=torch.bfloat16) -> Params:
     d, h, kvh, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim
     s = d ** -0.5
     p = {
-        "wq": truncated_normal((d, h, hd), s, generator),
-        "wk": truncated_normal((d, kvh, hd), s, generator),
-        "wv": truncated_normal((d, kvh, hd), s, generator),
-        "wo": truncated_normal((h, hd, d), (h * hd) ** -0.5, generator),
+        "wq": truncated_normal((d, h, hd), s, generator, dtype),
+        "wk": truncated_normal((d, kvh, hd), s, generator, dtype),
+        "wv": truncated_normal((d, kvh, hd), s, generator, dtype),
+        "wo": truncated_normal((h, hd, d), (h * hd) ** -0.5, generator,
+                               dtype),
     }
     if dims.qk_norm:
         p["q_norm"] = init_rmsnorm(hd, generator.device)
@@ -193,12 +197,13 @@ def init_kv_cache(batch: int, max_seq: int, dims: AttnDims,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(generator: torch.Generator, d_model: int, d_ff: int) -> Params:
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.bfloat16) -> Params:
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
     return {
-        "wi_gate": truncated_normal((d_model, d_ff), s_in, generator),
-        "wi_up": truncated_normal((d_model, d_ff), s_in, generator),
-        "wo": truncated_normal((d_ff, d_model), s_out, generator),
+        "wi_gate": truncated_normal((d_model, d_ff), s_in, generator, dtype),
+        "wi_up": truncated_normal((d_model, d_ff), s_in, generator, dtype),
+        "wo": truncated_normal((d_ff, d_model), s_out, generator, dtype),
     }
 
 
@@ -218,11 +223,11 @@ def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 
 
 def init_embed(generator: torch.Generator, vocab: int, d_model: int,
-               tied: bool = True) -> Params:
+               tied: bool = True, dtype=torch.bfloat16) -> Params:
     s = d_model ** -0.5
-    p = {"table": truncated_normal((vocab, d_model), s, generator)}
+    p = {"table": truncated_normal((vocab, d_model), s, generator, dtype)}
     if not tied:
-        p["unembed"] = truncated_normal((d_model, vocab), s, generator)
+        p["unembed"] = truncated_normal((d_model, vocab), s, generator, dtype)
     return p
 
 
@@ -240,11 +245,24 @@ def embed(p: Params, tokens: torch.Tensor, scale: float = 1.0,
 
 
 def unembed(p: Params, x: torch.Tensor, cap: float | None = None):
-    """fp32 logits from fp32-upcast operands (the product is never rounded
-    to bf16)."""
+    """fp32 logits from fp32-upcast operands, the weight first cast to x's
+    dtype as in the JAX package (the product is never rounded to bf16)."""
     table = p.get("unembed")
     w = p["table"].T if table is None else table
-    logits = x.float() @ w.float()
+    logits = x.float() @ w.to(x.dtype).float()
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy in fp32 with a z-loss regularizer
+    (z_loss * logsumexp^2)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = logz - ll
+    if z_loss:
+        loss = loss + z_loss * logz.square()
+    return loss.mean()

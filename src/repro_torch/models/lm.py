@@ -6,13 +6,19 @@ The JAX package stacks each segment's layer params on a leading axis and
 walked by a Python loop.  The JAX sharding constraints have no
 counterpart: with no mesh they are the identity.  `build` raises
 NotImplementedError for every other family.
+
+Training: `LM.loss` is the next-token cross-entropy (the dense and RWKV
+families have no MoE aux loss or MTP head), and `remat` recomputes each
+block in the backward as the JAX `jax.checkpoint` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
@@ -51,17 +57,19 @@ def rwkv_dims(cfg: ArchConfig) -> blocks.RWKVDims:
 
 
 def _init_block(generator: torch.Generator, cfg: ArchConfig,
-                seg: Segment) -> Params:
+                seg: Segment, dtype) -> Params:
     d, dev = cfg.d_model, generator.device
     if seg.kind == "rwkv":
         return {"ln_tmix": layers.init_rmsnorm(d, dev),
                 "ln_cmix": layers.init_rmsnorm(d, dev),
-                "tmix": blocks.init_rwkv_tmix(generator, rwkv_dims(cfg)),
-                "cmix": blocks.init_rwkv_cmix(generator, rwkv_dims(cfg))}
+                "tmix": blocks.init_rwkv_tmix(generator, rwkv_dims(cfg),
+                                              dtype),
+                "cmix": blocks.init_rwkv_cmix(generator, rwkv_dims(cfg),
+                                              dtype)}
     return {"ln_attn": layers.init_rmsnorm(d, dev),
             "ln_mlp": layers.init_rmsnorm(d, dev),
-            "attn": layers.init_attention(generator, attn_dims(cfg)),
-            "ffn": layers.init_mlp(generator, d, cfg.d_ff)}
+            "attn": layers.init_attention(generator, attn_dims(cfg), dtype),
+            "ffn": layers.init_mlp(generator, d, cfg.d_ff, dtype)}
 
 
 def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
@@ -106,29 +114,67 @@ def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
 # ---------------------------------------------------------------------------
 
 
+REMATS = ("full", "dots", "none")
+# the matrix products whose outputs remat="dots" keeps (JAX's dots_saveable)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 class LM:
     """Decoder LM, dense or RWKV6 family.  `force` is handed to the kernel
     dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` on every
-    call (None: dispatch by length and device)."""
+    call (None: dispatch by length and device).
 
-    def __init__(self, cfg: ArchConfig, force: str | None = None):
+    `remat` sets what a block keeps for its backward when autograd records
+    it (training; serving never recomputes): "full" keeps only the block's
+    input and recomputes the block (`torch.utils.checkpoint`), "dots"
+    keeps the matrix products' outputs and recomputes the rest, "none"
+    keeps everything."""
+
+    def __init__(self, cfg: ArchConfig, force: str | None = None,
+                 remat: str = "full"):
+        if remat not in REMATS:
+            raise ValueError(f"remat={remat!r} not in {REMATS}")
         self.cfg = cfg
         self.force = force
+        self.remat = remat
         self.plan = layer_plan(cfg)
 
-    def init(self, generator: torch.Generator) -> Params:
+    def init(self, generator: torch.Generator,
+             dtype=torch.bfloat16) -> Params:
         """Random params on the generator's device, with the scales of the
-        JAX package's `truncated_normal` init (different draws)."""
+        JAX package's `truncated_normal` init (different draws).  Matmul
+        weights (and RWKV's token-shift mixes) in `dtype`: bf16 for
+        serving, fp32 masters for training; norm scales are fp32."""
         cfg = self.cfg
         params: Params = {
             "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model,
-                                       tied=cfg.tied_embeddings),
+                                       tied=cfg.tied_embeddings, dtype=dtype),
             "ln_f": layers.init_rmsnorm(cfg.d_model, generator.device),
         }
         for i, seg in enumerate(self.plan):
-            params[f"seg{i}"] = [_init_block(generator, cfg, seg)
+            params[f"seg{i}"] = [_init_block(generator, cfg, seg, dtype)
                                  for _ in range(seg.count)]
         return params
+
+    def _block(self, lp, seg, x, positions, cache, cache_index):
+        """One block, recomputed in the backward as `remat` says when
+        autograd records it without a cache."""
+        if cache is not None or self.remat == "none" or not (
+                torch.is_grad_enabled()):
+            return _apply_block(lp, self.cfg, seg, x, positions, cache=cache,
+                                cache_index=cache_index, force=self.force)
+        context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_dots)
+                   if self.remat == "dots" else ckpt.noop_context_fn)
+        return ckpt.checkpoint(_apply_block, lp, self.cfg, seg, x, positions,
+                               use_reentrant=False, context_fn=context,
+                               force=self.force)
 
     def _hidden(self, params: Params, tokens: torch.Tensor, cache=None,
                 cache_index: int | None = None) -> torch.Tensor:
@@ -141,10 +187,10 @@ class LM:
         x = layers.embed(params["embed"], tokens, scale)
         for i, seg in enumerate(self.plan):
             for j, lp in enumerate(params[f"seg{i}"]):
-                x = _apply_block(
-                    lp, cfg, seg, x, positions,
-                    cache=None if cache is None else cache[f"seg{i}"][j],
-                    cache_index=cache_index, force=self.force)
+                x = self._block(
+                    lp, seg, x, positions,
+                    None if cache is None else cache[f"seg{i}"][j],
+                    cache_index)
         return layers.rmsnorm(params["ln_f"], x)
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +200,12 @@ class LM:
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """fp32 logits (B,S,V) of a full causal pass, no cache."""
         return self._logits(params, self._hidden(params, tokens))
+
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy (z-loss 1e-4) of batch["tokens"]
+        against batch["labels"], both (B,S)."""
+        return layers.cross_entropy(self.forward(params, batch["tokens"]),
+                                    batch["labels"])
 
     def init_cache(self, batch: int, max_seq: int, device) -> Params:
         return {f"seg{i}": [_init_block_cache(self.cfg, seg, batch, max_seq,
@@ -177,8 +229,9 @@ class LM:
                                                  cache_index=index))
 
 
-def build(cfg: ArchConfig, force: str | None = None) -> LM:
+def build(cfg: ArchConfig, force: str | None = None,
+          remat: str = "full") -> LM:
     if cfg.family != "dense" and not cfg.rwkv:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
                                   "not ported (dense and rwkv only)")
-    return LM(cfg, force=force)
+    return LM(cfg, force=force, remat=remat)

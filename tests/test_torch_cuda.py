@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, WKV6) against their plain twins, on
-the GPU.
+"""The CUDA kernels (flash attention forward and backward, WKV6) against
+their plain twins, on the GPU.
 
 Marked `cuda`: each test skips without a CUDA device.  Run on the GPU
 machine with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import wkv6 as wkv
 from repro_torch.models import lm
 
@@ -33,9 +33,7 @@ def _qkv(dev, b, sq, h, hd, dtype, skv=None, seed=0):
                  for s in (sq, skv or sq, skv or sq))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", [
+EDGES = [
     (True, None, 0, None, 256, 256),
     (False, None, 0, None, 256, 256),
     (True, 128, 0, None, 512, 512),
@@ -54,7 +52,12 @@ def _qkv(dev, b, sq, h, hd, dtype, skv=None, seed=0):
     (True, 200, 56, 0.2, 255, 311),
     (False, None, 0, 0.2, 129, 64),           # Skv below one kv tile
     (True, None, 64, None, 129, 100),
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", EDGES)
 def test_kernel_matches_plain(dev, dtype, hd, causal, window, q_offset,
                               scale, sq, skv):
     q, k, v = _qkv(dev, 2, sq, 3, hd, dtype, skv)
@@ -88,9 +91,138 @@ def test_kernel_reads_strided_kv(dev, hd):
 
 
 def test_kernel_rejects_unsupported_head_dim(dev):
-    q, k, v = _qkv(dev, 1, 64, 1, 32, torch.bfloat16)
+    q, k, v = _qkv(dev, 1, 64, 1, 48, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v)
+
+
+def _seen(sq, skv, causal, window, q_offset, dev):
+    """(Sq,) bool: the query rows that see at least one key."""
+    q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
+    k_pos = torch.arange(skv, device=dev)[None, :]
+    vis = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    if causal:
+        vis &= q_pos >= k_pos
+    if window is not None:
+        vis &= q_pos - k_pos < window
+    return vis.any(dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", EDGES + [
+    (True, 50, 0, None, 300, 100),            # rows past 148 see no key
+])
+def test_backward_kernel_matches_plain(dev, dtype, hd, causal, window,
+                                       q_offset, scale, sq, skv):
+    """lse against the plain forward's (relative max 1e-4); dq, dk, dv
+    against autograd of the plain twin, relative to max(max |want|, 1) (a
+    gradient can be 0 by cancellation), with dO zero on rows that see no
+    key; the kernel's dq finite on those rows with a dO that is not."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    q, k, v = _qkv(dev, 2, sq, 3, hd, dtype, skv)
+    seen = _seen(sq, skv, causal, window, q_offset, dev)
+    do = torch.randn(q.shape, device=dev).to(dtype)
+    do_seen = do * seen[None, :, None, None]
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    _, want_lse = ref.flash_fwd(q, k, v, min(512, skv), **kw)
+    lse_err = ((lse - want_lse)[:, :, seen].abs().max()
+               / want_lse[:, :, seen].abs().max())
+    assert lse_err.item() <= 1e-4
+    got = fa.flash_attention_bwd(q, k, v, out, do_seen, lse, **kw)
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*ts, **kw).backward(do_seen)
+    for g, t in zip(got, ts):
+        err = ((g.float() - t.grad.float()).abs().max()
+               / t.grad.float().abs().max().clamp_min(1.0))
+        assert err.item() <= TOL[dtype]
+    dq = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)[0]
+    assert torch.isfinite(dq).all()
+
+
+def test_backward_kernel_reads_strided_inputs(dev):
+    """k and v as every other head of wider tensors, dO a slice: the
+    kernels take the caller's strides."""
+    q, _, _ = _qkv(dev, 2, 200, 2, 64, torch.bfloat16)
+    _, kw_, vw = _qkv(dev, 2, 1, 4, 64, torch.bfloat16, skv=272, seed=1)
+    k, v = kw_[:, 72:, ::2], vw[:, :200, 1::2]
+    dow = torch.randn(2, 200, 4, 64, device=dev).bfloat16()
+    do = dow[:, :, 1::2]
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*ts).backward(do)
+    for g, t in zip(got, ts):
+        assert ((g.float() - t.grad.float()).abs().max()
+                / t.grad.float().abs().max()).item() <= 2e-2
+
+
+def test_function_differentiates_through_the_kernels(dev):
+    """`FlashAttention.apply` runs the forward with lse and the backward
+    kernel, once each; its gradients match autograd of the plain twin."""
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 300, 2, 64,
+                                                 torch.float32))
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    out = fa.FlashAttention.apply(q, k, v, True, None, 0, None)
+    out.backward(torch.ones_like(out))
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention_bwd.launches - before[1]) == (1, 1)
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*ts).backward(torch.ones_like(out))
+    for a, b in zip((q, k, v), ts):
+        assert ((a.grad - b.grad).abs().max()
+                / b.grad.abs().max().clamp_min(1.0)).item() <= 2e-5
+
+
+def test_kernels_raise_for_inputs_that_require_grad(dev):
+    """No kernel output without a gradient: the forward and wkv6 raise
+    under grad mode for an input that requires grad, and run under
+    no_grad; ops.attention takes FlashAttention there instead."""
+    q, k, v = _qkv(dev, 1, 64, 1, 64, torch.bfloat16)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+    out = ops.attention(q, k, v, force="kernel")
+    assert out.grad_fn is not None
+    r, kk, vv, w, u, _ = _wkv_inputs(dev, (1, 8, 2, 64))
+    u.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        wkv.wkv6(r, kk, vv, w, u)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        ops.rwkv_mix(r, kk, vv, w, u)
+    with torch.no_grad():
+        wkv.wkv6(r, kk, vv, w, u)
+
+
+@pytest.mark.parametrize("remat,forwards", [("full", 4), ("dots", 4),
+                                             ("none", 2)])
+def test_model_train_step_launches_forward_recompute_and_backward(
+        dev, remat, forwards):
+    """One loss + backward at 2048 tokens: per layer a forward, its
+    recompute where remat recomputes the block, and a backward; gradients
+    against the plain twins."""
+    cfg = ArchConfig(name="gpu-test", family="dense", n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                     vocab=512)
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                dtype=torch.float32)
+    leaves = [params["embed"]["table"], params["seg0"][0]["attn"]["wq"],
+              params["seg0"][1]["attn"]["wk"]]
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (1, 2049), device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    got = torch.autograd.grad(lm.build(cfg, remat=remat).loss(params, batch),
+                              leaves)
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention_bwd.launches - before[1]) == (forwards, 2)
+    want = torch.autograd.grad(
+        lm.build(cfg, force="plain").loss(params, batch), leaves)
+    for g, w in zip(got, want):
+        assert ((g - w).norm() / w.norm()).item() <= 5e-2
 
 
 def test_model_prefill_launches_one_kernel_per_layer(dev):

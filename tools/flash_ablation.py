@@ -107,13 +107,7 @@ def compile_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         notes = [ln.strip() for ln in log.splitlines()
                  if "C75" in ln or "spill stores" in ln]
         print(f"built {name}: " + "; ".join(notes), flush=True)
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+        libs[name] = fa.bind(ctypes.CDLL(str(OUT / f"{name}.so")))[0]
     return libs
 
 
@@ -136,7 +130,8 @@ def main(names: list[str]) -> int:
         for name, fn in libs.items():
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), 1, b, h, s, s, hd, *q.stride()[:3],
+                         out.data_ptr(), None, 1, b, h, s, s, hd,
+                         *q.stride()[:3],
                          *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                          1, 0, 0, hd ** -0.5, stream)
                 if err:
