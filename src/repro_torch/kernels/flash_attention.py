@@ -13,9 +13,10 @@ ctypes.  On CPU tensors each wrapper runs its plain twin (`ref.flash_fwd`,
 raises.  `flash_attention.launches` counts forward launches and
 `flash_attention_bwd.launches` backward calls (three kernels each).
 
-`FlashAttention` is the way to differentiate through the kernels: its
-forward asks the kernel for lse and saves q, k, v, o and lse, its backward
-runs the backward kernel.  Called directly under grad mode with an input
+`FlashAttention` is the way to differentiate through the kernels, and the
+one that `ops.attention` calls: its forward asks the kernel for lse and
+saves q, k, v, o and lse (neither where no gradient can reach the call),
+its backward runs the backward kernel.  Called directly under grad mode with an input
 that requires grad, the CUDA forward raises rather than hand back an output
 that carries no gradient.
 """
@@ -219,21 +220,29 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Flash attention that autograd differentiates: the forward kernel
     with lse, then the backward kernel (their plain twins on CPU tensors).
-    `FlashAttention.apply(q, k, v, causal, window, q_offset, scale)`."""
+    `FlashAttention.apply(q, k, v, causal, window, q_offset, scale, grad)`:
+    `grad=False` says that no gradient will reach this call (the caller
+    runs under `torch.no_grad`, or no input requires grad), and the forward
+    then writes no lse and saves nothing, as serving wants."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, q_offset=0,
-                scale=None):
+                scale=None, grad=True):
         opts = dict(causal=causal, window=window, q_offset=q_offset,
                     scale=scale)
-        out, lse = flash_attention_fwd(q, k, v, want_lse=True, **opts)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse = flash_attention_fwd(q, k, v, want_lse=grad, **opts)
+        if grad:
+            ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        saved = ctx.saved_tensors   # unpacked once: checkpoint allows one
+        if not saved:
+            raise RuntimeError("FlashAttention: backward through a call "
+                               "made with grad=False")
+        q, k, v, out, lse = saved
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
                                          **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

@@ -3,11 +3,11 @@
 `attention(...)` is what the model layer calls: naive SDPA below
 FLASH_THRESHOLD query positions (the quadratic logits are cheap there);
 at or above it, the CUDA flash kernels for CUDA tensors and their plain
-twin for CPU tensors.  Serving and training take the same path: where
-autograd needs a gradient the kernel path is `FlashAttention` (forward
-with lse, backward kernel); under `torch.no_grad` / `inference_mode` it is
-the forward alone, which writes no lse and saves nothing.  Every path
-honours `scale` and is differentiable.
+twin for CPU tensors.  Serving and training take the same path,
+`FlashAttention` (forward kernel, backward kernel); where no gradient can
+reach the call (`torch.no_grad`, `inference_mode`, no input requiring
+grad) its forward writes no lse and saves nothing.  Every path honours
+`scale` and is differentiable.
 
 `rwkv_mix(...)` runs the WKV6 recurrence: the CUDA kernel for CUDA
 tensors, its plain twin for CPU tensors.  Both return the final state
@@ -42,12 +42,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
         if not q.is_cuda:
             raise ValueError("attention(force='kernel') needs CUDA tensors; "
                              f"got {q.device}")
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            return fa.FlashAttention.apply(q, k, v, causal, window,
-                                           q_offset, scale)
-        return fa.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, scale=scale)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
+        return fa.FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                       scale, grad)
     if impl == "plain":
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, q_offset=q_offset,

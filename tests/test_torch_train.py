@@ -204,6 +204,40 @@ def test_flash_lse_matches_jax_residuals():
     assert _rel_max(lse, want) <= 1e-6
 
 
+def test_flash_function_without_grad_saves_nothing():
+    """`FlashAttention.apply(..., grad=False)`, as ops.attention calls it
+    where no gradient can reach (serving): the same output as with
+    grad=True, no tensor saved, and a backward through it raises."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _normals([(1, 300, 2, 16)] * 3, seed=5))
+    want = fa.FlashAttention.apply(q, k, v, True, None, 0, None, True)
+    assert len(want.grad_fn.saved_tensors) == 5
+    got = fa.FlashAttention.apply(q, k, v, True, None, 0, None, False)
+    assert got.grad_fn.saved_tensors == ()
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="grad=False"):
+        got.sum().backward()
+
+
+def test_flash_function_under_checkpoint():
+    """`FlashAttention` inside `torch.utils.checkpoint(use_reentrant=False)`,
+    as remat="full" runs it on the card: the same gradients as without
+    (exactly: the recompute runs the same plain twin on the CPU)."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _normals([(1, 300, 2, 16)] * 4, seed=6))
+    grads = []
+    for remat in (False, True):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn = lambda a, b, c: fa.FlashAttention.apply(a, b, c, True, None,
+                                                     0, None, True)
+        out = (torch.utils.checkpoint.checkpoint(fn, *ts, use_reentrant=False)
+               if remat else fn(*ts))
+        out.backward(do)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
 def test_cpu_paths_carry_gradients():
     """On the CPU the wrappers run their plain twins, which autograd
     differentiates: ops.attention at FLASH_THRESHOLD, ops.rwkv_mix."""
