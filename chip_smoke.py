@@ -6,14 +6,18 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
-     and print ptxas's register, spill and warning lines;
+     and print ptxas's registers and spills per kernel and its warning and
+     C75xx lines (fatal for a tensor-core kernel that spills or has its
+     wgmma serialized);
   2. each kernel against its plain PyTorch twin on the card, over the
      masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
      CASES: the flash forward within fp32 2e-5 / bf16 2e-2 (max abs), its
      lse within 1e-4 (relative max); the flash backward's dq, dk and dv
      against autograd of the plain twin within fp32 2e-5 / bf16 2e-2
      (relative max), on rows that see a key (a case with rows that see none
-     checks that the kernel's dq stays finite there); wkv6 over WKV_CASES
+     checks that the kernel's dq stays finite there), over CASES and the
+     wgmma backward's own tile edges (BWD_EDGES), and two backward calls
+     bitwise equal at the main shape and at hd 128; wkv6 over WKV_CASES
      (one with rows that take the kernel's 4-byte copy path) and a
      state-carry case, y and the final state within |got - want| <= 1e-4 +
      1e-4 |want| elementwise, the main shape included;
@@ -38,10 +42,13 @@ Phases, each fatal on failure:
      the port never calls, and the achieved TFLOP/s) at the main path's
      shape, for flash attention also at hd 128 (4, 2048, 40, 128) and
      Gemma-7B's hd 256 (2, 2048, 16, 256), for the flash backward beside
-     SDPA's backward, for wkv6 also the decode step's call (4, 1, 40, 64)
-     (device time from the profiler), prefill ms and decode ms per token;
-  5. torch.profiler's device time for one prefill and three decode steps,
-     as a share of the timings above, with the heaviest kernels.
+     SDPA's backward (also at hd 128) with the profiler's device time of
+     each of its three launches, for wkv6 also the decode step's call
+     (4, 1, 40, 64) (device time from the profiler), prefill ms and decode
+     ms per token;
+  5. torch.profiler's device time for one prefill, three decode steps and
+     one training step, as a share of the timings above, with the heaviest
+     kernels (and the flash backward's share of the step).
 Prints one `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, without that last line,
 when there is no CUDA device or any phase fails.
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -102,8 +110,29 @@ CASES = [
 ]
 MAIN = CASES[-1]
 GEMMA = CASES[-2]
+# The backward's own edges, bf16 at hd 64 and 128 (the wgmma kernels): its
+# 128- (hd 64) or 64-row (hd 128) q steps and 128-key tiles (dK / dV), its
+# 128-row q tiles and 64-key tiles (dQ), at 63 / 64 / 65 / 127 / 128 / 129;
+# causal with q_offset, a window that ends inside a tile, rows that see no
+# key.
+BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
+             for hd in (64, 128)
+             for sq, skv, causal, window, q_offset, scale in [
+                 (63, 63, True, None, 0, None),
+                 (64, 64, True, None, 0, None),
+                 (65, 65, True, None, 0, None),
+                 (127, 129, False, None, 0, None),
+                 (128, 128, True, None, 0, 0.2),
+                 (129, 129, True, None, 0, None),
+                 (65, 129, True, None, 64, None),    # Sq < Skv, q_offset
+                 (128, 129, True, None, 1, None),
+                 (129, 63, False, None, 0, None),
+                 (129, 65, True, 40, 0, None),       # window ends in a tile
+                 (127, 63, True, 30, 0, None),       # rows past 92 see none
+                 (64, 127, True, 100, 28, None)]]
 # Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
+BWD_PARTS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
 TRAIN_STEPS = 3
 # Relative L2 error per gradient leaf of a TinyLlama-1.1B training step,
@@ -144,6 +173,38 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, C75xx lines) per entry function
+    of an `nvcc -Xptxas -v` log; the kernel as name<template args>."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_kernel)I",
+                             mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
+                  if re.search(r"ILi\d+EfE", mangled) else "")
+            cur = {"kernel": f"{name.group(1) if name else mangled}<"
+                             f"{', '.join(args + ([dt] if dt else []))}>",
+                   "mangled": mangled, "registers": None, "spill": None,
+                   "c75": []}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill"] = int(re.search(r"(\d+) bytes spill stores",
+                                         line).group(1))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    for line in log.splitlines():   # C75xx lines name their function
+        if "(C75" in line:
+            for row in rows:
+                if row["mangled"] in line:
+                    row["c75"].append(line.strip())
+    return rows
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -338,7 +399,37 @@ def check_kernels(fa, ref) -> tuple:
             fail("the strided backward case is not strided")
         print(f"strided k / v, hd {hd}:", flush=True)
         check_backward(fa, case, torch.bfloat16, q, k, v, seen_rows(case))
+    print("the backward's wgmma tile edges:", flush=True)
+    for case in BWD_EDGES:
+        q, k, v = qkv(case, torch.bfloat16)
+        check_backward(fa, case, torch.bfloat16, q, k, v, seen_rows(case))
+    for case in (MAIN, HD128):
+        check_deterministic(fa, case)
     return main_err, main_bwd_err
+
+
+def bwd_inputs(fa, case) -> tuple:
+    """The backward's bf16 arguments at one case: q, k, v, the forward's
+    output and lse, and dO ~ N(0, 1), with the case's mask keywords."""
+    q, k, v = qkv(case, torch.bfloat16)
+    kw = attn_kwargs(case)
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(7),
+                     device="cuda").bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    return (q, k, v, out, do, lse), kw
+
+
+def check_deterministic(fa, case) -> None:
+    """Phase 2: two backward calls on the same bf16 inputs give bitwise
+    equal dq, dk and dv (the kernels use no atomics)."""
+    args, kw = bwd_inputs(fa, case)
+    first = fa.flash_attention_bwd(*args, **kw)
+    second = fa.flash_attention_bwd(*args, **kw)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(json.dumps({"bwd_deterministic": list(case),
+                      "bitwise_equal_dq_dk_dv": same}), flush=True)
+    if not all(same):
+        fail(f"flash_attention_bwd {case}: two calls differ ({same})")
 
 
 def time_flash(fa, case, card) -> tuple:
@@ -381,13 +472,9 @@ def time_flash_bwd(fa, ref, case, card) -> tuple:
     backward less its forward; a yardstick the port never calls) on the
     same inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms,
     bound_by)."""
-    q, k, v = qkv(case, torch.bfloat16)
-    kw = attn_kwargs(case)
-    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(7),
-                     device="cuda").bfloat16()
-    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
-    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse, **kw),
-                 5)
+    args, kw = bwd_inputs(fa, case)
+    q, k, v, out, do, lse = args
+    ms = time_ms(lambda: fa.flash_attention_bwd(*args, **kw), 5)
     plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
         q, k, v, out, do, lse, min(512, case[2]), **kw), 3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -408,6 +495,23 @@ def time_flash_bwd(fa, ref, case, card) -> tuple:
           f"bound {bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
           flush=True)
     return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+def bwd_parts(fa, case, card) -> None:
+    """Phase 4a: torch.profiler's device time of each of the backward's
+    three launches (delta, dK / dV, dQ) at one causal bf16 shape."""
+    args, kw = bwd_inputs(fa, case)
+    rows = device_kernels(lambda: [fa.flash_attention_bwd(*args, **kw)
+                                   for _ in range(10)])
+    parts = []
+    for name in BWD_PARTS:
+        hit = [e for e in rows if name in e.key]
+        ms = (sum(e.self_device_time_total for e in hit) / 1e3
+              / max(1, sum(e.count for e in hit)))
+        parts.append(f"{name} {ms:.4f} ms" if hit
+                     else f"{name} not measured")
+    print(f"flash_attention_bwd {case[:5]} bf16 causal, device time per "
+          f"launch (profiler): {', '.join(parts)} [{card}]", flush=True)
 
 
 def train_batches(cfg, n: int, seq: int = PROMPT) -> list:
@@ -466,8 +570,17 @@ def train_path(card, configs, train, counters) -> dict:
              "forward per layer, its recompute, and a backward per layer)")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train {ARCH}: a loss is not finite: {losses}")
-    report_busy("train step", device_kernels(
-        lambda: step(state, batches[-1])), step_ms, 1, top=12)
+    rows = device_kernels(lambda: step(state, batches[-1]))
+    report_busy("train step", rows, step_ms, 1, top=12)
+    bwd_rows = [e for e in rows if "flash_bwd" in e.key]
+    if bwd_rows:   # the flash backward's share of the step, by launch
+        bwd_ms = sum(e.self_device_time_total for e in bwd_rows) / 1e3
+        print(f"train step: the flash backward {bwd_ms:.3f} ms of device "
+              f"time, {100 * bwd_ms / step_ms:.1f} % of the {step_ms:.3f} ms "
+              "step (" + ", ".join(
+                  f"{re.search(r'flash_bwd_[a-z_0-9]+(<[^>]*>)?', e.key)[0]} "
+                  f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                  for e in bwd_rows) + f") [{card}]", flush=True)
     del state
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "launches": per_step[0]}
@@ -847,9 +960,17 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f}s",
           flush=True)
     for name in built:
-        for line in build.log(name).splitlines():
-            if any(w in line for w in ("registers", "spill", "arning")):
+        log = build.log(name)
+        for line in log.splitlines():
+            if "arning" in line or "(C75" in line:
                 print(f"  {name}: {line.strip()}")
+        for row in ptxas_report(log):
+            print(f"  {name}: {row['kernel']}: {row['registers']} registers,"
+                  f" {row['spill']} bytes spill stores", flush=True)
+            # the tensor-core kernels: no spills, no serialized wgmma
+            if "_bf16<" in row["kernel"] and (row["spill"] or row["c75"]):
+                fail(f"{row['kernel']}: {row['spill']} bytes spilled, "
+                     f"{row['c75']}")
 
     # 2. kernels against their plain twins
     main_err, main_bwd_err = check_kernels(fa, ref)
@@ -876,6 +997,8 @@ def main() -> int:
     time_flash(fa, HD128, card)
     time_flash(fa, GEMMA, card)
     bwd = time_flash_bwd(fa, ref, MAIN, card)
+    time_flash_bwd(fa, ref, HD128, card)
+    bwd_parts(fa, MAIN, card)
 
     # 4b. prefill through the kernel vs the plain twin; decode timing
     model = lm.build(cfg)

@@ -10,7 +10,9 @@
 // recomputes p = exp(s - lse) with s = scale q.k and returns
 //   delta = rowsum(dO * o),  ds = p (dO.v - delta) scale,
 //   dq = ds k,  dk = ds^T q,  dv = p^T dO,
-// in the inputs' dtype (fp32 or bf16), all arithmetic in fp32.  It honours
+// in the inputs' dtype (fp32 or bf16), with fp32 arithmetic and sums (the
+// bf16 tensor-core path rounds p and ds to bf16 for the products that take
+// them, as every tensor-core flash backward does).  It honours
 // causal, window, q_offset, scale, ragged Sq / Skv and strided inputs as the
 // forward does (the mask and the key-tile walk come from flash_common.cuh).
 // A pair that the mask hides gets p = 0, so a query row that sees no key at
@@ -21,28 +23,80 @@
 // Bound at the training path's shape (B=4, S=2048, H=32, hd=64, causal,
 // bf16) on an H100 SXM: the five products over the visible pairs (s, dO.v^T,
 // ds k, ds^T q, p^T dO) are 2.5 x the forward's ~68.8 GFLOP, ~172 GFLOP,
-// ~0.17 ms at 989 TFLOP/s; q, k, v, o, dO read and dq, dk, dv written are
+// ~0.1738 ms at 989 TFLOP/s; q, k, v, o, dO read and dq, dk, dv written are
 // ~270 MB, ~0.08 ms at 3.35 TB/s.  So it is bound by tensor-core operations
-// at ~0.17 ms.
+// at ~0.17 ms (~0.43 ms at Qwen3-14B's (4, 2048, 40, 128)).
 //
-// Design: simple and right, not fast.  Three launches a call, no atomics
-// (deterministic), SIMT fp32 on the FMA units, where the bound's products
-// take >= 2.6 ms at 67 TFLOP/s (this kernel does 7 hd-long FMA chains a
-// visible pair, ~240 GFLOP at that shape, so >= 3.6 ms); the tensor cores
-// are left to a later redesign.
+// bf16 design at hd 64 and 128 (the training path): three launches, no
+// atomics, so the result is deterministic.
+//  1. delta = rowsum(dO * o): one warp per row (below, shared with SIMT).
+//  2. dK / dV (flash_bwd_dkdv_bf16): one block per (b*h, 128 keys), two
+//     consumer warpgroups of 64 keys each and no producer warpgroup, 256
+//     threads.  K and V of the tile arrive once by TMA and stay in shared
+//     memory; Q and dO stream in steps of 128 (hd 64) or 64 (hd 128) q rows
+//     through a TMA ring of 3 stages (128-byte swizzle, the forward's 4-D
+//     maps), each with its rows' lse * log2(e) and delta staged beside it
+//     by one warp.  The q walk is q_range (flash_common.cuh).  Per step a
+//     warpgroup issues S^T = K Q^T and dP^T = V dO^T (wgmma SS, m64n128k16
+//     or m64n64k16, Q and dO K-major as the forward's K); P^T = exp2(S^T scale log2 e - lse2) and dS^T = P^T (dP^T -
+//     delta) are computed in the accumulator layout, whose columns are q
+//     rows (each thread reads the lse2 and delta of its columns 2 (lane % 4)
+//     + 8 j from the staged vectors), and pack in place into bf16 A
+//     fragments; dV += P^T dO and dK += dS^T Q are wgmma RS with dO and Q read
+//     MN-major from the same stage, as the forward reads V.  Every product
+//     is waited for in the step that issued it.  The last of the 8 consumer
+//     warps to release a stage (a counter in shared memory) refills it with
+//     step + 3.  dK and dV stay in fp32 registers (2 x 64 a thread at hd
+//     128) and are stored once as bf16, dK times scale.
+//  3. dQ (flash_bwd_dq_bf16): one block per (b*h, 128 q rows), heaviest
+//     first, two consumer warpgroups of 64 rows and the forward's producer
+//     warpgroup (384 threads).  Q and dO stay resident; K and V stream in
+//     64-key tiles through a ring of 3 (hd 64) or 2 (hd 128) stages over the
+//     forward's kv_range.  Per tile S = Q K^T and dP = dO V^T (SS), P and dS
+//     with each row's lse2 and delta in registers, dS packed into A
+//     fragments, dQ += dS K (RS, K read MN-major); V is released after dP,
+//     K after dQ's product.  dQ is stored once, times scale.
+//  Masks, in both: only a tile that holds a masked pair (the causal
+//  diagonal, the window's edge, the Sq / Skv tails) selects p = 0 outside
+//  each row's (or key's) visible range; nothing is masked by a product, so
+//  the inf of exp2(s - lse) on a row that sees no key (lse ~ -6.9e29) never
+//  meets a 0.  Rows past Sq get lse2 = delta = 0 from the stager, not from
+//  TMA's zero fill.
+//  Registers: ptxas budgets the wgmma pipeline by the registers the launch
+//  bound leaves a thread (168 at 384 threads, and it did the same at 288),
+//  whatever setmaxnreg gives the consumers' region; a consumer whose
+//  accumulators and in-flight products need more has its wgmma serialized
+//  (ptxas info C7512) and spills.  dK / dV (dK, dV, S^T and dP^T: 192 fp32
+//  a thread at either head dim) needs more, hence 256 threads (255
+//  registers): ptxas uses 242 registers (hd 64) and 235 (hd 128), 0 bytes
+//  spilled.  dQ fits in 168 with 64-key tiles (S and dP 32 each, dQ 32 or
+//  64); with 128-key tiles at hd 64 it spilled 768 bytes.  Shared memory:
+//  dK / dV 132.1 KB (hd 64) / 162.6 KB (hd 128), dQ 81.1 / 129.1 KB; one
+//  block an SM.
+//  Products: 7 per visible pair (S and dP are computed by both kernels),
+//  ~240.7 GFLOP at the main shape against the bound's 5.  Accumulating dQ
+//  in the dK / dV kernel with fp32 atomics (as FlashAttention-2 / 3 do)
+//  would save the two recomputed products but give up determinism and add
+//  an fp32 dQ buffer and a convert pass; that is left for a later change.
+//
+// SIMT design, for fp32 at every head dim (the tensor cores would round to
+// tf32) and for bf16 at head dims 16, 32 and 256 (the forward's split):
+// simple and right, not fast.  Three launches a call, no atomics, fp32 on
+// the FMA units, where the bound's products take >= 2.6 ms at 67 TFLOP/s
+// (this path does 7 hd-long FMA chains a visible pair, ~240 GFLOP at the
+// main shape, so >= 3.6 ms).
 //  1. delta: one warp per row.
 //  2. dK / dV: one block per (b*h, tile of kRows keys); TPR threads per key
 //     row hold a share of its k, v, dk and dv in registers (at most 16 floats
 //     each: TPR = 4 up to hd 64, hd / 16 above).  The block walks the q rows
-//     that see a key of its tile (the forward's kv_range turned around:
-//     from k0 - q_offset under a causal mask, to k0 + kRows - 1 + window -
-//     q_offset under a window), staging kTile rows of q and dO in shared
-//     memory (two fp32 tiles, 32 KB at most) with their lse and delta, read
-//     by broadcast.
+//     that see a key of its tile (q_range), staging kTile rows of q and dO
+//     in shared memory (two fp32 tiles, 32 KB at most) with their lse and
+//     delta, read by broadcast.
 //  3. dQ: one block per (b*h, tile of kRows q rows), heaviest first; q, dO
 //     and dq of a row in registers across TPR threads, the forward's
 //     kv_range over kTile-key tiles of k and v staged in shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -50,9 +104,11 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using flash::Strides;
 
 constexpr int kThreads = 256;
@@ -201,12 +257,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(const Params p) {
   for (int d = 0; d < N; ++d) dk[d] = dv[d] = 0.f;
 
   // the q rows that see some key of [k0, k0 + kRows)
-  int qlo = 0, qhi = p.Sq;
-  if (p.causal) qlo = max(0, k0 - p.q_offset);
-  if (p.window > 0)
-    qhi = static_cast<int>(min(static_cast<long long>(p.Sq),
-                               static_cast<long long>(k0) + C::kRows - 1 +
-                                   p.window - p.q_offset));
+  int qlo, qhi;
+  flash::q_range(p.Sq, p.causal, p.window, p.q_offset, k0, C::kRows, qlo,
+                 qhi);
   for (int i0 = qlo; i0 < qhi; i0 += TILE) {
     stage<HD, TILE>(sQ, Q, p.sq.s, i0, p.Sq);
     stage<HD, TILE>(sdO, dO, p.sdo.s, i0, p.Sq);
@@ -301,31 +354,642 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Params p) {
                       h * p.sdq.h, dq, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 64 and 128: TMA + mbarrier ring + wgmma kernels
+// ---------------------------------------------------------------------------
+
+// ptxas budgets the wgmma pipeline by the registers the launch bound leaves
+// a thread (168 for 384 threads, and the same at 288), whatever setmaxnreg
+// gives the consumers; a consumer that needs more has its wgmma serialized
+// (C7512) and spills.  The dK / dV consumers (dK, dV, S^T and dP^T: 192
+// fp32 a thread) need more, so that kernel runs two warpgroups and no
+// producer (255 registers); the dQ consumers fit in 168, so dQ keeps the
+// forward's producer warpgroup.
+constexpr int kTcConsumers = 2;   // consumer warpgroups
+constexpr int kKvThreads = 128 * kTcConsumers;
+constexpr int kQThreads = 128 * (kTcConsumers + 1);  // + the producer's
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dK / dV: a block owns kBN keys, 64 per consumer warpgroup, whose K and V
+// tiles stay in shared memory; Q and dO stream through a ring of kStages
+// steps of kBM q rows, each with its rows' lse (in base 2) and delta as
+// fp32 vectors.  Offsets in bytes from a 1024-byte-aligned base: K, V, the
+// Q stages, the dO stages, the lse and delta vectors, the mbarriers, and a
+// release counter per stage.
+template <int HD>
+struct KvCfg {
+  static constexpr int kBN = 128;  // keys per block
+  // q rows per step: 128 at hd 64 (S^T and dP^T 64 fp32 each beside dK
+  // and dV's 32: the larger products halve the per-step waits, 0.418 ->
+  // 0.358 ms at the main shape), 64 at hd 128 (dK and dV take 128)
+  static constexpr int kBM = HD == 64 ? 128 : 64;
+  static constexpr int kR = kBM / 32;  // of them a lane stages
+  static constexpr int kStages = 3;
+  static constexpr int kSub = HD / kBox;  // 64-wide column blocks
+  static constexpr int kKVBytes = kBN * HD * 2;    // the K or the V tile
+  static constexpr int kStepBytes = kBM * HD * 2;  // one step of Q or dO
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kKVBytes;
+  static constexpr uint32_t kQ = 2 * kKVBytes;     // stage st: + st * kStepBytes
+  static constexpr uint32_t kDO = kQ + kStages * kStepBytes;
+  static constexpr uint32_t kL = kDO + kStages * kStepBytes;  // + st * kBM * 4
+  static constexpr uint32_t kD = kL + kStages * kBM * 4;
+  static constexpr uint32_t kKVFull = kD + kStages * kBM * 4;
+  static constexpr uint32_t kQFull = kKVFull + 8;  // stage st: + 8 st, as the rest
+  static constexpr uint32_t kDOFull = kQFull + 8 * kStages;
+  static constexpr uint32_t kLFull = kDOFull + 8 * kStages;
+  static constexpr uint32_t kCount = kLFull + 8 * kStages;
+  static constexpr int kSmem = 1024 + kCount + 8 * kStages;  // + alignment
+};
+
+// dQ: a block owns kBQ q rows, 64 per consumer warpgroup, whose Q and dO
+// tiles stay in shared memory; K and V stream through the forward's ring of
+// kBK-key tiles.  Offsets: Q, dO, the K stages, the V stages, the mbarriers.
+template <int HD>
+struct QCfg {
+  static constexpr int kBQ = 128;                  // q rows per block
+  static constexpr int kBK = 64;                   // keys per K/V tile
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kSub = HD / kBox;
+  static constexpr int kQBytes = kBQ * HD * 2;     // the Q or the dO tile
+  static constexpr int kTileBytes = kBK * HD * 2;  // one K or one V tile
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kQBytes;
+  static constexpr uint32_t kK = 2 * kQBytes;      // stage st: + st * kTileBytes
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kQFull = kV + kStages * kTileBytes;
+  static constexpr uint32_t kKFull = kQFull + 8;
+  static constexpr uint32_t kVFull = kKFull + 8 * kStages;
+  static constexpr uint32_t kKEmpty = kVFull + 8 * kStages;
+  static constexpr uint32_t kVEmpty = kKEmpty + 8 * kStages;
+  static constexpr int kSmem = 1024 + kVEmpty + 8 * kStages;
+};
+
+// C (64 x N) = A B^T for one warpgroup, A (64 rows) and B (N rows) read
+// K-major from 128-byte-swizzled tiles of a_rows / b_rows rows; issued, not
+// waited for.  S^T = K Q^T and dP^T = V dO^T (dK / dV), S = Q K^T and
+// dP = dO V^T (dQ).
+template <int HD, int N>
+__device__ __forceinline__ void issue_abt(float (&c)[N / 2], uint32_t a,
+                                          int a_rows, uint32_t b,
+                                          int b_rows) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(c, sw128_desc(a + (kk / 4) * a_rows * 128 + (kk % 4) * 32, 16,
+                           1024),
+             sw128_desc(b + (kk / 4) * b_rows * 128 + (kk % 4) * 32, 16,
+                        1024),
+             kk > 0);
+  wgmma_commit();
+}
+
+// acc (64 x HD) += A B: A the bf16 fragments of a 64 x K accumulator tile, B
+// a K-row tile [K][HD] read MN-major; a k step is 16 rows (2048 bytes).
+// Issued, not committed.
+template <int HD, int K>
+__device__ __forceinline__ void issue_ab(float (&acc)[HD / 64][32],
+                                         const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+      wgmma_rs(acc[c], a[kk], sw128_desc(b + c * K * 128 + kk * 2048, K * 128,
+                                         1024));
+}
+
+// One thread's two rows of an accumulator tile (64 x HD, fp32, times `mul`)
+// stored as bf16 to rows row0 and row0 + 8 of a (B, S, H, hd) tensor, those
+// below `limit`.
+template <int HD>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
+                                           long long row_stride, int row0,
+                                           int limit,
+                                           const float (&acc)[HD / 64][32],
+                                           float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+    __nv_bfloat16* out = dst + row * row_stride + 2 * t;
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 64 * c + 8 * j) =
+            pack_bf16(acc[c][4 * j + 2 * r] * mul,
+                      acc[c][4 * j + 2 * r + 1] * mul);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void zero(float (&acc)[HD / 64][32]) {
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+}
+
+// The q rows of a step at row i0 that one lane stages, i0 + lane + 32 r
+// for r < R: lse * log2(e) and delta, 0 for rows past Sq.
+template <int R>
+__device__ __forceinline__ void fetch_rows(const Params& p, long long bh,
+                                           int i0, float (&l)[R],
+                                           float (&d)[R]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = i0 + lane + 32 * r;
+    const bool exists = row < p.Sq;
+    l[r] = exists ? p.lse[bh * p.Sq + row] * kLog2e : 0.f;
+    d[r] = exists ? p.delta[bh * p.Sq + row] : 0.f;
+  }
+}
+
+// Step `it` (q rows from i0) into stage it % kStages, by one whole warp:
+// lane 0 issues the TMA loads of its Q and dO rows, every lane writes its
+// rows' lse2 and delta (from fetch_rows) and arrives on the step's row
+// barrier.
+template <int HD>
+__device__ __forceinline__ void load_step(const CUtensorMap* tq,
+                                          const CUtensorMap* tdo,
+                                          uint8_t* smem, uint32_t base,
+                                          int it, int i0, int h, int b,
+                                          const float (&l)[KvCfg<HD>::kR],
+                                          const float (&d)[KvCfg<HD>::kR]) {
+  using C = KvCfg<HD>;
+  const int st = it % C::kStages, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    const uint32_t q_full = base + C::kQFull + 8 * st;
+    const uint32_t do_full = base + C::kDOFull + 8 * st;
+    mbar_expect_tx(q_full, C::kStepBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(base + C::kQ + st * C::kStepBytes + c * C::kBM * 128, tq,
+               q_full, c * kBox, i0, h, b);
+    mbar_expect_tx(do_full, C::kStepBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(base + C::kDO + st * C::kStepBytes + c * C::kBM * 128, tdo,
+               do_full, c * kBox, i0, h, b);
+  }
+  float* sl = reinterpret_cast<float*>(smem + C::kL) + st * C::kBM;
+  float* sd = reinterpret_cast<float*>(smem + C::kD) + st * C::kBM;
+#pragma unroll
+  for (int r = 0; r < C::kR; ++r) {
+    sl[lane + 32 * r] = l[r];
+    sd[lane + 32 * r] = d[r];
+  }
+  mbar_arrive(base + C::kLFull + 8 * st);
+}
+
+// One consumer warp's release of a stage, on the stage's counter in shared
+// memory: true for the last of the 4 kTcConsumers warps, which refills it.
+// The counter only grows (the k-th use's arrivals are 8k .. 8k + 7), and
+// acq_rel orders every warp's reads of the stage before the refill.
+__device__ __forceinline__ bool release_last(uint32_t counter) {
+  uint32_t old = 0;
+  if (threadIdx.x % 32 == 0)
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+                 : "=r"(old) : "r"(counter), "r"(1) : "memory");
+  old = __shfl_sync(0xffffffffu, old, 0);
+  __syncwarp();  // the lanes' refill writes come after lane 0's acquire
+  return old % (4 * kTcConsumers) == 4 * kTcConsumers - 1;
+}
+
+// Consumer warpgroup WG of the dK / dV kernel owns keys [kw0, kw0 + 64),
+// kw0 = k0 + 64 WG; a thread holds keys key0 and key0 + 8 of the
+// accumulator tiles, whose columns are q rows.  Per step of kBM q rows:
+// S^T = K Q^T and dP^T = V dO^T (SS); P^T = exp2(S^T scale log2(e) -
+// lse2) with each column's lse2 from shared memory, 0 outside each key's
+// visible q rows; dS^T = P^T (dP^T - delta); both packed in place into bf16
+// A fragments; dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major
+// from the same stage).  Every product is waited for in the step that
+// issued it.  Then each warp releases the stage, and the last to do so
+// loads step it + kStages into it (its rows' lse2 and delta fetched at the
+// top of the step, so their latency hides under the products).  dK is
+// scaled once, at the store.
+template <int HD, int WG>
+__device__ __forceinline__ void consume_kv(const Params& p,
+                                           const CUtensorMap* tq,
+                                           const CUtensorMap* tdo,
+                                           uint8_t* smem, uint32_t base,
+                                           int k0, int qlo, int n_steps,
+                                           int h, int b) {
+  using C = KvCfg<HD>;
+  constexpr int kBM = C::kBM, kN = kBM / 2;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int kw0 = k0 + 64 * WG;
+  const int key0 = kw0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const float scale_log2 = p.scale * kLog2e;
+  const uint32_t k_rows = base + C::kK + WG * 64 * 128;
+  const uint32_t v_rows = base + C::kV + WG * 64 * 128;
+  // q rows that see key key0 + 8 r: [qlo_r[r], qhi_r[r])
+  int qlo_r[2], qhi_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    qlo_r[r] = p.causal ? key - p.q_offset : 0;
+    qhi_r[r] = p.window > 0 ? static_cast<int>(min(
+                                  static_cast<long long>(p.Sq),
+                                  static_cast<long long>(key) + p.window -
+                                      p.q_offset))
+                            : p.Sq;
+    if (key >= p.Skv) qhi_r[r] = qlo_r[r];  // a key past Skv: none
+  }
+
+  float dk[C::kSub][32], dv[C::kSub][32];
+  zero<HD>(dk);
+  zero<HD>(dv);
+  if (n_steps > 0) mbar_wait(base + C::kKVFull, 0);
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % C::kStages, i0 = qlo + it * kBM;
+    const uint32_t ph = (it / C::kStages) & 1;
+    const uint32_t q_st = base + C::kQ + st * C::kStepBytes;
+    const uint32_t do_st = base + C::kDO + st * C::kStepBytes;
+    const bool refill = it + C::kStages < n_steps;
+    float nl[C::kR] = {}, nd[C::kR] = {};  // step it + kStages
+    if (refill) fetch_rows(p, bh, i0 + C::kStages * kBM, nl, nd);
+    float s[kN], dp[kN];
+    mbar_wait(base + C::kQFull + 8 * st, ph);
+    issue_abt<HD, kBM>(s, k_rows, C::kBN, q_st, kBM);
+    mbar_wait(base + C::kDOFull + 8 * st, ph);
+    issue_abt<HD, kBM>(dp, v_rows, C::kBN, do_st, kBM);
+    mbar_wait(base + C::kLFull + 8 * st, ph);
+    const float* sl = reinterpret_cast<const float*>(smem + C::kL) +
+                      st * kBM + 2 * t;
+    const float* sd = reinterpret_cast<const float*>(smem + C::kD) +
+                      st * kBM + 2 * t;
+    // a pair of the step is masked: the Sq or Skv tail, the causal
+    // diagonal, the window's edge
+    const bool masked =
+        i0 + kBM > p.Sq || kw0 + 64 > p.Skv ||
+        (p.causal && i0 + p.q_offset < kw0 + 63) ||
+        (p.window > 0 && i0 + kBM - 1 + p.q_offset - kw0 >= p.window);
+    const int lo_rel[2] = {qlo_r[0] - i0 - 2 * t, qlo_r[1] - i0 - 2 * t};
+    const int hi_rel[2] = {qhi_r[0] - i0 - 2 * t, qhi_r[1] - i0 - 2 * t};
+    wgmma_wait<1>();  // S^T
+    reg_fence(s);
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + (e & 1), r = e >> 1;
+        const float x = exp2_approx(
+            fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        s[4 * j + e] =
+            !masked || (col >= lo_rel[r] && col < hi_rel[r]) ? x : 0.f;
+      }
+    }
+    wgmma_wait<0>();  // dP^T
+    reg_fence(dp);
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    uint32_t pa[kBM / 16][4], dsa[kBM / 16][4];
+    pack_p(s, pa);
+    pack_p(dp, dsa);
+#pragma unroll
+    for (int c = 0; c < C::kSub; ++c) {
+      reg_fence(dv[c]);
+      reg_fence(dk[c]);
+    }
+    wgmma_fence();
+    issue_ab<HD, kBM>(dv, pa, do_st);
+    issue_ab<HD, kBM>(dk, dsa, q_st);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::kSub; ++c) {
+      reg_fence(dv[c]);
+      reg_fence(dk[c]);
+    }
+    __syncwarp();
+    if (release_last(base + C::kCount + 8 * st) && refill)
+      load_step<HD>(tq, tdo, smem, base, it + C::kStages,
+                    i0 + C::kStages * kBM, h, b, nl, nd);
+    __syncwarp();
+  }
+  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dk) + b * p.sdk.b +
+                     h * p.sdk.h, p.sdk.s, key0, p.Skv, dk, p.scale);
+  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dv) + b * p.sdv.b +
+                     h * p.sdv.h, p.sdv.s, key0, p.Skv, dv, 1.f);
+}
+
+// 2b. dK and dV of one tile of kBN keys, bf16, on the tensor cores.  The
+// grid is 1-D with the key tiles of one head adjacent, lowest keys first
+// (under a causal mask they see the most q rows).  Warp 0 loads K, V and
+// the first kStages steps before it turns consumer.
+template <int HD>
+__global__ void __launch_bounds__(kKvThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const Params p) {
+  using C = KvCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+
+  const int n_kt = (p.Skv + C::kBN - 1) / C::kBN;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * C::kBN;
+  const int b = bh / p.H, h = bh % p.H;
+  int qlo, qhi;
+  flash::q_range(p.Sq, p.causal, p.window, p.q_offset, k0, C::kBN, qlo, qhi);
+  const int n_steps = qhi > qlo ? (qhi - qlo + C::kBM - 1) / C::kBM : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kKVFull, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(base + C::kQFull + 8 * st, 1);
+      mbar_init(base + C::kDOFull + 8 * st, 1);
+      mbar_init(base + C::kLFull + 8 * st, 32);  // a warp's lanes
+      *reinterpret_cast<uint32_t*>(smem + C::kCount + 8 * st) = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // roles from a warp-uniform warp index, as the forward
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp == 0 && n_steps > 0) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(base + C::kKVFull, 2 * C::kKVBytes);
+      for (int c = 0; c < C::kSub; ++c) {
+        tma_load(base + C::kK + c * C::kBN * 128, &tk, base + C::kKVFull,
+                 c * kBox, k0, h, b);
+        tma_load(base + C::kV + c * C::kBN * 128, &tv, base + C::kKVFull,
+                 c * kBox, k0, h, b);
+      }
+    }
+    for (int it = 0; it < min(C::kStages, n_steps); ++it) {
+      float l[C::kR], d[C::kR];
+      fetch_rows(p, static_cast<long long>(bh), qlo + it * C::kBM, l, d);
+      load_step<HD>(&tq, &tdo, smem, base, it, qlo + it * C::kBM, h, b, l,
+                    d);
+    }
+    __syncwarp();
+  }
+  if (warp < 4)
+    consume_kv<HD, 0>(p, &tq, &tdo, smem, base, k0, qlo, n_steps, h, b);
+  else
+    consume_kv<HD, 1>(p, &tq, &tdo, smem, base, k0, qlo, n_steps, h, b);
+}
+
+// The dQ producer: one thread loads Q and dO once, then K and V tile by
+// tile into the ring, as the forward's.
+template <int HD>
+__device__ __forceinline__ void produce_q(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, uint32_t base, int q0, int h, int b, int lo,
+    int n_tiles) {
+  using C = QCfg<HD>;
+  mbar_expect_tx(base + C::kQFull, 2 * C::kQBytes);
+  for (int c = 0; c < C::kSub; ++c) {
+    tma_load(base + C::kQ + c * C::kBQ * 128, &tq, base + C::kQFull,
+             c * kBox, q0, h, b);
+    tma_load(base + C::kDO + c * C::kBQ * 128, &tdo, base + C::kQFull,
+             c * kBox, q0, h, b);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % C::kStages, k0 = (lo + it) * C::kBK;
+    const uint32_t parity = (it / C::kStages - 1) & 1;
+    const uint32_t kt = base + C::kK + st * C::kTileBytes;
+    const uint32_t vt = base + C::kV + st * C::kTileBytes;
+    const uint32_t k_full = base + C::kKFull + 8 * st;
+    const uint32_t v_full = base + C::kVFull + 8 * st;
+    if (it >= C::kStages) mbar_wait(base + C::kKEmpty + 8 * st, parity);
+    mbar_expect_tx(k_full, C::kTileBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(kt + c * C::kBK * 128, &tk, k_full, c * kBox, k0, h, b);
+    if (it >= C::kStages) mbar_wait(base + C::kVEmpty + 8 * st, parity);
+    mbar_expect_tx(v_full, C::kTileBytes);
+    for (int c = 0; c < C::kSub; ++c)
+      tma_load(vt + c * C::kBK * 128, &tv, v_full, c * kBox, k0, h, b);
+  }
+}
+
+// Consumer warpgroup WG of the dQ kernel owns q rows [q0 + 64 WG, + 64); a
+// thread holds rows row0 and row0 + 8, with their lse2 and delta in
+// registers.  Per K/V tile: S = Q K^T and dP = dO V^T (SS); P = exp2(S
+// scale log2(e) - lse2), 0 outside each row's visible keys; dS = P (dP -
+// delta) packed into bf16 A fragments; dQ += dS K (RS, K read MN-major).  V
+// is released once dP is done, K once dQ's product is.
+template <int HD, int WG>
+__device__ __forceinline__ void consume_q(const Params& p, uint32_t base,
+                                          int q0, int h, int b, int lo,
+                                          int n_tiles) {
+  using C = QCfg<HD>;
+  constexpr int kBK = C::kBK, kN = kBK / 2;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int row0 = q0 + 64 * WG + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+  const float scale_log2 = p.scale * kLog2e;
+  const uint32_t q_rows = base + C::kQ + WG * 64 * 128;
+  const uint32_t do_rows = base + C::kDO + WG * 64 * 128;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  float lse2[2], delta[2];
+  int klo[2], khi[2];  // keys visible to the thread's rows: [klo, khi)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool exists = row < p.Sq;
+    lse2[r] = exists ? p.lse[bh * p.Sq + row] * kLog2e : 0.f;
+    delta[r] = exists ? p.delta[bh * p.Sq + row] : 0.f;
+    const int qpos = row + p.q_offset;
+    khi[r] = p.causal ? min(qpos + 1, p.Skv) : p.Skv;
+    klo[r] = p.window > 0 ? qpos - p.window + 1 : 0;
+  }
+  const int wq_first = q0 + 64 * WG + p.q_offset;
+  const int wq_last = wq_first + 63;
+
+  float dq[C::kSub][32];
+  zero<HD>(dq);
+  mbar_wait(base + C::kQFull, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % C::kStages, k0 = (lo + it) * kBK;
+    const uint32_t ph = (it / C::kStages) & 1;
+    const uint32_t kt = base + C::kK + st * C::kTileBytes;
+    const uint32_t vt = base + C::kV + st * C::kTileBytes;
+    float s[kN], dp[kN];
+    mbar_wait(base + C::kKFull + 8 * st, ph);
+    issue_abt<HD, kBK>(s, q_rows, C::kBQ, kt, kBK);
+    mbar_wait(base + C::kVFull + 8 * st, ph);
+    issue_abt<HD, kBK>(dp, do_rows, C::kBQ, vt, kBK);
+    const bool masked = k0 + kBK > p.Skv ||
+                        (p.causal && k0 + kBK - 1 > wq_first) ||
+                        (p.window > 0 && wq_last - k0 >= p.window);
+    const int lo_rel[2] = {klo[0] - k0 - 2 * t, klo[1] - k0 - 2 * t};
+    const int hi_rel[2] = {khi[0] - k0 - 2 * t, khi[1] - k0 - 2 * t};
+    wgmma_wait<1>();  // S
+    reg_fence(s);
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + (e & 1), r = e >> 1;
+        const float x =
+            exp2_approx(fmaf(s[4 * j + e], scale_log2, -lse2[r]));
+        s[4 * j + e] =
+            !masked || (col >= lo_rel[r] && col < hi_rel[r]) ? x : 0.f;
+      }
+    wgmma_wait<0>();  // dP: V is free
+    reg_fence(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(base + C::kVEmpty + 8 * st);
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      dp[i] = s[i] * (dp[i] - delta[(i >> 1) & 1]);
+    uint32_t dsa[kBK / 16][4];
+    pack_p(dp, dsa);
+#pragma unroll
+    for (int c = 0; c < C::kSub; ++c) reg_fence(dq[c]);
+    wgmma_fence();
+    issue_ab<HD, kBK>(dq, dsa, kt);
+    wgmma_commit();
+    wgmma_wait<0>();  // K is free
+#pragma unroll
+    for (int c = 0; c < C::kSub; ++c) reg_fence(dq[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(base + C::kKEmpty + 8 * st);
+  }
+  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dq) + b * p.sdq.b +
+                     h * p.sdq.h, p.sdq.s, row0, p.Sq, dq, p.scale);
+}
+
+// 3b. dQ of one tile of kBQ q rows, bf16, on the tensor cores; heaviest q
+// tiles first, the q tiles of one head adjacent, as the forward.
+template <int HD>
+__global__ void __launch_bounds__(kQThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const Params p) {
+  using C = QCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int n_qt = (p.Sq + C::kBQ - 1) / C::kBQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * C::kBQ;
+  const int b = bh / p.H, h = bh % p.H;
+  int lo, hi;
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, q0, C::kBQ,
+                  C::kBK, lo, hi);
+  const int n_tiles = max(hi - lo, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kQFull, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(base + C::kKFull + 8 * st, 1);
+      mbar_init(base + C::kVFull + 8 * st, 1);
+      mbar_init(base + C::kKEmpty + 8 * st, 4 * kTcConsumers);
+      mbar_init(base + C::kVEmpty + 8 * st, 4 * kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // roles from a warp-uniform warp index, as the forward; setmaxnreg moves
+  // registers from the producer warpgroup to the consumers:
+  // (168 - 24) x 128 = (240 - 168) x 256
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= 4 * kTcConsumers) {
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kTcConsumers && threadIdx.x % 32 == 0)
+      produce_q<HD>(tq, tdo, tk, tv, base, q0, h, b, lo, n_tiles);
+  } else {
+    setmaxnreg_inc<240>();
+    if (warp < 4)
+      consume_q<HD, 0>(p, base, q0, h, b, lo, n_tiles);
+    else
+      consume_q<HD, 1>(p, base, q0, h, b, lo, n_tiles);
+  }
+}
+
+// 1. delta, in every path: one warp per row.
 template <int HD, typename T>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<HD>;
+int launch_delta(const Params& p, int B, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * p.H * p.Sq;
-  const long long delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  flash_bwd_delta<HD, T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(p, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, typename T>
+int launch_simt(const Params& p, int B, cudaStream_t stream) {
+  using C = Cfg<HD>;
   const int n_k = (p.Skv + C::kRows - 1) / C::kRows;
   const int n_q = (p.Sq + C::kRows - 1) / C::kRows;
-  if (delta_blocks > INT_MAX || static_cast<long long>(B) * p.H > INT_MAX ||
-      n_k > 65535 || n_q > 65535)
+  if (static_cast<long long>(B) * p.H > INT_MAX || n_k > 65535 ||
+      n_q > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  flash_bwd_delta<HD, T><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
-                           stream>>>(p, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int err = launch_delta<HD, T>(p, B, stream);
+  if (err != 0) return err;
   flash_bwd_dkdv<HD, T><<<dim3(B * p.H, n_k), kThreads, 0, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
   flash_bwd_dq<HD, T><<<dim3(B * p.H, n_q), kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  using KC = KvCfg<HD>;
+  using QC = QCfg<HD>;
+  CUtensorMap kv_k, kv_v, kv_q, kv_do, q_q, q_do, q_k, q_v;
+  if (!make_map(&kv_k, p.k, HD, p.Skv, p.H, B, p.sk, KC::kBN) ||
+      !make_map(&kv_v, p.v, HD, p.Skv, p.H, B, p.sv, KC::kBN) ||
+      !make_map(&kv_q, p.q, HD, p.Sq, p.H, B, p.sq, KC::kBM) ||
+      !make_map(&kv_do, p.dout, HD, p.Sq, p.H, B, p.sdo, KC::kBM) ||
+      !make_map(&q_q, p.q, HD, p.Sq, p.H, B, p.sq, QC::kBQ) ||
+      !make_map(&q_do, p.dout, HD, p.Sq, p.H, B, p.sdo, QC::kBQ) ||
+      !make_map(&q_k, p.k, HD, p.Skv, p.H, B, p.sk, QC::kBK) ||
+      !make_map(&q_v, p.v, HD, p.Skv, p.H, B, p.sv, QC::kBK))
+    return (int)cudaErrorInvalidValue;
+  const long long bh = static_cast<long long>(B) * p.H;
+  const long long kv_blocks = bh * ((p.Skv + KC::kBN - 1) / KC::kBN);
+  const long long q_blocks = bh * ((p.Sq + QC::kBQ - 1) / QC::kBQ);
+  if (kv_blocks > INT_MAX || q_blocks > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  int err = launch_delta<HD, __nv_bfloat16>(p, B, stream);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_dkdv_bf16<HD>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, KC::kSmem);
+  if (err != 0) return err;
+  flash_bwd_dkdv_bf16<HD><<<static_cast<unsigned>(kv_blocks), kKvThreads,
+                            KC::kSmem, stream>>>(kv_k, kv_v, kv_q, kv_do, p);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_dq_bf16<HD>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, QC::kSmem);
+  if (err != 0) return err;
+  flash_bwd_dq_bf16<HD><<<static_cast<unsigned>(q_blocks), kQThreads,
+                          QC::kSmem, stream>>>(q_q, q_do, q_k, q_v, p);
+  return (int)cudaGetLastError();
+}
+
+// fp32 at every head dim and bf16 at 16, 32 and 256 on the SIMT kernels,
+// bf16 at 64 and 128 on the tensor cores (the forward's split).
+template <int HD>
 int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
-  return dtype == 0 ? launch<HD, float>(p, B, stream)
-                    : launch<HD, __nv_bfloat16>(p, B, stream);
+  if (dtype == 0) return launch_simt<HD, float>(p, B, stream);
+  if constexpr (HD == 64 || HD == 128)
+    return launch_bf16<HD>(p, B, stream);
+  else
+    return launch_simt<HD, __nv_bfloat16>(p, B, stream);
 }
 
 }  // namespace

@@ -41,6 +41,20 @@ __device__ __forceinline__ void kv_range(int Sq, int Skv, int causal,
   }
 }
 
+// Query rows [qlo, qhi) that see some key of the tile [k0, k0 + bk):
+// kv_range turned around (from k0 - q_offset under a causal mask, to
+// k0 + bk - 1 + window - q_offset under a window).
+__device__ __forceinline__ void q_range(int Sq, int causal, int window,
+                                        int q_offset, int k0, int bk,
+                                        int& qlo, int& qhi) {
+  qlo = causal ? max(0, k0 - q_offset) : 0;
+  qhi = Sq;
+  if (window > 0)
+    qhi = static_cast<int>(min(static_cast<long long>(Sq),
+                               static_cast<long long>(k0) + bk - 1 + window -
+                                   q_offset));
+}
+
 // Four consecutive elements as fp32: one 16-byte load of fp32, one 8-byte
 // load of bf16 (rows are 16-byte aligned and a thread's four elements
 // start at a multiple of 4).

@@ -96,6 +96,24 @@ def test_kernel_rejects_unsupported_head_dim(dev):
         fa.flash_attention(q, k, v)
 
 
+# the bf16 backward kernels' own tile edges (hd 64 and 128): 128- or 64-row
+# q steps and 128-key tiles (dK / dV), 128-row q tiles and 64-key tiles (dQ)
+BWD_EDGES = [
+    (True, None, 0, None, 63, 63),
+    (True, None, 0, None, 64, 64),
+    (True, None, 0, None, 65, 65),
+    (False, None, 0, None, 127, 129),
+    (True, None, 0, 0.2, 128, 128),
+    (True, None, 0, None, 129, 129),
+    (True, None, 64, None, 65, 129),          # Sq < Skv, q_offset
+    (True, None, 1, None, 128, 129),
+    (False, None, 0, None, 129, 63),
+    (True, 40, 0, None, 129, 65),             # window ends inside a tile
+    (True, 30, 0, None, 127, 63),             # rows past 92 see no key
+    (True, 100, 28, None, 64, 127),
+]
+
+
 def _seen(sq, skv, causal, window, q_offset, dev):
     """(Sq,) bool: the query rows that see at least one key."""
     q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
@@ -112,7 +130,7 @@ def _seen(sq, skv, causal, window, q_offset, dev):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", EDGES + [
     (True, 50, 0, None, 300, 100),            # rows past 148 see no key
-])
+] + BWD_EDGES)
 def test_backward_kernel_matches_plain(dev, dtype, hd, causal, window,
                                        q_offset, scale, sq, skv):
     """lse against the plain forward's (relative max 1e-4); dq, dk, dv
@@ -138,6 +156,18 @@ def test_backward_kernel_matches_plain(dev, dtype, hd, causal, window,
         assert err.item() <= TOL[dtype]
     dq = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)[0]
     assert torch.isfinite(dq).all()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_kernel_is_deterministic(dev, hd):
+    """Two backward calls on the same bf16 inputs give bitwise-equal dq, dk
+    and dv: the kernels use no atomics."""
+    q, k, v = _qkv(dev, 2, 1000, 3, hd, torch.bfloat16)
+    do = torch.randn(q.shape, device=dev).bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    second = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_backward_kernel_reads_strided_inputs(dev):
