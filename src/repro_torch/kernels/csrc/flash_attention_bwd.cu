@@ -70,7 +70,7 @@
 //  a thread at either head dim) needs more, hence 256 threads (255
 //  registers): ptxas uses 242 registers (hd 64) and 235 (hd 128), 0 bytes
 //  spilled.  dQ fits in 168 with 64-key tiles (S and dP 32 each, dQ 32 or
-//  64); with 128-key tiles at hd 64 it spilled 768 bytes.  Shared memory:
+//  64); with 128-key tiles at hd 64 it spilled.  Shared memory:
 //  dK / dV 132.1 KB (hd 64) / 162.6 KB (hd 128), dQ 81.1 / 129.1 KB; one
 //  block an SM.
 //  Products: 7 per visible pair (S and dP are computed by both kernels),
@@ -380,8 +380,9 @@ template <int HD>
 struct KvCfg {
   static constexpr int kBN = 128;  // keys per block
   // q rows per step: 128 at hd 64 (S^T and dP^T 64 fp32 each beside dK
-  // and dV's 32: the larger products halve the per-step waits, 0.418 ->
-  // 0.358 ms at the main shape), 64 at hd 128 (dK and dV take 128)
+  // and dV's 32: the larger products halve the per-step waits, 0.4187 ->
+  // 0.3556 ms at the main shape in chip_smoke.py's profile), 64 at hd 128
+  // (dK and dV take 128)
   static constexpr int kBM = HD == 64 ? 128 : 64;
   static constexpr int kR = kBM / 32;  // of them a lane stages
   static constexpr int kStages = 3;
