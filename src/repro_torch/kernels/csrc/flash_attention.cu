@@ -13,25 +13,31 @@
 // 2*B*H*hd*S*(S+1) ~ 68.8 GFLOP, ~70 us at 989 TFLOP/s; q, k, v and o are
 // ~134 MB, ~40 us at 3.35 TB/s.  So the call is bound by tensor-core
 // operations at ~70 us (~1.5 ms per 22-layer prefill).  At hd 128 (Qwen3-14B
-// heads, H=40) the bound is ~174 us of operations.  The softmax's 2^x runs
+// heads, H=40) the bound is ~174 us of operations; at Gemma-7B's prefill
+// (B=4, S=2048, H=16, hd=256) ~139 us (137.5 GFLOP), ~3.9 ms per 28-layer
+// prefill.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py):
+// at (2, 2048, 16, 256) causal this kernel takes 0.1986 ms (346 TFLOP/s)
+// against 0.1484 ms for SDPA and a bound of 0.0695 ms; the SIMT path it
+// replaced there took 6.52 ms.  The softmax's 2^x runs
 // on the SFUs, 16 per clock per SM: a 128 x 128 tile needs ~0.56 us of
 // them, about as long as its two products need on the tensor cores.
 //
-// bf16 design at hd 64 and 128 (the serving and training path):
+// bf16 design at hd 64, 128 and 256 (the serving and training paths):
 //  * One block per (b*h, 128-row q tile), one block per SM: two consumer
-//    warpgroups own 64 q rows each; a producer warpgroup, of which one
-//    thread works, issues the loads.  ptxas sizes registers by warpgroup
-//    (168 a thread for three), so setmaxnreg gives the consumers 224 and
-//    the producer 56.
+//    warpgroups own 64 q rows each.  At hd 64 and 128 a producer
+//    warpgroup, of which one thread works, issues the loads.  ptxas sizes
+//    registers by warpgroup (168 a thread for three), so setmaxnreg gives
+//    the consumers 224 and the producer 56.
 //  * The producer loads the Q tile once and K and V tiles into a ring of 3
-//    (hd 64) or 2 (hd 128) stages of dynamic shared memory with TMA
-//    (cp.async.bulk.tensor, 128-byte swizzle; 113 / 97 KB).  Each tensor has
-//    one 4-D map over (hd, S, H, B) built on the host from the caller's
-//    strides, so strided views load uncopied; a swizzled box row is 64
-//    bf16, so hd 128 takes two boxes per tile.  Per stage a K-full and a
-//    V-full mbarrier (TMA transaction bytes) hand tiles to the consumers,
-//    and a K-empty and a V-empty mbarrier (one arrival per consumer warp)
-//    hand them back as soon as the product that reads them is done.
+//    (hd 64) or 2 (hd 128, 256) stages of dynamic shared memory with TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle; 113 / 97 / 193 KB).  Each
+//    tensor has one 4-D map over (hd, S, H, B) built on the host from the
+//    caller's strides, so strided views load uncopied; a swizzled box row
+//    is 64 bf16, so a tile of hd 128 / 256 takes 2 / 4 boxes.  Per stage a
+//    K-full and a V-full mbarrier (TMA transaction bytes) hand tiles to the
+//    consumers, and a K-empty and a V-empty mbarrier (one arrival per
+//    consumer warp) hand them back as soon as the product that reads them
+//    is done.
 //  * S = Q K^T is wgmma.mma_async with Q and K read K-major from shared
 //    memory.  The fp32 online softmax runs in base 2 on the accumulator
 //    fragment (a row on the 4 lanes of a quad, max and sum over four
@@ -43,6 +49,16 @@
 //    consumer would need more than 224 registers for S (64), O (64) and P
 //    (32) and spills, so it takes 64 keys.  128 q rows let one K/V tile feed
 //    two warpgroups.
+//  * hd 256 (Gemma-7B): a consumer's O alone is 128 fp32 registers, S (64
+//    keys) 32 and P 16, more than the 168 that ptxas budgets a 384-thread
+//    kernel's wgmma pipeline whatever setmaxnreg gives (the backward's
+//    finding), so this head dim runs 256 threads and no producer
+//    warpgroup (255 registers a thread): thread 0 loads Q and the first two
+//    stages, and the last of the 8 consumer warps to release a K or V stage
+//    (release_last, a counter in shared memory where the empty mbarrier
+//    would be) loads the tile two ahead into it.  64-key tiles, 2 stages:
+//    Q 64 KB + 2 x (32 + 32) KB.  S is 16 k steps of m64n64k16, P V 4 k
+//    steps of 4 m64n64k16 (one per 64 columns of O).
 //  * Masks only on tiles that hold a masked pair (the causal diagonal, the
 //    window edge, the Skv tail): there each row's visible keys are a range
 //    [lo, hi) and the others get -inf.  TMA fills rows past Skv and Sq with
@@ -52,16 +68,15 @@
 //    the q tiles of one head adjacent, heaviest first, so the blocks that
 //    share a head's K and V run together and read them from L2.
 // SIMT design, for fp32 at every head dim (the tensor cores would round to
-// tf32) and for bf16 at head dims 16, 32 and 256 (Gemma-7B's 256, and the
-// reduced configs' 16 and 32): TPR threads per q row (4, or 8 at hd 256, so
-// a thread holds at most 32 floats each of q and acc in registers), over
-// K/V tiles of 32 keys (16 at hd 256: two fp32 tiles stay within the 48 KB
-// of static shared memory) that a warp reads by broadcast; the same
-// kv_range, heaviest q tiles first.  bf16 is loaded, converted to fp32 on
-// the way into registers and shared memory, and rounded once at the store.
-// Masked logits are -1e30 there, as in the plain version.  This path is
-// simple and right, not fast: at Gemma-7B's (B, 2048, 16, 256) it does the
-// work of the wgmma path on the fp32 FMA units (67 TFLOP/s peak).
+// tf32) and for bf16 at head dims 16 and 32 (the reduced configs): TPR
+// threads per q row (4, or 8 at hd 256, so a thread holds at most 32
+// floats each of q and acc in registers), over K/V tiles of 32 keys (16 at
+// hd 256: two fp32 tiles stay within the 48 KB of static shared memory)
+// that a warp reads by broadcast; the same kv_range, heaviest q tiles
+// first.  bf16 is loaded, converted to fp32 on the way into registers and
+// shared memory, and rounded once at the store.  Masked logits are -1e30
+// there, as in the plain version.  This path is simple and right, not
+// fast: it does the products on the fp32 FMA units (67 TFLOP/s peak).
 // Either kernel gives the plain version's result for a row that sees at
 // least one key.
 //
@@ -119,18 +134,22 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0, int bq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA + mbarrier ring + wgmma kernel
+// bf16 at hd 64, 128 and 256: TMA + mbarrier ring + wgmma kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 128;        // q rows per block, 64 per consumer warpgroup
 constexpr int kConsumers = 2;   // consumer warpgroups
-constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 
 // Tile sizes and the shared-memory layout of a block, in bytes from a
 // 1024-byte-aligned base (the 128-byte swizzle repeats every 1024 bytes):
-// Q, the K stages, the V stages, then the mbarriers (8 bytes each).
+// Q, the K stages, the V stages, then the mbarriers (8 bytes each).  At hd
+// 64 and 128 a producer warpgroup loads the tiles (384 threads); at hd 256
+// there is none (256 threads), and the "empty" slots are release counters
+// (release_last) instead of mbarriers.
 template <int HD>
 struct Cfg {
+  static constexpr bool kProducer = HD != 256;
+  static constexpr int kThreads = 128 * (kConsumers + (kProducer ? 1 : 0));
   static constexpr int kBK = HD == 64 ? 128 : 64;  // keys per K/V tile
   static constexpr int kStages = HD == 64 ? 3 : 2;
   static constexpr int kSub = HD / kBox;           // 64-wide column blocks
@@ -181,8 +200,21 @@ __device__ __forceinline__ void issue_pv(
   wgmma_commit();
 }
 
+// One K or V tile (keys from k0) into the ring slot `dst`, announced on
+// the stage's full mbarrier `full`; by one thread.
+template <int HD>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          uint32_t dst, uint32_t full,
+                                          int k0, int h, int b) {
+  mbar_expect_tx(full, Cfg<HD>::kTileBytes);
+  for (int c = 0; c < Cfg<HD>::kSub; ++c)
+    tma_load(dst + c * Cfg<HD>::kBK * 128, map, full, c * kBox, k0, h, b);
+}
+
 // The producer: one thread loads Q, then K and V tile by tile into the ring,
-// each stage once the consumers have released its previous tile.
+// each stage once the consumers have released its previous tile.  Without
+// a producer warpgroup, thread 0 runs it for the first kStages tiles (no
+// waits) and the consumers refill the ring.
 template <int HD>
 __device__ __forceinline__ void produce(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
@@ -196,18 +228,12 @@ __device__ __forceinline__ void produce(const CUtensorMap& tq,
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % C::kStages, k0 = (lo + it) * C::kBK;
     const uint32_t parity = (it / C::kStages - 1) & 1;
-    const uint32_t kt = base + C::kK + st * C::kTileBytes;
-    const uint32_t vt = base + C::kV + st * C::kTileBytes;
-    const uint32_t k_full = base + C::kKFull + 8 * st;
-    const uint32_t v_full = base + C::kVFull + 8 * st;
     if (it >= C::kStages) mbar_wait(base + C::kKEmpty + 8 * st, parity);
-    mbar_expect_tx(k_full, C::kTileBytes);
-    for (int c = 0; c < C::kSub; ++c)
-      tma_load(kt + c * C::kBK * 128, &tk, k_full, c * kBox, k0, h, b);
+    load_tile<HD>(&tk, base + C::kK + st * C::kTileBytes,
+                  base + C::kKFull + 8 * st, k0, h, b);
     if (it >= C::kStages) mbar_wait(base + C::kVEmpty + 8 * st, parity);
-    mbar_expect_tx(v_full, C::kTileBytes);
-    for (int c = 0; c < C::kSub; ++c)
-      tma_load(vt + c * C::kBK * 128, &tv, v_full, c * kBox, k0, h, b);
+    load_tile<HD>(&tv, base + C::kV + st * C::kTileBytes,
+                  base + C::kVFull + 8 * st, k0, h, b);
   }
 }
 
@@ -289,12 +315,32 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
 // so the wgmma descriptors are warp-uniform; where ptxas cannot prove
 // that, it serializes the wgmma instructions too.
 template <int HD, int WG>
-__device__ __forceinline__ void consume(const Params& p, uint32_t base,
+__device__ __forceinline__ void consume(const Params& p,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint32_t base,
                                         int q0, int h, int b, int lo,
                                         int n_tiles) {
   using C = Cfg<HD>;
   constexpr int kBK = C::kBK, kS = kBK / 2;
   const int lane = threadIdx.x % 32, t = lane % 4;
+  // The warp is done with tile it's K (V when `v`): one arrival on the
+  // stage's empty mbarrier for the producer, or, without one, the last of
+  // the 4 x kConsumers consumer warps to release the stage loads tile
+  // it + kStages into it.
+  auto release = [&](bool v, int it) {
+    const int st = it % C::kStages;
+    const uint32_t slot = base + (v ? C::kVEmpty : C::kKEmpty) + 8 * st;
+    __syncwarp();
+    if constexpr (C::kProducer) {
+      if (lane == 0) mbar_arrive(slot);
+    } else if (release_last<4 * kConsumers>(slot) &&
+               it + C::kStages < n_tiles && lane == 0) {
+      load_tile<HD>(v ? tv : tk,
+                    base + (v ? C::kV : C::kK) + st * C::kTileBytes,
+                    base + (v ? C::kVFull : C::kKFull) + 8 * st,
+                    (lo + it + C::kStages) * kBK, h, b);
+    }
+  };
   const int row0 = q0 + 64 * WG + 16 * (threadIdx.x % 128 / 32) + lane / 4;
   const float scale_log2 = p.scale * kLog2e;  // softmax in base 2
   const uint32_t q_rows = base + WG * 64 * 128;  // this warpgroup's Q rows
@@ -339,8 +385,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
       if (WG == 0 || n_tiles > 1) bar_arrive(2 - WG);
       wgmma_wait<0>();
       reg_fence(s);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(base + C::kKEmpty);
+      release(false, 0);
       softmax(s, m, l, corr, lo * kBK);
       pack_p(s, pa);
     }
@@ -356,8 +401,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
       if (WG == 0 || it + 1 < n_tiles) bar_arrive(2 - WG);  // the other's turn
       wgmma_wait<1>();  // S_it
       reg_fence(s);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(base + C::kKEmpty + 8 * st);
+      release(false, it);
       softmax(s, m, l, corr, (lo + it) * kBK);
       wgmma_wait<0>();  // P_{it-1} V_{it-1}: V and pa are free
 #pragma unroll
@@ -366,8 +410,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i >> 1) & 1];
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(base + C::kVEmpty + 8 * pst);
+      release(true, it - 1);
       pack_p(s, pa);
     }
     const int pst = (n_tiles - 1) % C::kStages;  // the last tile's P V
@@ -400,7 +443,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -421,34 +464,48 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int st = 0; st < C::kStages; ++st) {
       mbar_init(base + C::kKFull + 8 * st, 1);
       mbar_init(base + C::kVFull + 8 * st, 1);
-      // one arrival per consumer warp
-      mbar_init(base + C::kKEmpty + 8 * st, 4 * kConsumers);
-      mbar_init(base + C::kVEmpty + 8 * st, 4 * kConsumers);
+      if constexpr (C::kProducer) {  // one arrival per consumer warp
+        mbar_init(base + C::kKEmpty + 8 * st, 4 * kConsumers);
+        mbar_init(base + C::kVEmpty + 8 * st, 4 * kConsumers);
+      } else {  // release counters
+        uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+        *reinterpret_cast<uint32_t*>(smem + C::kKEmpty + 8 * st) = 0;
+        *reinterpret_cast<uint32_t*>(smem + C::kVEmpty + 8 * st) = 0;
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   // The role comes from a warp-uniform warp index (threadIdx alone would
-  // make the branches divergent in ptxas's eyes).  setmaxnreg moves
-  // registers from the producer warpgroup to the consumers:
-  // (168 - 56) x 128 = (224 - 168) x 256.
+  // make the branches divergent in ptxas's eyes).
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
-  if (warp >= 4 * kConsumers) {
-    setmaxnreg_dec<56>();
-    if (warp == 4 * kConsumers && threadIdx.x % 32 == 0)
-      produce<HD>(tq, tk, tv, base, q0, h, b, lo, n_tiles);
-  } else {
-    setmaxnreg_inc<224>();
+  auto consumers = [&] {
     if (warp < 4)
-      consume<HD, 0>(p, base, q0, h, b, lo, n_tiles);
+      consume<HD, 0>(p, &tk, &tv, base, q0, h, b, lo, n_tiles);
     else
-      consume<HD, 1>(p, base, q0, h, b, lo, n_tiles);
+      consume<HD, 1>(p, &tk, &tv, base, q0, h, b, lo, n_tiles);
+  };
+  if constexpr (C::kProducer) {
+    // setmaxnreg moves registers from the producer warpgroup to the
+    // consumers: (168 - 56) x 128 = (224 - 168) x 256.
+    if (warp >= 4 * kConsumers) {
+      setmaxnreg_dec<56>();
+      if (warp == 4 * kConsumers && threadIdx.x % 32 == 0)
+        produce<HD>(tq, tk, tv, base, q0, h, b, lo, n_tiles);
+    } else {
+      setmaxnreg_inc<224>();
+      consumers();
+    }
+  } else {
+    if (threadIdx.x == 0)  // Q and the first stages; the consumers refill
+      produce<HD>(tq, tk, tv, base, q0, h, b, lo, min(n_tiles, C::kStages));
+    consumers();
   }
 }
 
 // ---------------------------------------------------------------------------
-// SIMT kernel: fp32 at every head dim, bf16 at 16, 32 and 256
+// SIMT kernel: fp32 at every head dim, bf16 at 16 and 32
 // ---------------------------------------------------------------------------
 
 constexpr int kFThreads = 256;
@@ -583,7 +640,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
       reinterpret_cast<const void*>(&flash_fwd_bf16<HD>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<HD>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_bf16<HD><<<static_cast<unsigned>(blocks), kThreads,
+  flash_fwd_bf16<HD><<<static_cast<unsigned>(blocks), Cfg<HD>::kThreads,
                        Cfg<HD>::kSmem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -599,7 +656,7 @@ int launch_simt(const Params& p, int B, cudaStream_t stream) {
 template <int HD>
 int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
   if (dtype == 0) return launch_simt<HD, float>(p, B, stream);
-  if constexpr (HD == 64 || HD == 128)
+  if constexpr (HD >= 64)
     return launch_bf16<HD>(p, B, stream);
   else
     return launch_simt<HD, __nv_bfloat16>(p, B, stream);

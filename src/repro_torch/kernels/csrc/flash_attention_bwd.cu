@@ -544,20 +544,6 @@ __device__ __forceinline__ void load_step(const CUtensorMap* tq,
   mbar_arrive(base + C::kLFull + 8 * st);
 }
 
-// One consumer warp's release of a stage, on the stage's counter in shared
-// memory: true for the last of the 4 kTcConsumers warps, which refills it.
-// The counter only grows (the k-th use's arrivals are 8k .. 8k + 7), and
-// acq_rel orders every warp's reads of the stage before the refill.
-__device__ __forceinline__ bool release_last(uint32_t counter) {
-  uint32_t old = 0;
-  if (threadIdx.x % 32 == 0)
-    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
-                 : "=r"(old) : "r"(counter), "r"(1) : "memory");
-  old = __shfl_sync(0xffffffffu, old, 0);
-  __syncwarp();  // the lanes' refill writes come after lane 0's acquire
-  return old % (4 * kTcConsumers) == 4 * kTcConsumers - 1;
-}
-
 // Consumer warpgroup WG of the dK / dV kernel owns keys [kw0, kw0 + 64),
 // kw0 = k0 + 64 WG; a thread holds keys key0 and key0 + 8 of the
 // accumulator tiles, whose columns are q rows.  Per step of kBM q rows:
@@ -672,7 +658,8 @@ __device__ __forceinline__ void consume_kv(const Params& p,
       reg_fence(dk[c]);
     }
     __syncwarp();
-    if (release_last(base + C::kCount + 8 * st) && refill)
+    if (release_last<4 * kTcConsumers>(base + C::kCount + 8 * st) &&
+        refill)
       load_step<HD>(tq, tdo, smem, base, it + C::kStages,
                     i0 + C::kStages * kBM, h, b, nl, nd);
     __syncwarp();

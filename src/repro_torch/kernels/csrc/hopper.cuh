@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the tensor-core flash-attention
 // kernels (flash_attention.cu's forward, flash_attention_bwd.cu's backward):
 // shared-memory addresses, mbarriers, TMA tile loads, 128-byte-swizzled wgmma
-// descriptors, the wgmma instructions and their fences, register hand-over
-// between warpgroups (setmaxnreg), named barriers, and on the host the 4-D
+// descriptors, the wgmma instructions and their fences, the release of a
+// stage by the last of its consumer warps, register hand-over between
+// warpgroups (setmaxnreg), named barriers, and on the host the 4-D
 // TMA map over a (B, S, H, hd) bf16 tensor with the caller's strides.
 #pragma once
 
@@ -199,6 +200,22 @@ __device__ __forceinline__ void bar_sync(int id) {
 
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(256) : "memory");
+}
+
+// One consumer warp's release of a stage that kWarps warps read, on the
+// stage's counter in shared memory: true, on every lane, for the last of
+// them, which refills it.  The counter only grows (the k-th use's arrivals
+// are kWarps k .. kWarps k + kWarps - 1), and acq_rel orders every warp's
+// reads of the stage before the refill.
+template <int kWarps>
+__device__ __forceinline__ bool release_last(uint32_t counter) {
+  uint32_t old = 0;
+  if (threadIdx.x % 32 == 0)
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+                 : "=r"(old) : "r"(counter), "r"(1) : "memory");
+  old = __shfl_sync(0xffffffffu, old, 0);
+  __syncwarp();  // the lanes' refill writes come after lane 0's acquire
+  return old % kWarps == kWarps - 1;
 }
 
 // Registers handed from the producer warpgroup to the consumers.  Called

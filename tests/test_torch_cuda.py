@@ -33,6 +33,18 @@ def _qkv(dev, b, sq, h, hd, dtype, skv=None, seed=0):
                  for s in (sq, skv or sq, skv or sq))
 
 
+def _seen(sq, skv, causal, window, q_offset, dev):
+    """(Sq,) bool: the query rows that see at least one key."""
+    q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
+    k_pos = torch.arange(skv, device=dev)[None, :]
+    vis = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    if causal:
+        vis &= q_pos >= k_pos
+    if window is not None:
+        vis &= q_pos - k_pos < window
+    return vis.any(dim=1)
+
+
 EDGES = [
     (True, None, 0, None, 256, 256),
     (False, None, 0, None, 256, 256),
@@ -70,6 +82,42 @@ def test_kernel_matches_plain(dev, dtype, hd, causal, window, q_offset,
     assert err <= TOL[dtype], err
 
 
+# the bf16 hd-256 kernel's tile edges: its 128-row q tiles and 64-key kv
+# tiles at 127 / 128 / 129 rows and 63 / 64 / 65 keys
+HD256_EDGES = [
+    (True, None, 0, None, 127, 127),
+    (True, None, 0, None, 128, 128),
+    (True, None, 0, None, 129, 129),
+    (False, None, 0, None, 128, 63),
+    (False, None, 0, 0.2, 129, 64),           # a non-default scale
+    (True, None, 0, None, 127, 65),
+    (True, None, 64, None, 65, 129),          # Sq < Skv, q_offset
+    (True, None, 64, None, 1, 65),            # one query at the cache's end
+    (True, 40, 0, None, 129, 129),            # window ends inside a tile
+    (True, 30, 0, None, 127, 63),             # rows past 92 see no key
+]
+
+
+@pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", HD256_EDGES)
+def test_hd256_kernel_matches_plain_at_its_tile_edges(dev, causal, window,
+                                                      q_offset, scale, sq,
+                                                      skv):
+    """bf16 at hd 256 (the wgmma kernel without a producer warpgroup): the
+    output within 2e-2 (max abs) and lse within 1e-4 (relative max) of
+    the plain twin's, on the rows that see a key."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    q, k, v = _qkv(dev, 2, sq, 3, 256, torch.bfloat16, skv)
+    seen = _seen(sq, skv, causal, window, q_offset, dev)
+    got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    want, want_lse = ref.flash_fwd(q, k, v, min(512, skv), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float())[:, seen].abs().max().item() <= 2e-2
+    lse_err = ((lse - want_lse)[:, :, seen].abs().max()
+               / want_lse[:, :, seen].abs().max())
+    assert lse_err.item() <= 1e-4
+
+
 def test_kernel_reads_strided_q(dev):
     q, k, v = _qkv(dev, 1, 256, 2, 64, torch.bfloat16)
     got = fa.flash_attention(q[:, 128:], k, v, q_offset=128)
@@ -77,7 +125,7 @@ def test_kernel_reads_strided_q(dev):
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_kernel_reads_strided_kv(dev, hd):
     """k and v as every other head of wider tensors, each a token slice:
     the tensor maps take the caller's strides."""
@@ -112,18 +160,6 @@ BWD_EDGES = [
     (True, 30, 0, None, 127, 63),             # rows past 92 see no key
     (True, 100, 28, None, 64, 127),
 ]
-
-
-def _seen(sq, skv, causal, window, q_offset, dev):
-    """(Sq,) bool: the query rows that see at least one key."""
-    q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
-    k_pos = torch.arange(skv, device=dev)[None, :]
-    vis = torch.ones(sq, skv, dtype=torch.bool, device=dev)
-    if causal:
-        vis &= q_pos >= k_pos
-    if window is not None:
-        vis &= q_pos - k_pos < window
-    return vis.any(dim=1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

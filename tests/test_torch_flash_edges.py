@@ -5,7 +5,8 @@ kernel's tiles end.
 (tests/test_torch_cuda.py, chip_smoke.py), so it must be right at the edges
 of the kernel's 128-row q tiles and 64 / 128-key kv tiles: lengths of 1,
 127, 129 and 255, Sq < Skv with a q_offset, a window that ends inside a
-tile, Skv below one kv tile, hd 128 and a non-default scale.  Inputs come
+tile, Skv below one kv tile, hd 128 and 256 (Gemma-7B's heads, the wgmma
+kernel without a producer warpgroup) and a non-default scale.  Inputs come
 from a numpy seed and go to both frameworks; fp32 at 2e-5.
 """
 
@@ -37,7 +38,7 @@ EDGES = [
 ]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", EDGES)
 def test_plain_twin_matches_jax_at_tile_edges(causal, window, q_offset,
                                               scale, sq, skv, hd):

@@ -7,6 +7,7 @@ tokens come from a numpy seed.  Bars: forward and prefill logits within
 (the bar tests/test_models.py uses for decode against forward).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -27,13 +28,30 @@ from repro_torch.models import lm as tlm
 DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
 
 
+# Gemma-7B's block at head dim 256, narrow and shallow: GeGLU, tied
+# embeddings, sqrt(d) embedding scale and logit cap 30 from its reduced
+# config, two heads of 256
+GEMMA_HD256 = dict(name="gemma-hd256-smoke", n_layers=2, d_model=512,
+                   n_heads=2, n_kv_heads=2, head_dim=256, d_ff=1024,
+                   vocab=512)
+
+
+def _config(package, arch):
+    """`arch`'s reduced config from `package` (the JAX or the port's
+    configs), or the Gemma-shaped hd-256 config for "gemma-hd256"."""
+    if arch == "gemma-hd256":
+        return dataclasses.replace(package.get("gemma-7b", reduced=True),
+                                   **GEMMA_HD256)
+    return package.get(arch, reduced=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _models(arch):
     """(JAX model, JAX params, port model, port params) for a reduced
     config; read-only, shared across tests."""
-    jm = jlm.build(jconfigs.get(arch, reduced=True))
+    jm = jlm.build(_config(jconfigs, arch))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    tm = tlm.build(tconfigs.get(arch, reduced=True))
+    tm = tlm.build(_config(tconfigs, arch))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
@@ -87,10 +105,12 @@ def test_teacher_forced_decode_matches_jax():
         assert _rel(got, jlogits) <= 3e-2, i
 
 
-def test_prefill_at_flash_threshold_matches_jax():
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma-hd256"])
+def test_prefill_at_flash_threshold_matches_jax(arch):
     """Prompt of FLASH_THRESHOLD tokens: both frameworks take their flash
-    branch (the JAX chunked reference, the port's plain twin)."""
-    jm, jp, tm, tp = _models("tinyllama-1.1b")
+    branch (the JAX chunked reference, the port's plain twin), at head dim
+    64 (TinyLlama) and 256 (Gemma-shaped)."""
+    jm, jp, tm, tp = _models(arch)
     s = ops.FLASH_THRESHOLD
     tokens = _tokens((1, s), tm.cfg.vocab, seed=3)
     want, _ = jax.jit(jm.prefill)(jp, jnp.asarray(tokens),

@@ -5,14 +5,16 @@
 
 Builds variants of `src/repro_torch/kernels/csrc/flash_attention.cu`, each
 with one part of the kernel taken out by a text edit of the source, and times
-each at the serving path's shape (4, 2048, 32, 64) and at hd 128
-(4, 2048, 40, 128), bf16, causal, with CUDA events (three runs of 20
-launches after a warm-up).  Only `kernel` computes the right answer; its
-max abs error against the plain twin is printed.  The variants:
+each at the serving path's shape (4, 2048, 32, 64), at hd 128
+(4, 2048, 40, 128) and at Gemma-7B's hd 256 (2, 2048, 16, 256), bf16,
+causal, with CUDA events (three runs of 20 launches after a warm-up).
+Only `kernel` computes the right answer; its max abs error against the
+plain twin is printed.  The variants:
 
   kernel       the source as it is
   no_softmax   P = S: no scaling, masking, max, exponentials or sums
-  gemm_only    no_softmax, and no K/V loads: the products on stale tiles
+  gemm_only    no_softmax, and no K/V loads (nor, at hd 256, the
+               consumers' refills): the products on stale tiles
   no_pingpong  the warpgroups issue their products without taking turns
   no_exp2      2^x replaced by one FMA (the SFUs idle)
   double       every block walks its KV tiles twice: the extra time over
@@ -42,7 +44,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 SRC = (build.CSRC / "flash_attention.cu").read_text()
 OUT = build.BUILD_DIR / "ablation"
-SHAPES = [(4, 2048, 32, 64), (4, 2048, 40, 128)]
+SHAPES = [(4, 2048, 32, 64), (4, 2048, 40, 128), (2, 2048, 16, 256)]
+REFILL = "it + C::kStages < n_tiles && lane == 0"   # hd 256's consumers
 PRODUCER_LOOP = ("  for (int it = 0; it < n_tiles; ++it) {\n"
                  "    const int st = it % C::kStages, k0 = (lo + it) * C::kBK;")
 
@@ -64,6 +67,7 @@ def variants() -> dict[str, str]:
                      PRODUCER_LOOP.replace("it < n_tiles", "it < 0"), 1)
     gemm_only = edit(gemm_only, r"\n\s*mbar_wait\(base \+ C::k[KV]Full[^\n]*",
                      "", 4)
+    gemm_only = edit(gemm_only, lit(REFILL), "false", 1)
     no_pingpong = edit(SRC, r"\n\s*(if \([^\n]*\) )?bar_(sync|arrive)\([^\n]*",
                        "", 5)
     no_exp2 = edit(SRC, lit("s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);"),
@@ -83,7 +87,13 @@ def variants() -> dict[str, str]:
             ("const int pst = (n_tiles - 1) % C::kStages;",
              "const int pst = (2 * n_tiles - 1) % C::kStages;"),
             ("((n_tiles - 1) / C::kStages) & 1",
-             "((2 * n_tiles - 1) / C::kStages) & 1")]:
+             "((2 * n_tiles - 1) / C::kStages) & 1"),
+            (REFILL, REFILL.replace("n_tiles", "2 * n_tiles")),
+            # hd 256: thread 0's first stages, in the doubled producer loop
+            ("lo, min(n_tiles, C::kStages))",
+             "lo, min(n_tiles, C::kStages / 2))"),
+            ("(lo + it + C::kStages) * kBK",
+             "(lo + (it + C::kStages) % n_tiles) * kBK")]:
         double = edit(double, lit(old), new, 1)
     return {"kernel": SRC, "no_softmax": no_softmax, "gemm_only": gemm_only,
             "no_pingpong": no_pingpong, "no_exp2": no_exp2, "double": double}
