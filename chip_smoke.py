@@ -44,9 +44,11 @@ Phases, each fatal on failure:
      (and for flash attention `scaled_dot_product_attention`, a yardstick
      the port never calls, and the achieved TFLOP/s) at the main path's
      shape, for flash attention also at hd 128 (4, 2048, 40, 128) and
-     Gemma-7B's hd 256 (2, 2048, 16, 256), for the flash backward beside
-     SDPA's backward (also at hd 128 and 256) with the profiler's device
-     time of each of its three launches, for wkv6 also the decode step's
+     Gemma-7B's hd 256 (2, 2048, 16, 256) and, in the Gemma-7B phase, at
+     the shape its prefill gives the kernel (4, 2048, 16, 256), for the
+     flash backward beside SDPA's backward (also at hd 128, and at hd 256
+     in the Gemma-7B phase) with the profiler's device time of each of its
+     three launches, for wkv6 also the decode step's
      call (4, 1, 40, 64) (device time from the profiler), prefill ms and
      decode ms per token;
   5. torch.profiler's device time for one prefill (with the flash
@@ -122,10 +124,12 @@ CASES = [
     (2, 129, 129, 3, 256, True, 40, 0, None),        # window ends in a tile
     (2, 127, 63, 3, 256, True, 30, 0, None),         # rows past 92 see none
     (2, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's heads
+    (4, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's prefill
     (4, 2048, 2048, 32, 64, True, None, 0, None),   # the main path's shape
 ]
 MAIN = CASES[-1]
-GEMMA = CASES[-2]
+GEMMA = CASES[-2]      # the shape the Gemma-7B serve gives the kernel
+GEMMA_B2 = CASES[-3]   # the same heads at batch 2
 # The backward's own edges, bf16 at hd 64 and 128 (the wgmma kernels): its
 # 128- (hd 64) or 64-row (hd 128) q steps and 128-key tiles (dK / dV), its
 # 128-row q tiles and 64-key tiles (dQ), at 63 / 64 / 65 / 127 / 128 / 129;
@@ -752,14 +756,13 @@ def serve_numbers(card, cfg, lm, fa) -> None:
         report_busy(f"{cfg.name} decode step", device_kernels(three_steps),
                     decode_ms, 3)
     del params, cache, got, want
-    torch.cuda.empty_cache()
 
 
-def dense_path(card, configs, lm, serve, fa, counters, arch) -> int:
-    """Phases 3-5 for a dense model: `serve.main` at full width with every
+def dense_serve(card, configs, serve, counters, arch) -> int:
+    """Phase 3 for a dense model: `serve.main` at full width with every
     count set to 0 just before and read just after (one flash forward per
-    layer, nothing else; tokens in range), then `serve_numbers`.  Returns
-    the serve's flash launches."""
+    layer, nothing else; tokens in range).  Returns the serve's flash
+    launches."""
     cfg = configs.get(arch)
     toks, counts, serve_s = serve_counted(serve, arch, counters)
     print(f"serve {arch}: {serve_s:.3f}s end to end (weights init included), "
@@ -770,8 +773,6 @@ def dense_path(card, configs, lm, serve, fa, counters, arch) -> int:
              f"per layer ({cfg.n_layers}) and nothing else")
     check_tokens(toks, cfg.vocab, arch)
     del toks
-    torch.cuda.empty_cache()
-    serve_numbers(card, cfg, lm, fa)
     return counts["flash_attention"]
 
 
@@ -1097,16 +1098,18 @@ def main() -> int:
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd,
                 "wkv6": wkv.wkv6}
-    launches = dense_path(card, configs, lm, serve, fa, counters, ARCH)
+    launches = dense_serve(card, configs, serve, counters, ARCH)
 
     # 4a. kernel timings at the main path's shape, at hd 128 and hd 256
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(fa, MAIN, card)
     time_flash(fa, HD128, card)
-    gemma_t = time_flash(fa, GEMMA, card)
+    time_flash(fa, GEMMA_B2, card)
     bwd = time_flash_bwd(fa, ref, MAIN, card)
     time_flash_bwd(fa, ref, HD128, card)
-    time_flash_bwd(fa, ref, GEMMA, card)
     bwd_parts(fa, MAIN, card)
+
+    # 4b and 5 for TinyLlama-1.1B
+    serve_numbers(card, configs.get(ARCH), lm, fa)
 
     # 4c. the reduced model on the GPU against the CPU (non-kernel layers)
     dev = torch.device("cuda")
@@ -1125,6 +1128,7 @@ def main() -> int:
     if rel_small > 2e-2:
         fail(f"reduced forward on the GPU differs from the CPU: {rel_small}")
     del sp, sp_gpu, cpu_logits, gpu_logits
+    torch.cuda.empty_cache()
 
     # 3-4 for the training main path, and C1's reduced configs
     trained = train_path(card, configs, train, counters)
@@ -1135,11 +1139,15 @@ def main() -> int:
     wkv_entry = rwkv_path(card, configs, lm, serve, wkv, counters)
     wkv_entry["max_abs_err"] = wkv_main_err
 
-    # 3-5 for Gemma-7B (hd 256), last: the paths above run in the order
-    # of earlier runs, so their host-bound times stay comparable, and its
-    # 17 GB of params never share the card with training's state
-    gemma_launches = dense_path(card, configs, lm, serve, fa, counters,
-                                GEMMA_ARCH)
+    # 3-5 for Gemma-7B (hd 256), last: the phases above run as they ran
+    # before it was added, so their host-bound times stay comparable, and
+    # its 17 GB of params never share the card with training's state.  4a
+    # times the forward at the shape its prefill gives the kernel, and the
+    # SIMT backward (on no path) at batch 2.
+    gemma_launches = dense_serve(card, configs, serve, counters, GEMMA_ARCH)
+    gemma_t = time_flash(fa, GEMMA, card)
+    time_flash_bwd(fa, ref, GEMMA_B2, card)
+    serve_numbers(card, configs.get(GEMMA_ARCH), lm, fa)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -18,7 +18,9 @@
 // prefill.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py):
 // at (2, 2048, 16, 256) causal this kernel takes 0.1986 ms (346 TFLOP/s)
 // against 0.1484 ms for SDPA and a bound of 0.0695 ms; the SIMT path it
-// replaced there took 6.52 ms.  The softmax's 2^x runs
+// replaced there took 6.52 ms.  At Gemma-7B's prefill (4, 2048, 16, 256)
+// it takes 0.3472 ms (396 TFLOP/s) against 0.2566 ms for SDPA and a bound
+// of 0.1390 ms.  The softmax's 2^x runs
 // on the SFUs, 16 per clock per SM: a 128 x 128 tile needs ~0.56 us of
 // them, about as long as its two products need on the tensor cores.
 //
