@@ -17,9 +17,10 @@ Phases, each fatal on failure:
      backward's dq, dk and dv against autograd of the plain twin within
      fp32 2e-5 / bf16 2e-2 (relative max), on rows that see a key (a case
      with rows that see none checks that the kernel's dq stays finite
-     there), over CASES and the wgmma backward's own tile edges
-     (BWD_EDGES), and two backward calls bitwise equal at the main shape
-     and at hd 128; wkv6 over WKV_CASES (one with rows that take the
+     there), over CASES and the wgmma backward's own tile edges at hd 64,
+     128 and 256 (BWD_EDGES), and two backward calls bitwise equal at the
+     main shape, at hd 128 and at Gemma-7B's training shape (2, 2048, 16,
+     256); wkv6 over WKV_CASES (one with rows that take the
      kernel's 4-byte copy path) and a state-carry case, y and the final
      state within |got - want| <= 1e-4 + 1e-4 |want| elementwise, the main
      shape included;
@@ -35,7 +36,11 @@ Phases, each fatal on failure:
      losses), then one step through the kernels against one through the
      plain twins from the same params and batch, and the reduced dense
      configs at 2048 tokens (forward and one train step) through the
-     kernels;
+     kernels; last, after the Gemma-7B serve, the same training phase on
+     Gemma-7B at full width (every published width; its one reduction is
+     depth, 6 of 28 layers, GEMMA_TRAIN_LAYERS, as fp32 masters with
+     AdamW for all 28 need ~136 GB) at batch 2 x seq 2048: exactly 12
+     flash forwards and 6 flash backwards (head dim 256) a step;
   4. per model: prefill logits through the kernel against those through
      the plain twin (relative max error <= 2e-2; for RWKV6-3B each block on
      the same input, and the logits within max(2e-2, 1.5 x the plain
@@ -46,15 +51,16 @@ Phases, each fatal on failure:
      shape, for flash attention also at hd 128 (4, 2048, 40, 128) and
      Gemma-7B's hd 256 (2, 2048, 16, 256) and, in the Gemma-7B phase, at
      the shape its prefill gives the kernel (4, 2048, 16, 256), for the
-     flash backward beside SDPA's backward (also at hd 128, and at hd 256
-     in the Gemma-7B phase) with the profiler's device time of each of its
-     three launches, for wkv6 also the decode step's
+     flash backward beside SDPA's backward (also at hd 128, and in the
+     Gemma-7B phase at its training shape (2, 2048, 16, 256)) with the
+     profiler's device time of each of its three launches (at the main
+     shape and at hd 256), for wkv6 also the decode step's
      call (4, 1, 40, 64) (device time from the profiler), prefill ms and
      decode ms per token;
   5. torch.profiler's device time for one prefill (with the flash
-     forward's share), three decode steps and one training step, as a
-     share of the timings above, with the heaviest kernels (and the flash
-     backward's share of the step).
+     forward's share), three decode steps and one training step of each
+     trained model, as a share of the timings above, with the heaviest
+     kernels (and the flash backward's share of the step).
 Prints one `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, without that last line,
 when there is no CUDA device or any phase fails.
@@ -62,6 +68,7 @@ when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -130,13 +137,15 @@ CASES = [
 MAIN = CASES[-1]
 GEMMA = CASES[-2]      # the shape the Gemma-7B serve gives the kernel
 GEMMA_B2 = CASES[-3]   # the same heads at batch 2
-# The backward's own edges, bf16 at hd 64 and 128 (the wgmma kernels): its
-# 128- (hd 64) or 64-row (hd 128) q steps and 128-key tiles (dK / dV), its
-# 128-row q tiles and 64-key tiles (dQ), at 63 / 64 / 65 / 127 / 128 / 129;
-# causal with q_offset, a window that ends inside a tile, rows that see no
-# key.
+# The backward's own edges, bf16 at hd 64, 128 and 256 (the wgmma
+# kernels): its 128- (hd 64) or 64-row (hd 128, 256) q steps and 128-key
+# (64 at hd 256) tiles (dK / dV), its 128-row q tiles and 64-key tiles
+# (dQ), at 63 / 64 / 65 / 127 / 128 / 129; rings that wrap (three q steps,
+# five key tiles: hd 256 has 2 stages of Q and dO, and 2 of K and 1 of V in
+# dQ); causal with q_offset, a window that ends inside a tile, rows that
+# see no key.
 BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
-             for hd in (64, 128)
+             for hd in (64, 128, 256)
              for sq, skv, causal, window, q_offset, scale in [
                  (63, 63, True, None, 0, None),
                  (64, 64, True, None, 0, None),
@@ -149,16 +158,24 @@ BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
                  (129, 63, False, None, 0, None),
                  (129, 65, True, 40, 0, None),       # window ends in a tile
                  (127, 63, True, 30, 0, None),       # rows past 92 see none
-                 (64, 127, True, 100, 28, None)]]
+                 (64, 127, True, 100, 28, None),
+                 (192, 192, True, None, 0, None),    # three q steps
+                 (129, 257, False, None, 0, None)]]  # five key tiles and one
 # Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
 BWD_PARTS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
 TRAIN_STEPS = 3
-# Relative L2 error per gradient leaf of a TinyLlama-1.1B training step,
-# kernels against plain twins from the same params and batch.  Activations
-# are bf16, so the two differ by where bf16 rounds: measured 1.9e-2
-# (median) and 2.3e-2 (worst of 201 leaves) on the H100; on the CPU the
+# Gemma-7B trained at every published width, its depth cut to what one
+# 80 GB card holds: 2.45 B fp32 params with grads, m and v ~39 GB, and the
+# fp32 logits of 2 x 2048 tokens over 256000 entries 4.2 GB a copy
+GEMMA_TRAIN_LAYERS = 6
+GEMMA_TRAIN_BATCH = 2
+# Relative L2 error per gradient leaf of a training step, kernels against
+# plain twins from the same params and batch.  Activations are bf16, so
+# the two differ by where bf16 rounds: measured on the H100 for
+# TinyLlama-1.1B 1.9e-2 (median) and 2.3e-2 (worst of 201 leaves), for
+# Gemma-7B at 6 layers 1.2e-2 and 2.0e-2 (of 56); on the CPU the
 # port's own gradients move by up to 2.0e-2 between bf16 and fp32
 # activations (reduced TinyLlama).  The bar is about twice that noise.
 GRAD_BAR = 5e-2
@@ -404,7 +421,8 @@ def check_forward(fa, ref, case, dtype, q, k, v, seen) -> float:
 def check_kernels(fa, ref) -> dict:
     """Phase 2 for flash attention, forward (output and lse) and backward;
     returns {case: (forward max abs error, backward max abs error)} for
-    bf16 at the main path's shape and at Gemma-7B's."""
+    bf16 at the main path's shape and at Gemma-7B's serve and training
+    shapes."""
     errs = {}
     for case in CASES:
         seen = seen_rows(case)
@@ -412,7 +430,7 @@ def check_kernels(fa, ref) -> dict:
             q, k, v = qkv(case, dtype)
             err = check_forward(fa, ref, case, dtype, q, k, v, seen)
             _, bwd_err = check_backward(fa, case, dtype, q, k, v, seen)
-            if case in (MAIN, GEMMA) and dtype == torch.bfloat16:
+            if case in (MAIN, GEMMA, GEMMA_B2) and dtype == torch.bfloat16:
                 errs[case] = (err, bwd_err)
             del q, k, v
     # strided k and v: every other head of wider tensors, token slices of
@@ -433,7 +451,7 @@ def check_kernels(fa, ref) -> dict:
     for case in BWD_EDGES:
         q, k, v = qkv(case, torch.bfloat16)
         check_backward(fa, case, torch.bfloat16, q, k, v, seen_rows(case))
-    for case in (MAIN, HD128):
+    for case in (MAIN, HD128, GEMMA_B2):
         check_deterministic(fa, case)
     return errs
 
@@ -544,11 +562,11 @@ def bwd_parts(fa, case, card) -> None:
           f"launch (profiler): {', '.join(parts)} [{card}]", flush=True)
 
 
-def train_batches(cfg, n: int, seq: int = PROMPT) -> list:
+def train_batches(cfg, n: int, batch: int = BATCH, seq: int = PROMPT) -> list:
     """Batches 0..n-1 of the training data pipeline, on the card."""
     from repro_torch.data import DataConfig, SyntheticTokens
     data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                      global_batch=BATCH))
+                                      global_batch=batch))
     return [{k: torch.from_numpy(a).to("cuda", torch.long)
              for k, a in data.batch(i).items()} for i in range(n)]
 
@@ -562,17 +580,16 @@ def read_counts(counters) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
 
 
-def train_path(card, configs, train, counters) -> dict:
-    """Phase 3 for training: `build_trainer` on TinyLlama-1.1B at full
-    width, a warm-up step, then TRAIN_STEPS steps, each with the counts set
-    to 0 just before it and read just after (and checked).  Returns the
-    numbers for the report: the median step time and one step's launches,
-    as the serve phases report one serve's."""
-    cfg = configs.get(ARCH)
+def train_path(card, cfg, batch: int, train, counters) -> dict:
+    """Phase 3 for training: `build_trainer` on `cfg` at batch x PROMPT, a
+    warm-up step, then TRAIN_STEPS steps, each with the counts set to 0
+    just before it and read just after (and checked).  Returns the numbers
+    for the report: the median step time and one step's launches, as the
+    serve phases report one serve's."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, step, _ = train.build_trainer(cfg, device="cuda", remat="full")
-    batches = train_batches(cfg, TRAIN_STEPS + 2)
+    batches = train_batches(cfg, TRAIN_STEPS + 2, batch)
     state, m = step(state, batches[0])
     losses = [float(m["loss"])]
     setup_s = time.perf_counter() - t0
@@ -586,28 +603,27 @@ def train_path(card, configs, train, counters) -> dict:
         per_step.append(read_counts(counters))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = sorted(times)[len(times) // 2]
-    print(f"train {ARCH} batch {BATCH} x seq {PROMPT}, fp32 masters, remat "
-          f"full: setup and warm-up step {setup_s:.3f}s; steps "
-          f"{', '.join(f'{t:.3f}' for t in times)} ms (median {step_ms:.3f} "
-          f"ms, {BATCH * PROMPT * 1e3 / step_ms:.1f} tokens/s); peak memory "
-          f"{peak_gb:.3f} GB; losses {losses}; launches per step "
-          f"{per_step} [{card}]",
-          flush=True)
+    print(f"train {cfg.name} ({cfg.n_layers} layers) batch {batch} x seq "
+          f"{PROMPT}, fp32 masters, remat full: setup and warm-up step "
+          f"{setup_s:.3f}s; steps {', '.join(f'{t:.3f}' for t in times)} ms "
+          f"(median {step_ms:.3f} ms, {batch * PROMPT * 1e3 / step_ms:.1f} "
+          f"tokens/s); peak memory {peak_gb:.3f} GB; losses {losses}; "
+          f"launches per step {per_step} [{card}]", flush=True)
     want = {"flash_attention": 2 * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
     if any(n != want for n in per_step):
-        fail(f"train {ARCH} launched {per_step}; want {want} a step (a "
+        fail(f"train {cfg.name} launched {per_step}; want {want} a step (a "
              "forward per layer, its recompute, and a backward per layer)")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train {ARCH}: a loss is not finite: {losses}")
+        fail(f"train {cfg.name}: a loss is not finite: {losses}")
     rows = device_kernels(lambda: step(state, batches[-1]))
-    report_busy("train step", rows, step_ms, 1, top=12)
+    report_busy(f"{cfg.name} train step", rows, step_ms, 1, top=12)
     bwd_rows = [e for e in rows if "flash_bwd" in e.key]
     if bwd_rows:   # the flash backward's share of the step, by launch
         bwd_ms = sum(e.self_device_time_total for e in bwd_rows) / 1e3
-        print(f"train step: the flash backward {bwd_ms:.3f} ms of device "
-              f"time, {100 * bwd_ms / step_ms:.1f} % of the {step_ms:.3f} ms "
-              "step (" + ", ".join(
+        print(f"{cfg.name} train step: the flash backward {bwd_ms:.3f} ms "
+              f"of device time, {100 * bwd_ms / step_ms:.1f} % of the "
+              f"{step_ms:.3f} ms step (" + ", ".join(
                   f"{re.search(r'flash_bwd_[a-z_0-9]+(<[^>]*>)?', e.key)[0]} "
                   f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                   for e in bwd_rows) + f") [{card}]", flush=True)
@@ -616,19 +632,18 @@ def train_path(card, configs, train, counters) -> dict:
     return {"step_ms": step_ms, "launches": per_step[0]}
 
 
-def train_vs_plain(card, configs, lm) -> None:
+def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     """Phase 4 for training: from the same fp32 params and batch, the loss
-    and every gradient leaf of one step through the kernels against the
-    same through the plain twins (autograd of `ref.flash_attention_ref`).
-    The loss within 2e-2 relative; each leaf's relative L2 error within
-    GRAD_BAR (see there)."""
-    cfg = configs.get(ARCH)
+    and every gradient leaf of one step of `cfg` through the kernels
+    against the same through the plain twins (autograd of
+    `ref.flash_attention_ref`).  The loss within 2e-2 relative; each
+    leaf's relative L2 error within GRAD_BAR (see there)."""
     params = lm.build(cfg).init(torch.Generator("cuda").manual_seed(0),
                                 dtype=torch.float32)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    batch = train_batches(cfg, 1)[0]
+    batch = train_batches(cfg, 1, batch_size)[0]
     got = {}
     for force in (None, "plain"):
         loss = lm.build(cfg, force=force, remat="full").loss(params, batch)
@@ -638,15 +653,17 @@ def train_vs_plain(card, configs, lm) -> None:
     l2 = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
           for a, b in zip(gk, gp)]
     worst = max(range(len(l2)), key=l2.__getitem__)
-    print(f"train step kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+    print(f"{cfg.name} train step kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} "
           f"(rel {loss_rel:.3e}, bar 2e-2); gradient leaves: worst relative "
           f"L2 error {l2[worst]:.3e} (leaf {worst} of {len(l2)}, bar "
           f"{GRAD_BAR}), median {sorted(l2)[len(l2) // 2]:.3e}, worst "
           f"relative max error {max(rel_err(a, b) for a, b in zip(gk, gp)):.3e} "
           f"[{card}]", flush=True)
     if loss_rel > 2e-2 or l2[worst] > GRAD_BAR:
-        fail(f"a training step through the kernels differs from the plain "
-             f"twins: loss {loss_rel}, gradient leaf {worst} {l2[worst]}")
+        fail(f"a {cfg.name} training step through the kernels differs from "
+             f"the plain twins: loss {loss_rel}, gradient leaf {worst} "
+             f"{l2[worst]}")
     del params, leaves, gk, gp, got
     torch.cuda.empty_cache()
 
@@ -1131,8 +1148,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3-4 for the training main path, and C1's reduced configs
-    trained = train_path(card, configs, train, counters)
-    train_vs_plain(card, configs, lm)
+    trained = train_path(card, configs.get(ARCH), BATCH, train, counters)
+    train_vs_plain(card, configs.get(ARCH), BATCH, lm)
     reduced_dense(card, configs, lm, train, counters)
 
     # 3-5 for the RWKV main path
@@ -1143,15 +1160,32 @@ def main() -> int:
     # before it was added, so their host-bound times stay comparable, and
     # its 17 GB of params never share the card with training's state.  4a
     # times the forward at the shape its prefill gives the kernel, and the
-    # SIMT backward (on no path) at batch 2.
+    # backward at the shape its training gives the kernel.  Then Gemma-7B
+    # trains at full width and GEMMA_TRAIN_LAYERS deep, through the hd-256
+    # forward (with lse) and backward.
     gemma_launches = dense_serve(card, configs, serve, counters, GEMMA_ARCH)
     gemma_t = time_flash(fa, GEMMA, card)
-    time_flash_bwd(fa, ref, GEMMA_B2, card)
+    gemma_bwd = time_flash_bwd(fa, ref, GEMMA_B2, card)
+    bwd_parts(fa, GEMMA_B2, card)
     serve_numbers(card, configs.get(GEMMA_ARCH), lm, fa)
+    torch.cuda.empty_cache()
+    gemma_cfg = dataclasses.replace(configs.get(GEMMA_ARCH),
+                                    n_layers=GEMMA_TRAIN_LAYERS)
+    print(f"train {GEMMA_ARCH}: every published width, depth cut to "
+          f"{GEMMA_TRAIN_LAYERS} of {configs.get(GEMMA_ARCH).n_layers} "
+          "layers (fp32 masters and AdamW for all of them need ~136 GB)",
+          flush=True)
+    gemma_trained = train_path(card, gemma_cfg, GEMMA_TRAIN_BATCH, train,
+                               counters)
+    train_vs_plain(card, gemma_cfg, GEMMA_TRAIN_BATCH, lm)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:78"}
+    # no TPU kernel: the backward replaces the jnp VJP of flash_attention_ref
+    bwd_src = {"route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "replaces": "src/repro/kernels/ref.py:106"}
     print(json.dumps({"kernels": [{
         "name": "flash_attention", **fwd_src,
         "launches": launches, "max_abs_err": errs[MAIN][0], "ms": ms,
@@ -1162,13 +1196,16 @@ def main() -> int:
         "launches": gemma_launches, "max_abs_err": errs[GEMMA][0],
         "ms": gemma_t[0], "plain_ms": gemma_t[1], "bound_ms": gemma_t[3],
         "bound_by": gemma_t[4], "library_ms": gemma_t[2]}, {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        # no TPU kernel: it replaces the jnp VJP of flash_attention_ref
-        "replaces": "src/repro/kernels/ref.py:106",
+        "name": "flash_attention_bwd", **bwd_src,
         "launches": trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[MAIN][1], "ms": bwd[0], "plain_ms": bwd[1],
-        "bound_ms": bwd[3], "bound_by": bwd[4], "library_ms": bwd[2]},
+        "bound_ms": bwd[3], "bound_by": bwd[4], "library_ms": bwd[2]}, {
+        # the same wrapper and source at head dim 256: Gemma-7B's training
+        "name": "flash_attention_bwd_hd256", **bwd_src,
+        "launches": gemma_trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": errs[GEMMA_B2][1], "ms": gemma_bwd[0],
+        "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
+        "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
         wkv_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

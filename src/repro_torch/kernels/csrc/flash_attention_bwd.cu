@@ -25,37 +25,63 @@
 // ds k, ds^T q, p^T dO) are 2.5 x the forward's ~68.8 GFLOP, ~172 GFLOP,
 // ~0.1738 ms at 989 TFLOP/s; q, k, v, o, dO read and dq, dk, dv written are
 // ~270 MB, ~0.08 ms at 3.35 TB/s.  So it is bound by tensor-core operations
-// at ~0.17 ms (~0.43 ms at Qwen3-14B's (4, 2048, 40, 128)).
+// at ~0.17 ms (~0.43 ms at Qwen3-14B's (4, 2048, 40, 128)).  Gemma-7B's
+// training shape (2, 2048, 16, 256) has the same 171.9 GFLOP and bound.
 //
-// bf16 design at hd 64 and 128 (the training path): three launches, no
-// atomics, so the result is deterministic.
+// bf16 design at hd 64, 128 and 256 (the training paths): three launches,
+// no atomics, so the result is deterministic.
 //  1. delta = rowsum(dO * o): one warp per row (below, shared with SIMT).
-//  2. dK / dV (flash_bwd_dkdv_bf16): one block per (b*h, 128 keys), two
-//     consumer warpgroups of 64 keys each and no producer warpgroup, 256
-//     threads.  K and V of the tile arrive once by TMA and stay in shared
-//     memory; Q and dO stream in steps of 128 (hd 64) or 64 (hd 128) q rows
-//     through a TMA ring of 3 stages (128-byte swizzle, the forward's 4-D
-//     maps), each with its rows' lse * log2(e) and delta staged beside it
-//     by one warp.  The q walk is q_range (flash_common.cuh).  Per step a
-//     warpgroup issues S^T = K Q^T and dP^T = V dO^T (wgmma SS, m64n128k16
-//     or m64n64k16, Q and dO K-major as the forward's K); P^T = exp2(S^T scale log2 e - lse2) and dS^T = P^T (dP^T -
-//     delta) are computed in the accumulator layout, whose columns are q
-//     rows (each thread reads the lse2 and delta of its columns 2 (lane % 4)
-//     + 8 j from the staged vectors), and pack in place into bf16 A
-//     fragments; dV += P^T dO and dK += dS^T Q are wgmma RS with dO and Q read
-//     MN-major from the same stage, as the forward reads V.  Every product
-//     is waited for in the step that issued it.  The last of the 8 consumer
-//     warps to release a stage (a counter in shared memory) refills it with
-//     step + 3.  dK and dV stay in fp32 registers (2 x 64 a thread at hd
-//     128) and are stored once as bf16, dK times scale.
+//  2. dK / dV (flash_bwd_dkdv_bf16): one block per (b*h, kBN keys), two
+//     consumer warpgroups and no producer warpgroup, 256 threads.  K and V
+//     of the tile arrive once by TMA and stay in shared memory; Q and dO
+//     stream in steps of 128 (hd 64) or 64 (hd 128, 256) q rows through a
+//     TMA ring of 3 stages (2 at hd 256; 128-byte swizzle, the forward's
+//     4-D maps), each with its rows' lse * log2(e) and delta staged beside
+//     it by one warp.  The q walk is q_range (flash_common.cuh).  Per step
+//     a warpgroup issues S^T = K Q^T and dP^T = V dO^T (wgmma SS,
+//     m64n128k16 or m64n64k16, Q and dO K-major as the forward's K);
+//     P^T = exp2(S^T scale log2 e - lse2) and dS^T = P^T (dP^T - delta) are
+//     computed in the accumulator layout, whose columns are q rows (each
+//     thread reads the lse2 and delta of its columns 2 (lane % 4) + 8 j
+//     from the staged vectors), and pack in place into bf16 A fragments;
+//     dV += P^T dO and dK += dS^T Q are wgmma RS with dO and Q read MN-major
+//     from the same stage, as the forward reads V.  Every product is waited
+//     for in the step that issued it.  The last of the 8 consumer warps to
+//     release a stage (a counter in shared memory) refills it.  dK and dV
+//     stay in fp32 registers and are stored once as bf16, dK times scale.
+//     At hd 64 / 128 a block owns 128 keys, 64 a warpgroup, and all of hd
+//     (dK and dV 2 x 64 fp32 a thread at hd 128).  At hd 256 the same split
+//     would need 2 x 128 for dK and dV alone, so a block owns 64 keys and
+//     its warpgroups split hd instead: warpgroup w accumulates columns
+//     [128 w, 128 w + 128) of dK and dV (2 x 64 fp32 a thread, as at hd
+//     128), and both need all of P^T and dS^T for the 64 keys.  Warpgroup
+//     0 computes S^T and P^T, warpgroup 1 dP^T and dS^T (each product once,
+//     over all 256 columns); P^T crosses to warpgroup 1 in fp32 and dS^T
+//     comes back as bf16 A fragments, through 24 KB of shared memory in the
+//     accumulator layout, behind named barriers 1 and 2.  Both then issue
+//     their halves of dV += P^T dO and dK += dS^T Q.  (With both
+//     warpgroups computing S^T and dP^T instead, 9 products a pair and no
+//     exchange, dK / dV took 0.4272 ms at (2, 2048, 16, 256) against
+//     0.3626 ms; chip_smoke.py's profile.)
 //  3. dQ (flash_bwd_dq_bf16): one block per (b*h, 128 q rows), heaviest
-//     first, two consumer warpgroups of 64 rows and the forward's producer
-//     warpgroup (384 threads).  Q and dO stay resident; K and V stream in
-//     64-key tiles through a ring of 3 (hd 64) or 2 (hd 128) stages over the
-//     forward's kv_range.  Per tile S = Q K^T and dP = dO V^T (SS), P and dS
-//     with each row's lse2 and delta in registers, dS packed into A
-//     fragments, dQ += dS K (RS, K read MN-major); V is released after dP,
-//     K after dQ's product.  dQ is stored once, times scale.
+//     first, two consumer warpgroups of 64 rows.  Q and dO stay resident;
+//     K and V stream in 64-key tiles over the forward's kv_range.  Per tile
+//     S = Q K^T and dP = dO V^T (SS), P and dS with each row's lse2 and
+//     delta in registers, dS packed into A fragments, dQ += dS K (RS, K
+//     read MN-major); V is released after dP, K after dQ's product.  dQ is
+//     stored once, times scale.  At hd 64 / 128 the forward's producer
+//     warpgroup (384 threads) fills a ring of 3 (hd 64) or 2 (hd 128)
+//     stages.  At hd 256 dQ alone is 128 fp32 registers a thread, so there
+//     is no producer (256 threads, as the forward's hd 256): thread 0
+//     loads Q, dO and the first tiles, and the last consumer warp to
+//     release a K or V slot refills it.  Q and dO for 128 rows take 128 KB,
+//     so of the three layouts that fit -- 64-key tiles in one stage,
+//     32-key tiles in two (n32 products, which read as many shared-memory
+//     bytes per operation as the tensor cores can take at n64, twice over),
+//     or 64 q rows a block (S and dP computed twice again) -- it takes the
+//     first and gives K, which is held until dQ's product, a second stage:
+//     two K stages and one V stage, 224 KB (V is released after dP, early
+//     in a tile, so its refill runs under the rest of the tile).
 //  Masks, in both: only a tile that holds a masked pair (the causal
 //  diagonal, the window's edge, the Sq / Skv tails) selects p = 0 outside
 //  each row's (or key's) visible range; nothing is masked by a product, so
@@ -67,20 +93,26 @@
 //  whatever setmaxnreg gives the consumers' region; a consumer whose
 //  accumulators and in-flight products need more has its wgmma serialized
 //  (ptxas info C7512) and spills.  dK / dV (dK, dV, S^T and dP^T: 192 fp32
-//  a thread at either head dim) needs more, hence 256 threads (255
-//  registers): ptxas uses 242 registers (hd 64) and 235 (hd 128), 0 bytes
-//  spilled.  dQ fits in 168 with 64-key tiles (S and dP 32 each, dQ 32 or
-//  64); with 128-key tiles at hd 64 it spilled.  Shared memory:
-//  dK / dV 132.1 KB (hd 64) / 162.6 KB (hd 128), dQ 81.1 / 129.1 KB; one
-//  block an SM.
+//  a thread at hd 64 / 128) needs more, hence 256 threads (255
+//  registers): ptxas uses 242 registers (hd 64), 235 (hd 128) and 208 (hd
+//  256: dK and dV 128, one of S^T or dP^T 32), 0 bytes spilled.  dQ fits
+//  in 168 with 64-key tiles at hd 64 / 128 (S and dP 32 each, dQ 32 or
+//  64); with 128-key tiles at hd 64 it spilled.  At hd 256 dQ (128), S and
+//  dP (32 each) are 192 fp32 a thread: 232 registers, 0 spilled.
+//  Shared memory: dK / dV 132.1 KB (hd 64) / 162.6 KB (hd 128) / 218.1 KB
+//  (hd 256: K + V 64 KB, 2 x (Q + dO) 128 KB, the exchange 24 KB), dQ
+//  81.1 / 129.1 / 225.1 KB; one block an SM.
 //  Products: 7 per visible pair (S and dP are computed by both kernels),
-//  ~240.7 GFLOP at the main shape against the bound's 5.  Accumulating dQ
+//  ~240.7 GFLOP at the main shape and at Gemma-7B's (2, 2048, 16, 256)
+//  against the bound's 5 (171.9 GFLOP).  At (2, 2048, 16, 256) causal the
+//  call takes ~0.67 ms on an H100 (delta 0.027, dK / dV 0.363, dQ 0.242;
+//  PERF.md).  Accumulating dQ
 //  in the dK / dV kernel with fp32 atomics (as FlashAttention-2 / 3 do)
 //  would save the two recomputed products but give up determinism and add
 //  an fp32 dQ buffer and a convert pass; that is left for a later change.
 //
 // SIMT design, for fp32 at every head dim (the tensor cores would round to
-// tf32) and for bf16 at head dims 16, 32 and 256 (the forward's split):
+// tf32) and for bf16 at head dims 16 and 32 (the forward's split):
 // simple and right, not fast.  Three launches a call, no atomics, fp32 on
 // the FMA units, where the bound's products take >= 2.6 ms at 67 TFLOP/s
 // (this path does 7 hd-long FMA chains a visible pair, ~240 GFLOP at the
@@ -363,30 +395,37 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Params p) {
 // gives the consumers; a consumer that needs more has its wgmma serialized
 // (C7512) and spills.  The dK / dV consumers (dK, dV, S^T and dP^T: 192
 // fp32 a thread) need more, so that kernel runs two warpgroups and no
-// producer (255 registers); the dQ consumers fit in 168, so dQ keeps the
-// forward's producer warpgroup.
+// producer (255 registers); the dQ consumers fit in 168 at hd 64 / 128, so
+// dQ keeps the forward's producer warpgroup there, and at hd 256 (dQ alone
+// is 128) runs without one, as the forward does.
 constexpr int kTcConsumers = 2;   // consumer warpgroups
 constexpr int kKvThreads = 128 * kTcConsumers;
-constexpr int kQThreads = 128 * (kTcConsumers + 1);  // + the producer's
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dK / dV: a block owns kBN keys, 64 per consumer warpgroup, whose K and V
-// tiles stay in shared memory; Q and dO stream through a ring of kStages
-// steps of kBM q rows, each with its rows' lse (in base 2) and delta as
-// fp32 vectors.  Offsets in bytes from a 1024-byte-aligned base: K, V, the
-// Q stages, the dO stages, the lse and delta vectors, the mbarriers, and a
-// release counter per stage.
+// dK / dV: a block owns kBN keys, whose K and V tiles stay in shared
+// memory; Q and dO stream through a ring of kStages steps of kBM q rows,
+// each with its rows' lse (in base 2) and delta as fp32 vectors.  At hd 64
+// / 128 each consumer warpgroup takes 64 of the 128 keys and all of hd; at
+// hd 256 (kSplit) both take the block's 64 keys and each owns kCols of the
+// 64-wide column blocks of dK and dV (128 columns: a full 64 x 256 fp32
+// pair would be 256 registers a thread), one computing P^T and the other
+// dS^T for both.  Offsets in bytes from a 1024-byte-aligned base: K, V,
+// the Q stages, the dO stages, the lse and delta vectors, the mbarriers, a
+// release counter per stage, and at hd 256 the exchange of P^T and dS^T.
 template <int HD>
 struct KvCfg {
-  static constexpr int kBN = 128;  // keys per block
+  static constexpr bool kSplit = HD == 256;
+  static constexpr int kBN = kSplit ? 64 : 128;  // keys per block
   // q rows per step: 128 at hd 64 (S^T and dP^T 64 fp32 each beside dK
   // and dV's 32: the larger products halve the per-step waits, 0.4187 ->
   // 0.3556 ms at the main shape in chip_smoke.py's profile), 64 at hd 128
-  // (dK and dV take 128)
+  // and 256 (dK and dV take 128)
   static constexpr int kBM = HD == 64 ? 128 : 64;
   static constexpr int kR = kBM / 32;  // of them a lane stages
-  static constexpr int kStages = 3;
+  // K + V 64 KB and a step of Q + dO 64 KB at hd 256: two stages fit
+  static constexpr int kStages = kSplit ? 2 : 3;
   static constexpr int kSub = HD / kBox;  // 64-wide column blocks
+  static constexpr int kCols = kSplit ? kSub / 2 : kSub;  // a warpgroup's
   static constexpr int kKVBytes = kBN * HD * 2;    // the K or the V tile
   static constexpr int kStepBytes = kBM * HD * 2;  // one step of Q or dO
   static constexpr uint32_t kK = 0;
@@ -400,30 +439,45 @@ struct KvCfg {
   static constexpr uint32_t kDOFull = kQFull + 8 * kStages;
   static constexpr uint32_t kLFull = kDOFull + 8 * kStages;
   static constexpr uint32_t kCount = kLFull + 8 * kStages;
-  static constexpr int kSmem = 1024 + kCount + 8 * kStages;  // + alignment
+  // hd 256: P^T (fp32) and dS^T (bf16 fragments) handed between the
+  // warpgroups, 32 and 16 words a thread
+  static constexpr uint32_t kX = kCount + 8 * kStages;
+  static constexpr uint32_t kY = kX + (kSplit ? 128 * (kBM / 2) * 4 : 0);
+  static constexpr int kSmem =
+      1024 + kY + (kSplit ? 128 * (kBM / 4) * 4 : 0);  // + alignment
 };
 
 // dQ: a block owns kBQ q rows, 64 per consumer warpgroup, whose Q and dO
-// tiles stay in shared memory; K and V stream through the forward's ring of
-// kBK-key tiles.  Offsets: Q, dO, the K stages, the V stages, the mbarriers.
+// tiles stay in shared memory; K and V stream through rings of kBK-key
+// tiles, kKStages of K and kVStages of V.  At hd 64 / 128 a producer
+// warpgroup fills them, as the forward's; at hd 256 there is none and the
+// consumers refill them (the "empty" slots are release counters).  Q and
+// dO for 128 rows take 128 KB there, which leaves room for two K stages
+// and one V stage (224 KB in all): V is released after dP, early in a
+// tile, so its refill runs under the rest of the tile, while K is held
+// until dQ's product and so gets the second stage.  Offsets: Q, dO, the K
+// stages, the V stages, the mbarriers and counters.
 template <int HD>
 struct QCfg {
+  static constexpr bool kProducer = HD != 256;
+  static constexpr int kThreads = 128 * (kTcConsumers + (kProducer ? 1 : 0));
   static constexpr int kBQ = 128;                  // q rows per block
   static constexpr int kBK = 64;                   // keys per K/V tile
-  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kKStages = HD == 64 ? 3 : 2;
+  static constexpr int kVStages = HD == 256 ? 1 : kKStages;
   static constexpr int kSub = HD / kBox;
   static constexpr int kQBytes = kBQ * HD * 2;     // the Q or the dO tile
   static constexpr int kTileBytes = kBK * HD * 2;  // one K or one V tile
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDO = kQBytes;
   static constexpr uint32_t kK = 2 * kQBytes;      // stage st: + st * kTileBytes
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kQFull = kV + kStages * kTileBytes;
+  static constexpr uint32_t kV = kK + kKStages * kTileBytes;
+  static constexpr uint32_t kQFull = kV + kVStages * kTileBytes;
   static constexpr uint32_t kKFull = kQFull + 8;
-  static constexpr uint32_t kVFull = kKFull + 8 * kStages;
-  static constexpr uint32_t kKEmpty = kVFull + 8 * kStages;
-  static constexpr uint32_t kVEmpty = kKEmpty + 8 * kStages;
-  static constexpr int kSmem = 1024 + kVEmpty + 8 * kStages;
+  static constexpr uint32_t kVFull = kKFull + 8 * kKStages;
+  static constexpr uint32_t kKEmpty = kVFull + 8 * kVStages;
+  static constexpr uint32_t kVEmpty = kKEmpty + 8 * kKStages;
+  static constexpr int kSmem = 1024 + kVEmpty + 8 * kVStages;
 };
 
 // C (64 x N) = A B^T for one warpgroup, A (64 rows) and B (N rows) read
@@ -445,29 +499,30 @@ __device__ __forceinline__ void issue_abt(float (&c)[N / 2], uint32_t a,
   wgmma_commit();
 }
 
-// acc (64 x HD) += A B: A the bf16 fragments of a 64 x K accumulator tile, B
-// a K-row tile [K][HD] read MN-major; a k step is 16 rows (2048 bytes).
-// Issued, not committed.
-template <int HD, int K>
-__device__ __forceinline__ void issue_ab(float (&acc)[HD / 64][32],
+// acc (64 x 64 NC) += A B: A the bf16 fragments of a 64 x K accumulator
+// tile, B the NC 64-column blocks from `b` of a K-row tile [K][hd] (a
+// block is K rows of 128 bytes) read MN-major; a k step is 16 rows (2048
+// bytes).  Issued, not committed.
+template <int NC, int K>
+__device__ __forceinline__ void issue_ab(float (&acc)[NC][32],
                                          const uint32_t (&a)[K / 16][4],
                                          uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c)
+    for (int c = 0; c < NC; ++c)
       wgmma_rs(acc[c], a[kk], sw128_desc(b + c * K * 128 + kk * 2048, K * 128,
                                          1024));
 }
 
-// One thread's two rows of an accumulator tile (64 x HD, fp32, times `mul`)
-// stored as bf16 to rows row0 and row0 + 8 of a (B, S, H, hd) tensor, those
-// below `limit`.
-template <int HD>
+// One thread's two rows of an accumulator tile (64 x 64 NC, fp32, times
+// `mul`) stored as bf16 to rows row0 and row0 + 8 of a (B, S, H, hd)
+// tensor from column 0 of `dst`, those below `limit`.
+template <int NC>
 __device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
                                            long long row_stride, int row0,
                                            int limit,
-                                           const float (&acc)[HD / 64][32],
+                                           const float (&acc)[NC][32],
                                            float mul) {
   const int t = threadIdx.x % 4;
 #pragma unroll
@@ -476,7 +531,7 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
     if (row >= limit) continue;
     __nv_bfloat16* out = dst + row * row_stride + 2 * t;
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(out + 64 * c + 8 * j) =
@@ -485,10 +540,10 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void zero(float (&acc)[HD / 64][32]) {
+template <int NC>
+__device__ __forceinline__ void zero(float (&acc)[NC][32]) {
 #pragma unroll
-  for (int c = 0; c < HD / 64; ++c)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 }
@@ -545,17 +600,21 @@ __device__ __forceinline__ void load_step(const CUtensorMap* tq,
 }
 
 // Consumer warpgroup WG of the dK / dV kernel owns keys [kw0, kw0 + 64),
-// kw0 = k0 + 64 WG; a thread holds keys key0 and key0 + 8 of the
-// accumulator tiles, whose columns are q rows.  Per step of kBM q rows:
-// S^T = K Q^T and dP^T = V dO^T (SS); P^T = exp2(S^T scale log2(e) -
-// lse2) with each column's lse2 from shared memory, 0 outside each key's
-// visible q rows; dS^T = P^T (dP^T - delta); both packed in place into bf16
-// A fragments; dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major
-// from the same stage).  Every product is waited for in the step that
-// issued it.  Then each warp releases the stage, and the last to do so
-// loads step it + kStages into it (its rows' lse2 and delta fetched at the
-// top of the step, so their latency hides under the products).  dK is
-// scaled once, at the store.
+// kw0 = k0 + 64 WG (k0 at hd 256, where both warpgroups take the same
+// keys), and the column blocks [c0, c0 + kCols) of dK and dV (all of them
+// but at hd 256, where WG owns the WG-th half); a thread holds keys key0
+// and key0 + 8 of the accumulator tiles, whose columns are q rows.  Per
+// step of kBM q rows: S^T = K Q^T and dP^T = V dO^T (SS, over all of hd;
+// at hd 256 warpgroup 0 computes S^T and warpgroup 1 dP^T); P^T =
+// exp2(S^T scale log2(e) - lse2) with each column's lse2 from shared
+// memory, 0 outside each key's visible q rows; dS^T = P^T (dP^T - delta);
+// both packed into bf16 A fragments; dV += P^T dO and dK += dS^T Q over
+// the owned columns (RS, dO and Q read MN-major from the same stage).
+// Every product is waited for in the step that issued it.  Then
+// each warp releases the stage, and the last to do so loads step it +
+// kStages into it (its rows' lse2 and delta fetched at the top of the
+// step, so their latency hides under the products).  dK is scaled once,
+// at the store.
 template <int HD, int WG>
 __device__ __forceinline__ void consume_kv(const Params& p,
                                            const CUtensorMap* tq,
@@ -565,13 +624,15 @@ __device__ __forceinline__ void consume_kv(const Params& p,
                                            int h, int b) {
   using C = KvCfg<HD>;
   constexpr int kBM = C::kBM, kN = kBM / 2;
+  constexpr int kRow = C::kSplit ? 0 : 64 * WG;  // WG's first key, in the tile
+  constexpr int c0 = C::kSplit ? WG * C::kCols : 0;
   const int lane = threadIdx.x % 32, t = lane % 4;
-  const int kw0 = k0 + 64 * WG;
+  const int kw0 = k0 + kRow;
   const int key0 = kw0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
   const long long bh = static_cast<long long>(b) * p.H + h;
   const float scale_log2 = p.scale * kLog2e;
-  const uint32_t k_rows = base + C::kK + WG * 64 * 128;
-  const uint32_t v_rows = base + C::kV + WG * 64 * 128;
+  const uint32_t k_rows = base + C::kK + kRow * 128;
+  const uint32_t v_rows = base + C::kV + kRow * 128;
   // q rows that see key key0 + 8 r: [qlo_r[r], qhi_r[r])
   int qlo_r[2], qhi_r[2];
 #pragma unroll
@@ -586,9 +647,9 @@ __device__ __forceinline__ void consume_kv(const Params& p,
     if (key >= p.Skv) qhi_r[r] = qlo_r[r];  // a key past Skv: none
   }
 
-  float dk[C::kSub][32], dv[C::kSub][32];
-  zero<HD>(dk);
-  zero<HD>(dv);
+  float dk[C::kCols][32], dv[C::kCols][32];
+  zero(dk);
+  zero(dv);
   if (n_steps > 0) mbar_wait(base + C::kKVFull, 0);
   for (int it = 0; it < n_steps; ++it) {
     const int st = it % C::kStages, i0 = qlo + it * kBM;
@@ -598,12 +659,8 @@ __device__ __forceinline__ void consume_kv(const Params& p,
     const bool refill = it + C::kStages < n_steps;
     float nl[C::kR] = {}, nd[C::kR] = {};  // step it + kStages
     if (refill) fetch_rows(p, bh, i0 + C::kStages * kBM, nl, nd);
-    float s[kN], dp[kN];
-    mbar_wait(base + C::kQFull + 8 * st, ph);
-    issue_abt<HD, kBM>(s, k_rows, C::kBN, q_st, kBM);
-    mbar_wait(base + C::kDOFull + 8 * st, ph);
-    issue_abt<HD, kBM>(dp, v_rows, C::kBN, do_st, kBM);
-    mbar_wait(base + C::kLFull + 8 * st, ph);
+    const uint32_t q_full = base + C::kQFull + 8 * st;
+    const uint32_t do_full = base + C::kDOFull + 8 * st;
     const float* sl = reinterpret_cast<const float*>(smem + C::kL) +
                       st * kBM + 2 * t;
     const float* sd = reinterpret_cast<const float*>(smem + C::kD) +
@@ -616,44 +673,108 @@ __device__ __forceinline__ void consume_kv(const Params& p,
         (p.window > 0 && i0 + kBM - 1 + p.q_offset - kw0 >= p.window);
     const int lo_rel[2] = {qlo_r[0] - i0 - 2 * t, qlo_r[1] - i0 - 2 * t};
     const int hi_rel[2] = {qhi_r[0] - i0 - 2 * t, qhi_r[1] - i0 - 2 * t};
-    wgmma_wait<1>();  // S^T
-    reg_fence(s);
+    // S^T -> P^T in place, 0 outside each key's visible q rows
+    auto p_tile = [&](float (&x)[kN]) {
 #pragma unroll
-    for (int j = 0; j < kN / 4; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j);
+      for (int j = 0; j < kN / 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + (e & 1), r = e >> 1;
-        const float x = exp2_approx(
-            fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
-        s[4 * j + e] =
-            !masked || (col >= lo_rel[r] && col < hi_rel[r]) ? x : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + (e & 1), r = e >> 1;
+          const float y = exp2_approx(
+              fmaf(x[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          x[4 * j + e] =
+              !masked || (col >= lo_rel[r] && col < hi_rel[r]) ? y : 0.f;
+        }
       }
-    }
-    wgmma_wait<0>();  // dP^T
-    reg_fence(dp);
+    };
+    // dP^T -> dS^T = P^T (dP^T - delta) in place
+    auto ds_tile = [&](const float (&pt)[kN], float (&x)[kN]) {
 #pragma unroll
-    for (int j = 0; j < kN / 4; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j);
+      for (int j = 0; j < kN / 4; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
-    }
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] =
+              pt[4 * j + e] * (x[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
+    };
     uint32_t pa[kBM / 16][4], dsa[kBM / 16][4];
-    pack_p(s, pa);
-    pack_p(dp, dsa);
+    if constexpr (C::kSplit) {
+      // Warpgroup 0 computes S^T and P^T, warpgroup 1 dP^T and dS^T, each
+      // product once: P^T goes to warpgroup 1 in fp32 and dS^T comes back
+      // as bf16 A fragments, through shared memory in the accumulator
+      // layout (element i of thread tid at [i][tid]), behind named
+      // barriers 1 and 2.
+      const int tid = threadIdx.x % 128;
+      float* xch = reinterpret_cast<float*>(smem + C::kX) + tid;
+      uint32_t* ych = reinterpret_cast<uint32_t*>(smem + C::kY) + tid;
+      float x[kN];
+      if constexpr (WG == 0) {
+        mbar_wait(q_full, ph);
+        issue_abt<HD, kBM>(x, k_rows, C::kBN, q_st, kBM);
+        mbar_wait(base + C::kLFull + 8 * st, ph);
+        wgmma_wait<0>();
+        reg_fence(x);
+        p_tile(x);
 #pragma unroll
-    for (int c = 0; c < C::kSub; ++c) {
+        for (int i = 0; i < kN; ++i) xch[128 * i] = x[i];
+        bar_arrive(1);
+        pack_p(x, pa);
+        bar_sync(2);
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dsa[kk][r] = ych[128 * (4 * kk + r)];
+        mbar_wait(do_full, ph);  // dV reads dO
+      } else {
+        mbar_wait(do_full, ph);
+        issue_abt<HD, kBM>(x, v_rows, C::kBN, do_st, kBM);
+        mbar_wait(base + C::kLFull + 8 * st, ph);
+        wgmma_wait<0>();
+        reg_fence(x);
+        float pt[kN];
+        bar_sync(1);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) pt[i] = xch[128 * i];
+        ds_tile(pt, x);
+        pack_p(pt, pa);
+        pack_p(x, dsa);
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ych[128 * (4 * kk + r)] = dsa[kk][r];
+        bar_arrive(2);
+        mbar_wait(q_full, ph);  // dK reads Q
+      }
+    } else {
+      float s[kN], dp[kN];
+      mbar_wait(q_full, ph);
+      issue_abt<HD, kBM>(s, k_rows, C::kBN, q_st, kBM);
+      mbar_wait(do_full, ph);
+      issue_abt<HD, kBM>(dp, v_rows, C::kBN, do_st, kBM);
+      mbar_wait(base + C::kLFull + 8 * st, ph);
+      wgmma_wait<1>();  // S^T
+      reg_fence(s);
+      p_tile(s);
+      wgmma_wait<0>();  // dP^T
+      reg_fence(dp);
+      ds_tile(s, dp);
+      pack_p(s, pa);
+      pack_p(dp, dsa);
+    }
+#pragma unroll
+    for (int c = 0; c < C::kCols; ++c) {
       reg_fence(dv[c]);
       reg_fence(dk[c]);
     }
     wgmma_fence();
-    issue_ab<HD, kBM>(dv, pa, do_st);
-    issue_ab<HD, kBM>(dk, dsa, q_st);
+    issue_ab<C::kCols, kBM>(dv, pa, do_st + c0 * kBM * 128);
+    issue_ab<C::kCols, kBM>(dk, dsa, q_st + c0 * kBM * 128);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < C::kSub; ++c) {
+    for (int c = 0; c < C::kCols; ++c) {
       reg_fence(dv[c]);
       reg_fence(dk[c]);
     }
@@ -664,10 +785,10 @@ __device__ __forceinline__ void consume_kv(const Params& p,
                     i0 + C::kStages * kBM, h, b, nl, nd);
     __syncwarp();
   }
-  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dk) + b * p.sdk.b +
-                     h * p.sdk.h, p.sdk.s, key0, p.Skv, dk, p.scale);
-  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dv) + b * p.sdv.b +
-                     h * p.sdv.h, p.sdv.s, key0, p.Skv, dv, 1.f);
+  store_tile(static_cast<__nv_bfloat16*>(p.dk) + b * p.sdk.b + h * p.sdk.h +
+                 64 * c0, p.sdk.s, key0, p.Skv, dk, p.scale);
+  store_tile(static_cast<__nv_bfloat16*>(p.dv) + b * p.sdv.b + h * p.sdv.h +
+                 64 * c0, p.sdv.s, key0, p.Skv, dv, 1.f);
 }
 
 // 2b. dK and dV of one tile of kBN keys, bf16, on the tensor cores.  The
@@ -732,8 +853,22 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     consume_kv<HD, 1>(p, &tq, &tdo, smem, base, k0, qlo, n_steps, h, b);
 }
 
-// The dQ producer: one thread loads Q and dO once, then K and V tile by
-// tile into the ring, as the forward's.
+// One K or V tile of the dQ kernel (keys from k0) into the ring slot
+// `dst`, announced on its full mbarrier; by one thread.
+template <int HD>
+__device__ __forceinline__ void load_kv(const CUtensorMap* map, uint32_t dst,
+                                        uint32_t full, int k0, int h, int b) {
+  using C = QCfg<HD>;
+  mbar_expect_tx(full, C::kTileBytes);
+  for (int c = 0; c < C::kSub; ++c)
+    tma_load(dst + c * C::kBK * 128, map, full, c * kBox, k0, h, b);
+}
+
+// The dQ loads, by one thread: Q and dO once, then K and V tile by tile.
+// With a producer warpgroup it loads every tile, each into a slot once the
+// consumers have released the slot's previous tile, as the forward's;
+// without one it loads the tiles that fill the empty rings, and the
+// consumers refill them.
 template <int HD>
 __device__ __forceinline__ void produce_q(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
@@ -747,21 +882,24 @@ __device__ __forceinline__ void produce_q(
     tma_load(base + C::kDO + c * C::kBQ * 128, &tdo, base + C::kQFull,
              c * kBox, q0, h, b);
   }
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % C::kStages, k0 = (lo + it) * C::kBK;
-    const uint32_t parity = (it / C::kStages - 1) & 1;
-    const uint32_t kt = base + C::kK + st * C::kTileBytes;
-    const uint32_t vt = base + C::kV + st * C::kTileBytes;
-    const uint32_t k_full = base + C::kKFull + 8 * st;
-    const uint32_t v_full = base + C::kVFull + 8 * st;
-    if (it >= C::kStages) mbar_wait(base + C::kKEmpty + 8 * st, parity);
-    mbar_expect_tx(k_full, C::kTileBytes);
-    for (int c = 0; c < C::kSub; ++c)
-      tma_load(kt + c * C::kBK * 128, &tk, k_full, c * kBox, k0, h, b);
-    if (it >= C::kStages) mbar_wait(base + C::kVEmpty + 8 * st, parity);
-    mbar_expect_tx(v_full, C::kTileBytes);
-    for (int c = 0; c < C::kSub; ++c)
-      tma_load(vt + c * C::kBK * 128, &tv, v_full, c * kBox, k0, h, b);
+  const int n_k = C::kProducer ? n_tiles : min(n_tiles, C::kKStages);
+  const int n_v = C::kProducer ? n_tiles : min(n_tiles, C::kVStages);
+  for (int it = 0; it < max(n_k, n_v); ++it) {
+    const int k0 = (lo + it) * C::kBK;
+    if (it < n_k) {
+      const int st = it % C::kKStages;
+      if (it >= C::kKStages)   // only with a producer
+        mbar_wait(base + C::kKEmpty + 8 * st, (it / C::kKStages - 1) & 1);
+      load_kv<HD>(&tk, base + C::kK + st * C::kTileBytes,
+                  base + C::kKFull + 8 * st, k0, h, b);
+    }
+    if (it < n_v) {
+      const int st = it % C::kVStages;
+      if (it >= C::kVStages)
+        mbar_wait(base + C::kVEmpty + 8 * st, (it / C::kVStages - 1) & 1);
+      load_kv<HD>(&tv, base + C::kV + st * C::kTileBytes,
+                  base + C::kVFull + 8 * st, k0, h, b);
+    }
   }
 }
 
@@ -772,12 +910,32 @@ __device__ __forceinline__ void produce_q(
 // delta) packed into bf16 A fragments; dQ += dS K (RS, K read MN-major).  V
 // is released once dP is done, K once dQ's product is.
 template <int HD, int WG>
-__device__ __forceinline__ void consume_q(const Params& p, uint32_t base,
-                                          int q0, int h, int b, int lo,
-                                          int n_tiles) {
+__device__ __forceinline__ void consume_q(const Params& p,
+                                          const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          uint32_t base, int q0, int h,
+                                          int b, int lo, int n_tiles) {
   using C = QCfg<HD>;
   constexpr int kBK = C::kBK, kN = kBK / 2;
   const int lane = threadIdx.x % 32, t = lane % 4;
+  // The warp is done with tile it's K (V when `v`): an arrival on the
+  // slot's empty mbarrier for the producer, or, without one, the last of
+  // the 4 x kTcConsumers consumer warps to release the slot loads tile it +
+  // stages into it.
+  auto release = [&](bool v, int it) {
+    const int stages = v ? C::kVStages : C::kKStages;
+    const int st = it % stages;
+    const uint32_t slot = base + (v ? C::kVEmpty : C::kKEmpty) + 8 * st;
+    __syncwarp();
+    if constexpr (C::kProducer) {
+      if (lane == 0) mbar_arrive(slot);
+    } else if (release_last<4 * kTcConsumers>(slot) &&
+               it + stages < n_tiles && lane == 0) {
+      load_kv<HD>(v ? tv : tk, base + (v ? C::kV : C::kK) + st * C::kTileBytes,
+                  base + (v ? C::kVFull : C::kKFull) + 8 * st,
+                  (lo + it + stages) * kBK, h, b);
+    }
+  };
   const int row0 = q0 + 64 * WG + 16 * (threadIdx.x % 128 / 32) + lane / 4;
   const float scale_log2 = p.scale * kLog2e;
   const uint32_t q_rows = base + C::kQ + WG * 64 * 128;
@@ -799,17 +957,17 @@ __device__ __forceinline__ void consume_q(const Params& p, uint32_t base,
   const int wq_last = wq_first + 63;
 
   float dq[C::kSub][32];
-  zero<HD>(dq);
+  zero(dq);
   mbar_wait(base + C::kQFull, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % C::kStages, k0 = (lo + it) * kBK;
-    const uint32_t ph = (it / C::kStages) & 1;
-    const uint32_t kt = base + C::kK + st * C::kTileBytes;
-    const uint32_t vt = base + C::kV + st * C::kTileBytes;
+    const int ks = it % C::kKStages, vs = it % C::kVStages;
+    const int k0 = (lo + it) * kBK;
+    const uint32_t kt = base + C::kK + ks * C::kTileBytes;
+    const uint32_t vt = base + C::kV + vs * C::kTileBytes;
     float s[kN], dp[kN];
-    mbar_wait(base + C::kKFull + 8 * st, ph);
+    mbar_wait(base + C::kKFull + 8 * ks, (it / C::kKStages) & 1);
     issue_abt<HD, kBK>(s, q_rows, C::kBQ, kt, kBK);
-    mbar_wait(base + C::kVFull + 8 * st, ph);
+    mbar_wait(base + C::kVFull + 8 * vs, (it / C::kVStages) & 1);
     issue_abt<HD, kBK>(dp, do_rows, C::kBQ, vt, kBK);
     const bool masked = k0 + kBK > p.Skv ||
                         (p.causal && k0 + kBK - 1 > wq_first) ||
@@ -830,8 +988,7 @@ __device__ __forceinline__ void consume_q(const Params& p, uint32_t base,
       }
     wgmma_wait<0>();  // dP: V is free
     reg_fence(dp);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(base + C::kVEmpty + 8 * st);
+    release(true, it);
 #pragma unroll
     for (int i = 0; i < kN; ++i)
       dp[i] = s[i] * (dp[i] - delta[(i >> 1) & 1]);
@@ -840,22 +997,21 @@ __device__ __forceinline__ void consume_q(const Params& p, uint32_t base,
 #pragma unroll
     for (int c = 0; c < C::kSub; ++c) reg_fence(dq[c]);
     wgmma_fence();
-    issue_ab<HD, kBK>(dq, dsa, kt);
+    issue_ab<C::kSub, kBK>(dq, dsa, kt);
     wgmma_commit();
     wgmma_wait<0>();  // K is free
 #pragma unroll
     for (int c = 0; c < C::kSub; ++c) reg_fence(dq[c]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(base + C::kKEmpty + 8 * st);
+    release(false, it);
   }
-  store_tile<HD>(static_cast<__nv_bfloat16*>(p.dq) + b * p.sdq.b +
-                     h * p.sdq.h, p.sdq.s, row0, p.Sq, dq, p.scale);
+  store_tile(static_cast<__nv_bfloat16*>(p.dq) + b * p.sdq.b + h * p.sdq.h,
+             p.sdq.s, row0, p.Sq, dq, p.scale);
 }
 
 // 3b. dQ of one tile of kBQ q rows, bf16, on the tensor cores; heaviest q
 // tiles first, the q tiles of one head adjacent, as the forward.
 template <int HD>
-__global__ void __launch_bounds__(kQThreads, 1)
+__global__ void __launch_bounds__(QCfg<HD>::kThreads, 1)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tk,
@@ -875,31 +1031,51 @@ __global__ void __launch_bounds__(kQThreads, 1)
   const int n_tiles = max(hi - lo, 0);
 
   if (threadIdx.x == 0) {
+    // an empty slot: one arrival per consumer warp for the producer, or a
+    // release counter
+    auto empty = [&](uint32_t off) {
+      if constexpr (C::kProducer)
+        mbar_init(base + off, 4 * kTcConsumers);
+      else
+        *reinterpret_cast<uint32_t*>(smem_raw + (base - smem_addr(smem_raw)) +
+                                     off) = 0;
+    };
     mbar_init(base + C::kQFull, 1);
-    for (int st = 0; st < C::kStages; ++st) {
+    for (int st = 0; st < C::kKStages; ++st) {
       mbar_init(base + C::kKFull + 8 * st, 1);
+      empty(C::kKEmpty + 8 * st);
+    }
+    for (int st = 0; st < C::kVStages; ++st) {
       mbar_init(base + C::kVFull + 8 * st, 1);
-      mbar_init(base + C::kKEmpty + 8 * st, 4 * kTcConsumers);
-      mbar_init(base + C::kVEmpty + 8 * st, 4 * kTcConsumers);
+      empty(C::kVEmpty + 8 * st);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // roles from a warp-uniform warp index, as the forward; setmaxnreg moves
-  // registers from the producer warpgroup to the consumers:
-  // (168 - 24) x 128 = (240 - 168) x 256
+  // roles from a warp-uniform warp index, as the forward
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
-  if (warp >= 4 * kTcConsumers) {
-    setmaxnreg_dec<24>();
-    if (warp == 4 * kTcConsumers && threadIdx.x % 32 == 0)
-      produce_q<HD>(tq, tdo, tk, tv, base, q0, h, b, lo, n_tiles);
-  } else {
-    setmaxnreg_inc<240>();
+  auto consumers = [&] {
     if (warp < 4)
-      consume_q<HD, 0>(p, base, q0, h, b, lo, n_tiles);
+      consume_q<HD, 0>(p, &tk, &tv, base, q0, h, b, lo, n_tiles);
     else
-      consume_q<HD, 1>(p, base, q0, h, b, lo, n_tiles);
+      consume_q<HD, 1>(p, &tk, &tv, base, q0, h, b, lo, n_tiles);
+  };
+  if constexpr (C::kProducer) {
+    // setmaxnreg moves registers from the producer warpgroup to the
+    // consumers: (168 - 24) x 128 = (240 - 168) x 256
+    if (warp >= 4 * kTcConsumers) {
+      setmaxnreg_dec<24>();
+      if (warp == 4 * kTcConsumers && threadIdx.x % 32 == 0)
+        produce_q<HD>(tq, tdo, tk, tv, base, q0, h, b, lo, n_tiles);
+    } else {
+      setmaxnreg_inc<240>();
+      consumers();
+    }
+  } else {
+    if (threadIdx.x == 0)  // Q, dO and the first stages; the consumers refill
+      produce_q<HD>(tq, tdo, tk, tv, base, q0, h, b, lo, n_tiles);
+    consumers();
   }
 }
 
@@ -964,17 +1140,17 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
       reinterpret_cast<const void*>(&flash_bwd_dq_bf16<HD>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, QC::kSmem);
   if (err != 0) return err;
-  flash_bwd_dq_bf16<HD><<<static_cast<unsigned>(q_blocks), kQThreads,
+  flash_bwd_dq_bf16<HD><<<static_cast<unsigned>(q_blocks), QC::kThreads,
                           QC::kSmem, stream>>>(q_q, q_do, q_k, q_v, p);
   return (int)cudaGetLastError();
 }
 
-// fp32 at every head dim and bf16 at 16, 32 and 256 on the SIMT kernels,
-// bf16 at 64 and 128 on the tensor cores (the forward's split).
+// fp32 at every head dim and bf16 at 16 and 32 on the SIMT kernels, bf16
+// at 64, 128 and 256 on the tensor cores (the forward's split).
 template <int HD>
 int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
   if (dtype == 0) return launch_simt<HD, float>(p, B, stream);
-  if constexpr (HD == 64 || HD == 128)
+  if constexpr (HD >= 64)
     return launch_bf16<HD>(p, B, stream);
   else
     return launch_simt<HD, __nv_bfloat16>(p, B, stream);

@@ -144,8 +144,10 @@ def test_kernel_rejects_unsupported_head_dim(dev):
         fa.flash_attention(q, k, v)
 
 
-# the bf16 backward kernels' own tile edges (hd 64 and 128): 128- or 64-row
-# q steps and 128-key tiles (dK / dV), 128-row q tiles and 64-key tiles (dQ)
+# the bf16 backward kernels' own tile edges (hd 64, 128 and 256): 128- or
+# 64-row q steps and 128-key (64 at hd 256) tiles (dK / dV), 128-row q tiles
+# and 64-key tiles (dQ), and rings that wrap (hd 256: 2 stages of Q and dO;
+# 2 of K and 1 of V in dQ)
 BWD_EDGES = [
     (True, None, 0, None, 63, 63),
     (True, None, 0, None, 64, 64),
@@ -159,6 +161,8 @@ BWD_EDGES = [
     (True, 40, 0, None, 129, 65),             # window ends inside a tile
     (True, 30, 0, None, 127, 63),             # rows past 92 see no key
     (True, 100, 28, None, 64, 127),
+    (True, None, 0, None, 192, 192),          # three q steps
+    (False, None, 0, None, 129, 257),         # five key tiles and one
 ]
 
 
@@ -206,13 +210,25 @@ def test_backward_kernel_is_deterministic(dev, hd):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_backward_kernel_reads_strided_inputs(dev):
+def test_hd256_backward_is_deterministic_at_gemma_training_shape(dev):
+    """Two backward calls at Gemma-7B's training shape (2, 2048, 16, 256)
+    give bitwise-equal dq, dk and dv."""
+    q, k, v = _qkv(dev, 2, 2048, 16, 256, torch.bfloat16)
+    do = torch.randn(q.shape, device=dev).bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    second = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_backward_kernel_reads_strided_inputs(dev, hd):
     """k and v as every other head of wider tensors, dO a slice: the
     kernels take the caller's strides."""
-    q, _, _ = _qkv(dev, 2, 200, 2, 64, torch.bfloat16)
-    _, kw_, vw = _qkv(dev, 2, 1, 4, 64, torch.bfloat16, skv=272, seed=1)
+    q, _, _ = _qkv(dev, 2, 200, 2, hd, torch.bfloat16)
+    _, kw_, vw = _qkv(dev, 2, 1, 4, hd, torch.bfloat16, skv=272, seed=1)
     k, v = kw_[:, 72:, ::2], vw[:, :200, 1::2]
-    dow = torch.randn(2, 200, 4, 64, device=dev).bfloat16()
+    dow = torch.randn(2, 200, 4, hd, device=dev).bfloat16()
     do = dow[:, :, 1::2]
     out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
     got = fa.flash_attention_bwd(q, k, v, out, do, lse)

@@ -5,8 +5,11 @@ where the backward kernel's tiles end.
 tensors) is what the CUDA backward kernels are held against on the card
 (tests/test_torch_cuda.py, chip_smoke.py), so it must match the reference's
 custom VJP at the edges of the bf16 kernels' tiles: the dK / dV kernel's
-128-row (hd 64) or 64-row (hd 128) q steps and 128-key tiles, the dQ
-kernel's 128-row q tiles and 64-key tiles.  Sq and Skv take 63, 64, 65, 127, 128 and 129, with causal masks
+128-row (hd 64) or 64-row (hd 128, 256) q steps and 128-key (64 at hd 256)
+tiles, the dQ kernel's 128-row q tiles and 64-key tiles.  Sq and Skv take
+63, 64, 65, 127, 128 and 129, then 192 (three q steps: the hd-256 kernel's
+two-stage ring wraps) and 257 (five 64-key tiles and one key: its dQ
+kernel's rings of two K stages and one V stage wrap), with causal masks
 shifted by q_offset, windows that end inside a tile, and rows that see no
 key (dO is zero on those rows, as chip_smoke.py makes it: there the
 reference's -1e30 arithmetic and the kernel differ by design).  Skv stays
@@ -40,6 +43,8 @@ EDGES = [
     (True, 40, 0, None, 129, 65),             # window ends inside a tile
     (True, 30, 0, None, 127, 63),             # rows past 92 see no key
     (True, 100, 28, None, 64, 127),
+    (True, None, 0, None, 192, 192),          # three q steps
+    (False, None, 0, None, 129, 257),         # five key tiles and one
 ]
 
 
@@ -55,7 +60,7 @@ def _seen(sq, skv, causal, window, q_offset):
     return vis.any(axis=1)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal,window,q_offset,scale,sq,skv", EDGES)
 def test_plain_backward_matches_jax_vjp_at_tile_edges(causal, window,
                                                       q_offset, scale, sq,

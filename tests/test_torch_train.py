@@ -42,11 +42,18 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import specs as tspecs
+from repro_torch.launch import train as ttrain
 from repro_torch.models import layers
 from repro_torch.models import lm as tlm
 from repro_torch.optim import schedules as tsched
 
 DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+# Gemma-7B's block at head dim 256, narrow and shallow, as
+# tests/test_torch_serve.py builds it: GeGLU, tied embeddings, sqrt(d)
+# embedding scale and logit cap 30 from its reduced config, two heads of 256
+GEMMA_HD256 = dict(name="gemma-hd256-smoke", n_layers=2, d_model=512,
+                   n_heads=2, n_kv_heads=2, head_dim=256, d_ff=1024,
+                   vocab=512)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -98,19 +105,25 @@ def _batch(vocab, shape, seed=1):
     return jb, tb
 
 
+def _config(package, arch, n_layers=None):
+    """`arch`'s reduced config from `package` (the JAX or the port's
+    configs), or the Gemma-shaped hd-256 config for "gemma-hd256"; with
+    `n_layers` layers where given."""
+    cfg = (dataclasses.replace(package.get("gemma-7b", reduced=True),
+                               **GEMMA_HD256)
+           if arch == "gemma-hd256" else package.get(arch, reduced=True))
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch, n_layers=None):
-    cfg = jconfigs.get(arch, reduced=True)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    jm = jlm.build(cfg)
+    jm = jlm.build(_config(jconfigs, arch, n_layers))
     return jm, jax.jit(jm.init)(jax.random.PRNGKey(0))
 
 
 def _port(arch, jp, n_layers=None, remat="none"):
-    cfg = tconfigs.get(arch, reduced=True)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = _config(tconfigs, arch, n_layers)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
     return tlm.build(cfg, remat=remat), tp
 
@@ -284,6 +297,37 @@ def test_one_layer_at_seq_2048_matches_jax():
     """One block at 2048 positions, so both sides differentiate their
     chunked flash attention inside the LM."""
     _check_grads("tinyllama-1.1b", 1, (1, 2048))
+
+
+def test_gemma_hd256_layer_at_seq_2048_matches_jax():
+    """One Gemma-shaped block at head dim 256 (GEMMA_HD256) at 2048
+    positions: the flash VJP at the head dim Gemma-7B trains with, inside
+    the LM (GeGLU, tied embeddings, logit cap), against
+    `jax.value_and_grad(model.loss)` with the bars above."""
+    _check_grads("gemma-hd256", 1, (1, 2048))
+
+
+def test_build_trainer_steps_a_depth_cut_config():
+    """What chip_smoke.py does with Gemma-7B, on the CPU at small width:
+    `dataclasses.replace(cfg, n_layers=...)` of a Gemma config (here the
+    hd-256 one) through `build_trainer(..., device="cpu")`, one step at
+    2048 positions (the flash path, its plain twins here).  The step
+    reports the loss of the initial params (`model.loss` on the same batch,
+    within 1e-6 relative: the same computation), finite, and moves the
+    params to finite values."""
+    cfg = _config(tconfigs, "gemma-hd256", n_layers=1)
+    model, state, step, _ = ttrain.build_trainer(cfg, device="cpu")
+    assert model.cfg.n_layers == 1 and len(state.params["seg0"]) == 1
+    table = state.params["embed"]["table"].detach().clone()
+    _, tb = _batch(cfg.vocab, (1, 2048))
+    with torch.no_grad():
+        want = model.loss(state.params, tb).item()
+    state, metrics = step(state, tb)
+    assert state.step == 1 and np.isfinite(want)
+    assert abs(metrics["loss"].item() - want) <= 1e-6 * abs(want)
+    assert all(torch.isfinite(p).all()
+               for p in pytree.tree_leaves(state.params))
+    assert not torch.equal(state.params["embed"]["table"], table)
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
