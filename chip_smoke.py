@@ -60,10 +60,26 @@ Phases, each fatal on failure:
   5. torch.profiler's device time for one prefill (with the flash
      forward's share), three decode steps and one training step of each
      trained model, as a share of the timings above, with the heaviest
-     kernels (and the flash backward's share of the step).
-Prints one `{"kernels": [...]}` line, the card line, and last
-`{"ok": true, "device": {...}}`.  Exits non-zero, without that last line,
-when there is no CUDA device or any phase fails.
+     kernels (and the flash backward's share of the step);
+  6. last, with the card's memory released, the float64 DeepNVM++
+     pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
+     16 nm Table II designs at 3 MB against the scalar path
+     (`evaluate_scalar`, `tune_loop`; equal orgs, 1e-12 relative), all
+     five Table II columns against the JAX reference's numbers
+     (PIPELINE_GOLDEN, pinned by tests/test_torch_pipeline.py) and the 3
+     MB anchor error against the reference's (~3.5e-4); the iso-area
+     capacities (7 / 10 MB), the isocap and iso-area summaries and the
+     scaling headline against the reference's numbers (1e-12); then the
+     full mega spec (104,832 cells) through `sweep.run` cold, warm (three
+     runs, each after dropping the sweep, fold and circuit-table memos)
+     and `run_sharded` with ShardPlan(64, 288) at devices None and 1,
+     and on this machine's CPU: every result's rows within 1e-12 of the
+     warm run's, with equal tuned orgs; seconds, cells/s, peak memory and
+     the warm run's device-busy share, printed as a `{"pipeline": ...}`
+     line.
+Prints one `{"kernels": [...]}` line, the `{"pipeline": ...}` line, the
+card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
+without that last line, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
@@ -200,6 +216,124 @@ WKV_CASES = [
     (4, 2048, 40, 64, 32, -3.0, True, 0),      # the main path's shape
 ]
 WKV_MAIN = WKV_CASES[-1]
+
+# The float64 DeepNVM++ pipeline (phase 6).  Its bar: 1e-12 relative, the
+# one the reference holds between its own scalar and batched paths.  The
+# analyses are held to the JAX reference's numbers (this machine has no
+# JAX); tests/test_torch_pipeline.py pins these constants to
+# `repro.core` on the CPU.
+PIPELINE_REL = 1e-12
+# The Table II 3 MB anchor error (as benchmarks/table2_cache.py computes
+# it, ~3.5e-4 of a leakage / area anchor): a difference of two values that
+# agree to 1e-12 relative, divided by the 3.5e-4 gap, so ~3e-9 relative.
+ANCHOR_ERR_REL = 1e-8
+MEGA_PLAN = dict(scenario_chunk=64, design_chunk=288)
+PIPELINE_GOLDEN = {
+    "table2": {
+        "sram": {
+            "capacity_bytes": 3145728,
+            "org": "1b x 128r x 256c / sequential",
+            "read_latency_s": 2.9100000000000005e-09,
+            "write_latency_s": 1.53e-09,
+            "read_energy_j": 3.4999999999999993e-10,
+            "write_energy_j": 3.2000000000000003e-10,
+            "leakage_w": 6.442749179585304,
+            "area_mm2": 5.531051665241455,
+        },
+        "stt": {
+            "capacity_bytes": 3145728,
+            "org": "1b x 128r x 256c / sequential",
+            "read_latency_s": 2.9799999999999996e-09,
+            "write_latency_s": 9.31e-09,
+            "read_energy_j": 8.100000000000001e-10,
+            "write_energy_j": 3.1e-10,
+            "leakage_w": 0.7479188256318854,
+            "area_mm2": 2.340150966085292,
+        },
+        "sot": {
+            "capacity_bytes": 3145728,
+            "org": "1b x 128r x 256c / sequential",
+            "read_latency_s": 3.7100000000000002e-09,
+            "write_latency_s": 1.38e-09,
+            "read_energy_j": 4.900000000000001e-10,
+            "write_energy_j": 2.2000000000000002e-10,
+            "leakage_w": 0.5271832675931994,
+            "area_mm2": 1.950000577897137,
+        },
+        "stt_isoarea": {
+            "capacity_bytes": 7340032,
+            "org": "1b x 128r x 256c / sequential",
+            "read_latency_s": 3.3284014911279853e-09,
+            "write_latency_s": 9.599874115459549e-09,
+            "read_energy_j": 9.307037715129982e-10,
+            "write_energy_j": 3.262352827822285e-10,
+            "leakage_w": 1.7059247403657152,
+            "area_mm2": 5.120080454437546,
+        },
+        "sot_isoarea": {
+            "capacity_bytes": 10485760,
+            "org": "1b x 128r x 256c / sequential",
+            "read_latency_s": 4.301232253914615e-09,
+            "write_latency_s": 1.7801081683908728e-09,
+            "read_energy_j": 6.821705102042964e-10,
+            "write_energy_j": 2.9462996334119443e-10,
+            "leakage_w": 1.4350523897287781,
+            "area_mm2": 5.6401255233758,
+        },
+    },
+    "isocap_summary": {
+        "stt": {
+            "dyn_energy_x": 1.989317166313483,
+            "leak_reduction": 5.665142743167122,
+            "energy_reduction": 4.086573451307579,
+            "edp_reduction_mean": 2.039023276904304,
+            "edp_reduction_max": 2.2886331945764304,
+        },
+        "sot": {
+            "dyn_energy_x": 1.2279197735356069,
+            "leak_reduction": 10.702336596785225,
+            "energy_reduction": 7.361689256062841,
+            "edp_reduction_mean": 3.928245112046117,
+            "edp_reduction_max": 4.353989350856196,
+        },
+        "sram": {
+            "read_share_of_dyn": 0.758483892681553,
+        },
+    },
+    "isoarea_capacities_mb": {
+        "stt": 7,
+        "sot": 10,
+    },
+    "isoarea_summary": {
+        "stt": {
+            "dyn_energy_x": 2.2631473098643746,
+            "leak_reduction": 2.3814603506716128,
+            "energy_reduction": 2.043420641000703,
+            "edp_reduction_no_dram": 1.2942183471263013,
+            "edp_reduction_with_dram": 1.2239480952841941,
+        },
+        "sot": {
+            "dyn_energy_x": 1.700697935202507,
+            "leak_reduction": 3.586696408583049,
+            "energy_reduction": 3.0124908434596938,
+            "edp_reduction_no_dram": 2.4076075292345234,
+            "edp_reduction_with_dram": 2.2105145436605595,
+        },
+    },
+    "scaling_headline": {
+        "stt": {
+            "energy_reduction_max": 20.84814970876544,
+            "latency_reduction_max": 1.5493019488154027,
+            "edp_reduction_max": 31.463051769092182,
+        },
+        "sot": {
+            "energy_reduction_max": 46.92869299418143,
+            "latency_reduction_max": 1.931271867702876,
+            "edp_reduction_max": 86.45868136499293,
+        },
+    },
+    "table2_anchor_max_rel_err": 0.0003477563438318577,
+}
 
 
 def fail(msg: str) -> None:
@@ -1072,6 +1206,200 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
             "library_ms": None}
 
 
+def nested_rel(got, want, where: str = "") -> float:
+    """Largest relative difference over the floats of nested dicts / lists;
+    fails on any other value that differs (labels, orgs, capacities)."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            fail(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        return max((nested_rel(got[k], want[k], f"{where}/{k}")
+                    for k in want), default=0.0)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{where}: {len(got)} entries != {len(want)}")
+        return max((nested_rel(g, w, f"{where}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))), default=0.0)
+    if isinstance(want, float):
+        return abs(got - want) / max(abs(want), 1e-300)
+    if got != want:
+        fail(f"{where}: {got!r} != {want!r}")
+    return 0.0
+
+
+def held(label: str, err: float, bar: float = PIPELINE_REL) -> float:
+    print(f"  {label}: max rel err {err:.3e} (bar {bar:g})", flush=True)
+    if not err <= bar:
+        fail(f"{label}: {err} > {bar}")
+    return err
+
+
+def pipeline_phase(card) -> dict:
+    """Phase 6: the float64 DeepNVM++ pipeline (`repro_torch.core`) on the
+    card: the Table II anchors against the scalar path, the paper's
+    analyses against the JAX reference's numbers, and the full mega sweep
+    cold, warm and sharded, against itself and against the port's CPU run
+    on this machine.  Returns the `{"pipeline": ...}` record."""
+    from repro_torch import scenarios
+    from repro_torch.core import (cachemodel, engine, isoarea, isocap,
+                                  scaling, sweep, tuner, workload_engine)
+    from repro_torch.core.calibration import TABLE2
+    dev, mems, cap = "cuda", ("sram", "stt", "sot"), 3 * 2**20
+    fields = ("read_latency_s", "write_latency_s", "read_energy_j",
+              "write_energy_j", "leakage_w", "area_mm2")
+    t_phase = time.perf_counter()
+    print(f"pipeline: {card}", flush=True)
+
+    # paper anchors: Table II at 3 MB through the engine on the card,
+    # against the scalar path (evaluate_scalar, tune_loop) and Table II
+    table = engine.design_table(mems, (cap,), device=dev)
+    scalar_err = 0.0
+    for mem in mems:
+        d = table.tuned(mem, cap)
+        model = cachemodel.CacheModel(mem, device=dev)
+        loop = tuner.tune_loop(model, cap)
+        if d.org != loop.org:
+            fail(f"{mem}: tuned org {d.org} != tune_loop's {loop.org}")
+        one = model.evaluate_scalar(cap, d.org)
+        for f in fields:
+            for other in (loop, one):
+                scalar_err = max(scalar_err, abs(getattr(d, f)
+                                                 - getattr(other, f))
+                                 / abs(getattr(other, f)))
+    held("Table II designs at 3 MB (cuda) vs evaluate_scalar / tune_loop",
+         scalar_err)
+    t2 = tuner.table2(device=dev)
+    held("Table II columns vs the JAX reference", nested_rel(
+        {col: {"capacity_bytes": d.capacity_bytes, "org": str(d.org),
+               **{f: getattr(d, f) for f in fields}}
+         for col, d in t2.items()}, PIPELINE_GOLDEN["table2"], "table2"))
+    anchor_err = max(
+        abs(m - r) / r for col in mems for m, r in (
+            (t2[col].capacity_mb, TABLE2[col]["cap"]),
+            (t2[col].read_latency_s * 1e9, TABLE2[col]["rlat"]),
+            (t2[col].write_latency_s * 1e9, TABLE2[col]["wlat"]),
+            (t2[col].read_energy_j * 1e9, TABLE2[col]["re"]),
+            (t2[col].write_energy_j * 1e9, TABLE2[col]["we"]),
+            (t2[col].leakage_w * 1e3, TABLE2[col]["leak"]),
+            (t2[col].area_mm2, TABLE2[col]["area"])))
+    print(f"  Table II 3 MB anchor error {anchor_err:.6e} (the reference's "
+          f"{PIPELINE_GOLDEN['table2_anchor_max_rel_err']:.6e})")
+    held("Table II 3 MB anchor error vs the reference's",
+         abs(anchor_err - PIPELINE_GOLDEN["table2_anchor_max_rel_err"])
+         / PIPELINE_GOLDEN["table2_anchor_max_rel_err"], ANCHOR_ERR_REL)
+
+    # the paper's analyses on the card against the reference's numbers
+    caps = {m: tuner.iso_area_capacity(m, device=dev) for m in ("stt", "sot")}
+    nested_rel(caps, PIPELINE_GOLDEN["isoarea_capacities_mb"], "iso-area")
+    print(f"  iso-area capacities at the 3 MB SRAM area: {caps} MB")
+    analyses = {
+        "isocap_summary": isocap.summary(isocap.analyze(device=dev)),
+        "isoarea_summary": isoarea.summary(isoarea.analyze(device=dev)),
+        "scaling_headline": scaling.headline(
+            scaling.workload_sweep(device=dev))}
+    analyses_err = max(held(f"{k} (cuda) vs the JAX reference",
+                            nested_rel(v, PIPELINE_GOLDEN[k], k))
+                       for k, v in analyses.items())
+
+    # the mega sweep: 182 scenarios x 288 designs x 2 platforms
+    spec = scenarios.mega_spec()
+    cells = sweep.n_cells(spec)
+    widest = max(len(s.streams) for s in spec.scenarios)
+    print(f"  mega spec: {len(spec.scenarios)} scenarios x "
+          f"{len(spec.designs)} designs x {len(spec.platforms)} platforms = "
+          f"{cells} cells, up to {widest} streams", flush=True)
+
+    def forget():
+        """Drop the sweep's, the fold's and the circuit tables' memos (the
+        calibration and the scenarios' traffic stay memoized)."""
+        sweep.clear_cache()
+        workload_engine.evaluate_platforms.cache_clear()
+        engine.design_table.cache_clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+    # cold: the spec's first run in the process (the calibration is fitted
+    # and the CUDA context up already); every later run starts after
+    # forget(), so each rebuilds the circuit table, tunes and folds
+    runs = {}
+    cold, runs["cold"], peak_cold = timed(lambda: sweep.run(spec, device=dev))
+    warm_runs = []
+    for _ in range(3):
+        forget()
+        warm, sec, peak_warm = timed(lambda: sweep.run(spec, device=dev))
+        warm_runs.append(sec)
+    runs["warm"] = sorted(warm_runs)[1]
+    print(f"  mega warm runs: {warm_runs} s", flush=True)
+    # the warm run's two halves: the circuit table with Algorithm 1 for
+    # every design, and the fold (pack, the device, the copy back)
+    forget()
+    (_, designs), lower_s, _ = timed(
+        lambda: sweep.lower_designs(spec.designs, device=dev))
+    _, fold_s, _ = timed(lambda: workload_engine.evaluate_platforms(
+        spec.scenarios, designs, spec.platforms, device=dev))
+    print(f"  warm halves: lower_designs {lower_s:.4f} s, fold "
+          f"{fold_s:.4f} s", flush=True)
+    forget()
+    # device-busy share of the warm run: profiled device time over the
+    # unprofiled run's wall time
+    rows = device_kernels(lambda: sweep.run(spec, device=dev))
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 \
+        if rows else None
+    busy = busy_ms / (1e3 * runs["warm"]) if rows else None
+    print(f"  warm run: device busy {busy_ms} ms of {1e3 * runs['warm']:.3f}"
+          f" ms ({busy})" if rows else "  warm run: device time not "
+          "measured (no CUDA profiler events)", flush=True)
+    sharded = {}
+    for devices in (None, 1):
+        forget()
+        plan = sweep.ShardPlan(**MEGA_PLAN, devices=devices)
+        sharded[devices], runs[f"sharded_devices_{devices}"], _ = timed(
+            lambda: sweep.run(spec, plan, device=dev))
+    t = time.perf_counter()
+    on_cpu = sweep.run(spec, device="cpu")
+    runs["cpu"] = time.perf_counter() - t
+
+    want = warm.rows()
+    orgs = [str(d.org) for d in warm.designs]
+    errs = {}
+    for label, res in (("cold", cold), ("sharded_devices_None",
+                                        sharded[None]),
+                       ("sharded_devices_1", sharded[1]), ("cpu", on_cpu)):
+        if [str(d.org) for d in res.designs] != orgs:
+            fail(f"mega {label}: tuned organizations differ from the warm "
+                 "run's")
+        errs[label] = held(f"mega rows, {label} vs warm (cuda)",
+                           nested_rel(res.rows(), want, f"mega/{label}"))
+    for label, sec in runs.items():
+        print(f"  mega {label}: {sec:.3f} s, {cells / sec:,.0f} cells/s",
+              flush=True)
+    print(f"  peak allocated: cold {peak_cold / 2**20:.1f} MiB, warm "
+          f"{peak_warm / 2**20:.1f} MiB", flush=True)
+    record = {
+        "card": card, "cells": cells, "scenarios": len(spec.scenarios),
+        "designs": len(spec.designs), "platforms": len(spec.platforms),
+        "max_streams": widest, "seconds": runs,
+        "cells_per_s": {k: cells / v for k, v in runs.items()},
+        "warm_runs_s": warm_runs,
+        "warm_halves_s": {"lower_designs": lower_s, "fold": fold_s},
+        "max_memory_allocated": {"cold": peak_cold, "warm": peak_warm},
+        "warm_device_busy_ms": busy_ms,
+        "warm_device_busy_share": busy,
+        "max_rel_err": {"table2_vs_scalar": scalar_err,
+                        "analyses_vs_reference": analyses_err,
+                        **{f"mega_{k}_vs_warm": v for k, v in errs.items()}},
+        "table2_anchor_max_rel_err": anchor_err,
+        "isoarea_capacities_mb": caps,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"pipeline phase: {record['phase_s']:.1f} s", flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1179,6 +1507,11 @@ def main() -> int:
                                counters)
     train_vs_plain(card, gemma_cfg, GEMMA_TRAIN_BATCH, lm)
 
+    # 6. the float64 DeepNVM++ pipeline, on a card with Gemma's memory
+    # released
+    torch.cuda.empty_cache()
+    pipeline = pipeline_phase(card)
+
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:78"}
@@ -1207,6 +1540,7 @@ def main() -> int:
         "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
         "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
         wkv_entry]}))
+    print(json.dumps({"pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,21 @@
 """The CUDA kernels (flash attention forward and backward, WKV6) against
-their plain twins, on the GPU.
+their plain twins, and the float64 DeepNVM++ pipeline on `cuda` against
+the same pipeline on `cpu` (1e-12 relative, equal tuned organizations),
+on the GPU.
 
 Marked `cuda`: each test skips without a CUDA device.  Run on the GPU
 machine with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
 This file imports no JAX (the GPU machine has none).
 """
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import engine, sweep, tech, workload_engine, workloads
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import wkv6 as wkv
@@ -443,3 +449,81 @@ def test_rwkv_model_launches_one_kernel_per_layer_per_step(dev):
     assert wkv.wkv6.launches - before == 3 * cfg.n_layers
     for g, p in zip(got, want):
         assert ((g - p).abs().max() / p.abs().max()).item() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# The float64 pipeline: cuda against cpu
+# ---------------------------------------------------------------------------
+
+PIPE_REL = 1e-12
+PIPE_MEMS = ("sram", "stt", "sot")
+PIPE_CAPS = tuple(int(c * 2**20) for c in (0.5, 1, 3, 7, 10, 16, 64, 96))
+SPECS = Path(__file__).resolve().parents[1] / "specs"
+
+
+def _max_rel(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    return float(np.max(np.abs(got - want)
+                        / np.maximum(np.abs(want), 1e-300)))
+
+
+def test_pipeline_design_table_cuda_matches_cpu(dev):
+    nodes = tuple(tech.NODES.values())
+    got = engine.design_table(PIPE_MEMS, PIPE_CAPS, nodes=nodes,
+                              device="cuda")
+    want = engine.design_table(PIPE_MEMS, PIPE_CAPS, nodes=nodes,
+                               device="cpu")
+    for f in ("read_latency_s", "write_latency_s", "read_energy_j",
+              "write_energy_j", "leakage_w", "area_mm2"):
+        assert _max_rel(getattr(got, f), getattr(want, f)) <= PIPE_REL, f
+    for node in nodes:
+        for mem in PIPE_MEMS:
+            for cap in PIPE_CAPS:
+                assert got.tuned_index(mem, cap, node) \
+                    == want.tuned_index(mem, cap, node), (node, mem, cap)
+
+
+def test_pipeline_fold_cuda_matches_cpu(dev):
+    table = engine.design_table(PIPE_MEMS, PIPE_CAPS, device="cpu")
+    designs = [table.tuned(m, c) for c in PIPE_CAPS for m in PIPE_MEMS]
+    stats = [workload_engine.stats_for(w, b, t)
+             for w in workloads.registry().values()
+             for t in (False, True) for b in (1, 64, 4096)]
+    platforms = tuple(tech.PLATFORMS.values())
+    want = workload_engine.evaluate_platforms(stats, designs, platforms,
+                                              device="cpu")
+    for path in ("evaluate_platforms", "evaluate_bucketed",
+                 "evaluate_chunk"):
+        got = getattr(workload_engine, path)(stats, designs, platforms,
+                                             device="cuda")
+        for g, w in zip(got, want):
+            for f in ("l2_read_tx", "l2_write_tx", "dram_tx", "runtime_s",
+                      "runtime_nodram_s", "dyn_read_j", "dyn_write_j",
+                      "leak_j", "leak_nodram_j", "dram_j"):
+                assert _max_rel(getattr(g, f), getattr(w, f)) \
+                    <= PIPE_REL, (path, f)
+    assert _max_rel(workload_engine.dram_tx(stats, PIPE_CAPS, device="cuda"),
+                    workload_engine.dram_tx(stats, PIPE_CAPS, device="cpu")) \
+        <= PIPE_REL
+
+
+@pytest.mark.parametrize("name", ["isocap", "dtco", "dtco_isoarea", "lm_nvm",
+                                  "mixed_cnn_lm"])
+def test_pipeline_golden_spec_cuda_matches_cpu(dev, name):
+    spec = sweep.load_spec(str(SPECS / f"{name}.json")).resolve()
+    got = sweep.run(spec, device="cuda")
+    want = sweep.run(spec, device="cpu")
+    assert [str(d.org) for d in got.designs] \
+        == [str(d.org) for d in want.designs]
+    sharded = sweep.run(spec, sweep.ShardPlan(scenario_chunk=3, devices=1),
+                        device="cuda")
+    for res in (got, sharded):
+        assert len(res.rows()) == len(want.rows())
+        for g, w in zip(res.rows(), want.rows()):
+            assert g.keys() == w.keys()
+            for k, v in w.items():
+                if isinstance(v, float):
+                    assert abs(g[k] - v) <= PIPE_REL * abs(v), (name, k)
+                else:
+                    assert g[k] == v, (name, k)
