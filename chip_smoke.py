@@ -23,7 +23,12 @@ Phases, each fatal on failure:
      256); wkv6 over WKV_CASES (one with rows that take the
      kernel's 4-byte copy path) and a state-carry case, y and the final
      state within |got - want| <= 1e-4 + 1e-4 |want| elementwise, the main
-     shape included;
+     shape included; the wkv6 backward over WKV_CASES with a random
+     ds_final (and at the main shape without, as training calls it): dr,
+     dk, dv, dw, du and ds0 against `ref.wkv6_bwd_plain` within 1e-4 x
+     max(max |want|, 1) absolute, the forward's checkpoints against the
+     plain recurrence's states and its y bitwise equal to serving's, and
+     two backward calls at (4, 2048, 40, 64) bitwise equal;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: `repro_torch.launch.serve.main` serving
      TinyLlama-1.1B, RWKV6-3B and, last, Gemma-7B (head dim 256: exactly
@@ -36,7 +41,14 @@ Phases, each fatal on failure:
      losses), then one step through the kernels against one through the
      plain twins from the same params and batch, and the reduced dense
      configs at 2048 tokens (forward and one train step) through the
-     kernels; last, after the Gemma-7B serve, the same training phase on
+     kernels; after the RWKV6-3B serve, the same training phase on
+     RWKV6-3B at every published width and full depth (batch 4 x 2048:
+     exactly 64 wkv6 forwards, each writing checkpoints, and 32 wkv6
+     backwards a step), its step through the kernels against the plain
+     twins at RWKV_CHECK_LAYERS layers, and the backward timed at (4,
+     2048, 40, 64) beside its plain twin and bound, with the forward with
+     and without checkpoints; last, after the Gemma-7B serve, the same
+     training phase on
      Gemma-7B at full width (every published width; its one reduction is
      depth, 6 of 28 layers, GEMMA_TRAIN_LAYERS, as fp32 masters with
      AdamW for all 28 need ~136 GB) at batch 2 x seq 2048: exactly 12
@@ -60,7 +72,8 @@ Phases, each fatal on failure:
   5. torch.profiler's device time for one prefill (with the flash
      forward's share), three decode steps and one training step of each
      trained model, as a share of the timings above, with the heaviest
-     kernels (and the flash backward's share of the step);
+     kernels (and the flash backward's and the wkv6 forward's and
+     backward's shares of the step);
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -216,6 +229,13 @@ WKV_CASES = [
     (4, 2048, 40, 64, 32, -3.0, True, 0),      # the main path's shape
 ]
 WKV_MAIN = WKV_CASES[-1]
+# RWKV6-3B trained at every published width and full depth (2.86 B fp32
+# params with grads, m and v ~46 GB, plus the fp32 logits of 4 x 2048
+# tokens over 65536 entries, 2.1 GB a copy); its step against the plain
+# twins at RWKV_CHECK_LAYERS layers, since the plain recurrence's
+# per-token autograd graph costs ~5.4 GB and ~1 s a layer at this shape
+RWKV_TRAIN_BATCH = 4
+RWKV_CHECK_LAYERS = 3
 
 # The float64 DeepNVM++ pipeline (phase 6).  Its bar: 1e-12 relative, the
 # one the reference holds between its own scalar and batched paths.  The
@@ -355,9 +375,9 @@ def ptxas_report(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            name = re.search(r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_kernel)I",
-                             mangled)
-            args = re.findall(r"Li(\d+)E", mangled)
+            name = re.search(
+                r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)I", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
             dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
                   if re.search(r"ILi\d+EfE", mangled) else "")
             cur = {"kernel": f"{name.group(1) if name else mangled}<"
@@ -743,9 +763,12 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
           f"(median {step_ms:.3f} ms, {batch * PROMPT * 1e3 / step_ms:.1f} "
           f"tokens/s); peak memory {peak_gb:.3f} GB; losses {losses}; "
           f"launches per step {per_step} [{card}]", flush=True)
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
-    if any(n != want for n in per_step):
+    n = cfg.n_layers
+    want = ({"flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 2 * n,
+             "wkv6_bwd": n} if cfg.rwkv else
+            {"flash_attention": 2 * n, "flash_attention_bwd": n, "wkv6": 0,
+             "wkv6_bwd": 0})
+    if any(c != want for c in per_step):
         fail(f"train {cfg.name} launched {per_step}; want {want} a step (a "
              "forward per layer, its recompute, and a backward per layer)")
     if not all(math.isfinite(x) for x in losses):
@@ -761,6 +784,15 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
                   f"{re.search(r'flash_bwd_[a-z_0-9]+(<[^>]*>)?', e.key)[0]} "
                   f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                   for e in bwd_rows) + f") [{card}]", flush=True)
+    for label, part in wkv6_parts(rows).items():
+        if part:   # the wkv6 kernels' share of the step
+            part_ms = sum(e.self_device_time_total for e in part) / 1e3
+            print(f"{cfg.name} train step: the wkv6 {label} {part_ms:.3f} ms "
+                  f"of device time, {100 * part_ms / step_ms:.1f} % of the "
+                  f"{step_ms:.3f} ms step (" + ", ".join(
+                      f"{wkv6_name(e.key)} {e.self_device_time_total / 1e3:.3f}"
+                      f" ms x{e.count}" for e in part) + f") [{card}]",
+                  flush=True)
     del state
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "launches": per_step[0]}
@@ -831,9 +863,10 @@ def reduced_dense(card, configs, lm, train, counters) -> None:
               flush=True)
         if (rel > 2e-2 or not math.isfinite(loss)
                 or fwd != {"flash_attention": n, "flash_attention_bwd": 0,
-                           "wkv6": 0}
+                           "wkv6": 0, "wkv6_bwd": 0}
                 or trained != {"flash_attention": 2 * n,
-                               "flash_attention_bwd": n, "wkv6": 0}):
+                               "flash_attention_bwd": n, "wkv6": 0,
+                               "wkv6_bwd": 0}):
             fail(f"reduced {cfg.name} through the kernels: rel {rel}, loss "
                  f"{loss}, launches {fwd} / {trained}")
         del model, state, step, logits, want
@@ -919,7 +952,7 @@ def dense_serve(card, configs, serve, counters, arch) -> int:
     print(f"serve {arch}: {serve_s:.3f}s end to end (weights init included), "
           f"launches {counts} [{card}]", flush=True)
     if counts != {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
-                  "wkv6": 0}:
+                  "wkv6": 0, "wkv6_bwd": 0}:
         fail(f"serve {arch} launched {counts}; want flash_attention once "
              f"per layer ({cfg.n_layers}) and nothing else")
     check_tokens(toks, cfg.vocab, arch)
@@ -966,12 +999,14 @@ def wkv_ok(got, want) -> tuple[bool, float]:
             d.max().item())
 
 
-def wkv_bound(case) -> tuple[float, str]:
-    """Least time (ms): r, k, v, w, u and s0 read once, y and s_final
-    written once, against the recurrence's 4*B*S*H*hd^2 fp32 operations."""
+def wkv_bound(case, every: int | None = None) -> tuple[float, str]:
+    """Least time (ms): r, k, v, w, u and s0 read once, y and s_final (and
+    given `every`, the state every `every` tokens) written once, against
+    the recurrence's 4*B*S*H*hd^2 fp32 operations."""
     b, s, h, hd, _, _, with_s0, _ = case
     nbytes = 4 * (5 * b * s * h * hd + h * hd
-                  + (2 if with_s0 else 1) * b * h * hd * hd)
+                  + (2 if with_s0 else 1) * b * h * hd * hd
+                  + (-(-s // every) * b * h * hd * hd if every else 0))
     flops = 4.0 * b * s * h * hd * hd
     return roofline(flops, nbytes, PEAK_F32_FLOPS)
 
@@ -1096,7 +1131,7 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
     print(f"serve {RWKV_ARCH}: {serve_s:.3f}s end to end (weights init "
           f"included), launches {launches} [{card}]", flush=True)
     want = {"wkv6": cfg.n_layers * GEN, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "wkv6_bwd": 0}
     if launches != want:
         fail(f"serve {RWKV_ARCH} launched {launches}; want {want} (one "
              "wkv6 per layer for the prefill and each of the "
@@ -1204,6 +1239,171 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
             "launches": launches["wkv6"], "max_abs_err": None, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def wkv6_parts(rows) -> dict:
+    """A profile's wkv6 rows: the forward (the checkpointing kernel) and
+    the backward (the row walk, the forward kernel walked back for dv,
+    the du sum)."""
+    fwd = [e for e in rows if "wkv6_kernel" in e.key and "true>" in e.key]
+    bwd = [e for e in rows if "wkv6_bwd_kernel" in e.key
+           or "wkv6_du_kernel" in e.key
+           or ("wkv6_kernel" in e.key and "false>" in e.key)]
+    return {"forward": fwd, "backward": bwd}
+
+
+def wkv6_name(key: str) -> str:
+    """A profiler row's wkv6 kernel, short: the checkpointing forward, the
+    backward's dv pass (the forward kernel walked back), or the name."""
+    name = re.search(r"wkv6_\w*kernel", key)[0]
+    return name + (" (checkpoints)" if "true>" in key else
+                   " (dv pass)" if "false>" in key else "")
+
+
+def wkv_bwd_inputs(case, seed=3):
+    """The backward's arguments at one WKV case, but the checkpoints: the
+    forward's inputs, dy ~ N(0, 1) and ds_final ~ 0.1 N."""
+    r, k, v, w, u, s0 = wkv_inputs(case)
+    g = torch.Generator("cuda").manual_seed(seed)
+    dy = torch.randn(r.shape, generator=g, device="cuda")
+    dsf = 0.1 * torch.randn(s0.shape if s0 is not None else
+                            (r.shape[0], r.shape[2], r.shape[3], r.shape[3]),
+                            generator=g, device="cuda")
+    return r, k, v, w, u, s0, dy, dsf
+
+
+WKV_BWD_BAR = "|got - want| <= 1e-4 x max(max |want|, 1), each output"
+
+
+def check_wkv6_bwd(wkv, ref) -> float:
+    """Phase 2 for the wkv6 backward: over WKV_CASES (the decode shape S = 1
+    among them), with a random ds_final (and at the main shape also
+    without, as training calls it), dr, dk, dv, dw, du and ds0 against
+    `ref.wkv6_bwd_plain` within WKV_BWD_BAR; the forward's checkpoints
+    against the plain recurrence's states (WKV_BAR) and its y with them
+    bitwise equal to y without; and two backward calls at the main shape
+    bitwise equal.  Returns the max abs error at the main shape."""
+    main_err = None
+    for case in WKV_CASES:
+        r, k, v, w, u, s0, dy, dsf = wkv_bwd_inputs(case)
+        y, _, ck = wkv.wkv6_fwd(r, k, v, w, u, s0, chunk=case[4],
+                                want_ckpt=True)
+        y_serve, _ = wkv.wkv6(r, k, v, w, u, s0, chunk=case[4])
+        ok_ck, err_ck = wkv_ok(ck, ref.wkv6_checkpoints(k, v, w, s0,
+                                                        wkv.CKPT_EVERY))
+        same_y = torch.equal(y, y_serve)
+        for ds_final in ((dsf, None) if case is WKV_MAIN else (dsf,)):
+            got = wkv.wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ck,
+                               chunk=case[4])
+            want = ref.wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final,
+                                      ckpt_every=wkv.CKPT_EVERY)
+            torch.cuda.synchronize()
+            errs, ok = {}, ok_ck and same_y
+            for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                                  want):
+                if name == "ds0" and s0 is None:
+                    continue
+                err = (a - b).abs().max().item()
+                bar = 1e-4 * max(b.abs().max().item(), 1.0)
+                errs[name] = err
+                ok = ok and err <= bar and torch.isfinite(a).all().item()
+            print(json.dumps({"wkv6_bwd_case": list(case),
+                              "ds_final": ds_final is not None,
+                              "max_abs_err": errs, "bar": WKV_BWD_BAR,
+                              "ckpt_max_abs_err": err_ck,
+                              "y_with_ckpt_equal": same_y, "ok": ok}),
+                  flush=True)
+            if not ok:
+                fail(f"wkv6_bwd {case}: errors {errs}, checkpoints {err_ck}"
+                     f" ({ok_ck}), y equal {same_y}")
+            if case is WKV_MAIN and ds_final is None:
+                main_err = max(errs.values())
+        del r, k, v, w, u, s0, dy, dsf, y, ck, got, want
+    r, k, v, w, u, _, dy, _ = wkv_bwd_inputs(WKV_MAIN)
+    _, _, ck = wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True)
+    first = wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck)
+    second = wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(json.dumps({"wkv6_bwd_deterministic": list(WKV_MAIN),
+                      "bitwise_equal_dr_dk_dv_dw_du_ds0": same}), flush=True)
+    if not all(same):
+        fail(f"wkv6_bwd {WKV_MAIN}: two calls differ ({same})")
+    return main_err
+
+
+def wkv_bwd_bound(case, every: int) -> tuple[float, str]:
+    """Least time (ms) for the backward: r, k, v, w, dy, u and the
+    checkpoints (every `every` tokens) read, dr, dk, dv, dw, du and ds0
+    written once, against its 14 B S H hd^2 fp32 operations (the state's
+    recompute 3, G's update 3, and 2 each for dr, dk, dv, dw, per state
+    element and token)."""
+    b, s, h, hd = case[:4]
+    nck = -(-s // every)
+    nbytes = 4 * (9 * b * s * h * hd + 2 * h * hd
+                  + (nck + 1) * b * h * hd * hd)
+    return roofline(14.0 * b * s * h * hd * hd, nbytes, PEAK_F32_FLOPS)
+
+
+def time_wkv6_train(wkv, ref, card) -> tuple:
+    """Phase 4a for training at the main shape (training calls it without
+    s0): the forward with its checkpoints beside the forward without
+    (serving's), and the backward (its three launches, by profiler too)
+    against its plain twin and its bound.  Returns (ms, plain_ms, bound_ms,
+    bound_by) of the backward."""
+    r, k, v, w, u, _, dy, _ = wkv_bwd_inputs(WKV_MAIN)
+    fwd_ms = time_ms(lambda: wkv.wkv6(r, k, v, w, u), 20)
+    ck_ms = time_ms(lambda: wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True), 20)
+    fwd_ms2 = time_ms(lambda: wkv.wkv6(r, k, v, w, u), 20)
+    _, _, ck = wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True)
+    ms = time_ms(lambda: wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck), 20)
+    plain_ms = time_ms(lambda: ref.wkv6_bwd_plain(r, k, v, w, u, None, dy,
+                                                  None), 2, warmup=1)
+    bound_ms, bound_by = wkv_bwd_bound(WKV_MAIN, wkv.CKPT_EVERY)
+    no_s0 = WKV_MAIN[:6] + (False,) + WKV_MAIN[7:]
+    ck_bound = wkv_bound(no_s0, wkv.CKPT_EVERY)
+    rows = device_kernels(lambda: [wkv.wkv6_bwd(r, k, v, w, u, None, dy,
+                                                None, ck) for _ in range(10)])
+    parts = ", ".join(f"{wkv6_name(e.key)} "
+                      f"{e.self_device_time_total / 1e4:.4f} ms"
+                      for e in rows if "wkv6" in e.key) or "not measured"
+    print(f"wkv6 {WKV_MAIN[:4]} fp32 without s0: forward {fwd_ms:.4f} / "
+          f"{fwd_ms2:.4f} ms (bound {wkv_bound(no_s0)[0]:.4f} ms), with "
+          f"checkpoints {ck_ms:.4f} ms (bound {ck_bound[0]:.4f} ms, "
+          f"{ck_bound[1]}); backward "
+          f"{ms:.4f} ms (per launch, profiler: {parts}), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
+          flush=True)
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def rwkv_train(card, configs, lm, train, wkv, ref, counters) -> dict:
+    """Phases 3-5 for RWKV6-3B training: `train_path` at every published
+    width and full depth (batch RWKV_TRAIN_BATCH x seq 2048, fp32 masters,
+    remat full: exactly 2 wkv6 forwards and 1 wkv6 backward a layer a
+    step), the step through the kernels against the plain twins at
+    RWKV_CHECK_LAYERS layers, and the backward's timings.  Returns the
+    wkv6_bwd entry of the kernels line."""
+    t0 = time.perf_counter()
+    cfg = configs.get(RWKV_ARCH)
+    trained = train_path(card, cfg, RWKV_TRAIN_BATCH, train, counters)
+    cut = dataclasses.replace(cfg, n_layers=RWKV_CHECK_LAYERS)
+    print(f"train {RWKV_ARCH} kernels vs plain: every published width, "
+          f"depth cut to {RWKV_CHECK_LAYERS} of {cfg.n_layers} layers (the "
+          "plain recurrence's per-token autograd graph costs ~5.4 GB and "
+          "~1 s a layer)", flush=True)
+    train_vs_plain(card, cut, RWKV_TRAIN_BATCH, lm)
+    ms, plain_ms, bound_ms, bound_by = time_wkv6_train(wkv, ref, card)
+    torch.cuda.empty_cache()
+    print(f"rwkv training phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"name": "wkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            # no TPU kernel: the VJP of the lax.scan the JAX package
+            # differentiates
+            "replaces": "src/repro/models/blocks.py:381",
+            "launches": trained["launches"]["wkv6_bwd"], "max_abs_err": None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def nested_rel(got, want, where: str = "") -> float:
@@ -1438,11 +1638,12 @@ def main() -> int:
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)
     wkv_main_err = check_wkv6(wkv)
+    wkv_bwd_err = check_wkv6_bwd(wkv, ref)
 
     # 3-5 for the dense main paths, TinyLlama-1.1B and Gemma-7B (hd 256)
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd,
-                "wkv6": wkv.wkv6}
+                "wkv6": wkv.wkv6, "wkv6_bwd": wkv.wkv6_bwd}
     launches = dense_serve(card, configs, serve, counters, ARCH)
 
     # 4a. kernel timings at the main path's shape, at hd 128 and hd 256
@@ -1483,6 +1684,10 @@ def main() -> int:
     # 3-5 for the RWKV main path
     wkv_entry = rwkv_path(card, configs, lm, serve, wkv, counters)
     wkv_entry["max_abs_err"] = wkv_main_err
+    # 3-5 for RWKV6-3B training, through the wkv6 forward (with
+    # checkpoints) and backward
+    wkv_bwd_entry = rwkv_train(card, configs, lm, train, wkv, ref, counters)
+    wkv_bwd_entry["max_abs_err"] = wkv_bwd_err
 
     # 3-5 for Gemma-7B (hd 256), last: the phases above run as they ran
     # before it was added, so their host-bound times stay comparable, and
@@ -1539,7 +1744,7 @@ def main() -> int:
         "max_abs_err": errs[GEMMA_B2][1], "ms": gemma_bwd[0],
         "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
         "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
-        wkv_entry]}))
+        wkv_entry, wkv_bwd_entry]}))
     print(json.dumps({"pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {

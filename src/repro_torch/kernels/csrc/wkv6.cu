@@ -1,5 +1,5 @@
-// WKV6 (the RWKV6 "Finch" time-mix recurrence) for Hopper (sm_90a), bound
-// to Python with ctypes.
+// WKV6 (the RWKV6 "Finch" time-mix recurrence) for Hopper (sm_90a), forward
+// and backward, bound to Python with ctypes.
 //
 // Replaces the Pallas TPU kernel `_wkv_kernel` behind `wkv6` in
 // src/repro/kernels/rwkv6.py.  Per (batch, head), with an (hd, hd) fp32
@@ -70,6 +70,61 @@
 //    tile's column-wise copies free of bank conflicts.
 //  * tools/wkv6_variants.py builds and times other hd-64 layouts and ring
 //    depths (it edits the Pick<64> and kStages lines).
+//  * Checkpoints for the backward.  Given a `ckpt` pointer (training), the
+//    kernel also writes the state before tokens 0, 32, 64, ...
+//    (kCkptEvery) to (B, H, ceil(S / 32), hd, hd), each thread its own
+//    elements straight from registers.  That is a template flag: serving
+//    passes none and runs the kernel built without it.
+//
+// The backward (`wkv6_bwd`) has no TPU counterpart: the JAX package
+// differentiates the `lax.scan` of src/repro/models/blocks.py:381.  With
+// G_t = dL/dS_t, G_T = ds_final, walking t from T down to 1:
+//     dr_t[i] = sum_j dy_t[j] S_{t-1}[i,j] + u[i] k_t[i] (dy_t . v_t)
+//     dk_t[i] = sum_j G_t[i,j] v_t[j]      + u[i] r_t[i] (dy_t . v_t)
+//     dv_t[j] = sum_i k_t[i] G_t[i,j]      + dy_t[j] sum_i r_t[i] u[i] k_t[i]
+//     dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+//     du[i]  += r_t[i] k_t[i] (dy_t . v_t)
+//     G_{t-1} = diag(w_t) G_t + r_t^T dy_t,   ds0 = G_0.
+// dw needs S_{t-1} and G_t at the same step.  S_{t-1} is never recovered by
+// running the state backwards ((S_t - k^T v) / w) nor dw from log-space
+// sums divided by w: w reaches 1e-6 and below, and fp32 would turn that
+// division into O(0.1) errors.  Both walks here multiply by w <= 1 only.
+// Three launches, no atomics (two calls give equal bits):
+//  * wkv6_bwd_kernel: rows are independent in dr, dk, dw (sums over j), so
+//    a block owns RB rows of one head, all columns; NJ neighbouring lanes
+//    share a row.  Spans of kCkptEvery tokens are taken last to first,
+//    staged (r, k, w rows, v, dy) through a two-stage cp.async ring.  In a
+//    span, pass 1 runs the state on from the span's checkpoint and keeps
+//    it at every CI-th token in the thread's own shared-memory slots; pass
+//    2 takes those sub-spans last to first, recomputes the state before
+//    each of its CI tokens into registers, and walks them backwards with G
+//    in registers.  Each token leaves four sums over the lane's columns
+//    (dy.S, G.v, G.S, dy.v); one transposing butterfly over the CI lanes
+//    (after adding lanes CI, 2 CI, ... apart where NJ > CI) leaves lane g
+//    with token g's whole sums, and it stores dr, dk, dw.  du is summed
+//    per (b, h, row) over the tokens and written to a (B, H, hd) scratch.
+//  * dv and ds0: dv_t = k_t (G_t + diag(u) r_t^T dy_t) and G_{t-1} =
+//    diag(w_t) G_t + r_t^T dy_t are the forward recurrence with r and k
+//    swapped, v -> dy and s0 -> ds_final, run from the last token to the
+//    first: the forward kernel itself, on pointers that start at token
+//    S - 1 with negated token strides.  Its y is dv, its final state ds0.
+//  * wkv6_du_kernel sums du over b, in order.
+// Bounds at the training step's shape (B=4, S=2048, H=40, hd=64, fp32) on
+// an H100 SXM:
+//  * bytes: r, k, v, w and dy read, dr, dk, dv and dw written, 9 x 83.9 MB,
+//    plus the 168 MB of checkpoints read: ~0.92 GB, 0.28 ms at 3.35 TB/s;
+//  * instructions: at least 8 fp32 instructions per state element per
+//    token (2 for the state's recompute, 2 for the G update, one FMA each
+//    for dr, dw, dk, dv), 336 M warp instructions, ~0.36 ms at the
+//    forward's rate.  The bound is ~0.36 ms, instructions.  As FLOP (3
+//    for the recompute, 3 for G, 2 each for dr, dk, dv, dw: 14 B S H hd^2
+//    = 18.8 GFLOP) it is 0.28 ms at 67 TFLOP/s fp32, as chip_smoke.py
+//    counts it.
+// This first design spends more: the row walk 10 per element and token
+// (the state is recomputed twice, once for the sub-span checkpoints, once
+// into registers) plus the butterflies, and the dv pass the forward's 4,
+// on inputs it reads again.  Tensor cores and the chunked form are later
+// work.
 
 #include <cuda_runtime.h>
 
@@ -80,6 +135,11 @@ namespace {
 
 constexpr int kStages = 2;
 constexpr size_t kSmemMax = 227 * 1024;  // a block's opt-in shared memory
+// Tokens between two of the forward's checkpoints (the state before tokens
+// 0, kCkptEvery, 2 kCkptEvery, ...), which the backward walks back from.
+// A constant of its own: the stage's `chunk` shrinks where two stages do
+// not fit, and the checkpoints must not move with it.
+constexpr int kCkptEvery = 32;
 
 // ROWS state rows and COLS state columns a thread, VT columns a block, and
 // the blocks an SM must hold (launch bounds: registers <= 64K / (MINB NT)).
@@ -117,8 +177,10 @@ struct Params {
   const float* s0;  // (B, H, hd, hd), contiguous, or null for zeros
   float* y;         // 16-byte aligned, strides multiples of 4
   float* s_final;   // (B, H, hd, hd), contiguous
+  float* ckpt;      // (B, H, nck, hd, hd), contiguous: the kCkpt kernel's
   long long sr[3], sk[3], sv[3], sw[3], sy[3];  // element strides of b, s, h
   int H, S;
+  int nck;    // checkpoints a head: ceil(S / kCkptEvery)
   int chunk;  // tokens per stage
   int vec;    // 1: 16-byte copies, 0: 4-byte copies
 };
@@ -128,6 +190,7 @@ struct Params {
 struct Head {
   const float *r, *k, *v, *w;
   float* y;
+  float* ck;  // the head's first checkpoint, column j0 (kCkpt only)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -247,7 +310,7 @@ __device__ __forceinline__ void butterfly(float (&part)[COLS][G], int g) {
 // transposing butterfly over the G lanes sums them, leaving lane g with
 // token t0 + g: G - 1 shuffles per column per group instead of
 // log2(G) per column per token, and no shuffle on the walk's chain.
-template <class K, bool kFull>
+template <class K, bool kFull, bool kCkpt>
 __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
                                            long long base, int j0,
                                            const float* stage, int C, int t0,
@@ -260,6 +323,8 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
   const float* ks = rs + C * HD;
   const float* ws = ks + C * HD;
   const float* vs = ws + C * HD;
+  // the group's first token, counted from the last checkpoint
+  const int ck0 = kCkpt ? (int)((base + t0) % kCkptEvery) : 0;
   float part[COLS][G];
 #pragma unroll
   for (int tt = 0; tt < G; ++tt) {
@@ -267,6 +332,23 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
     for (int c = 0; c < COLS; ++c) part[c][tt] = 0.f;
     if (kFull || tt < m) {
       const int t = t0 + tt;
+      if constexpr (kCkpt) {
+        // the state before a token of a multiple of kCkptEvery: each
+        // thread writes its rows' COLS columns straight from registers
+        if ((ck0 + tt) % kCkptEvery == 0) {
+          float* ck = a.ck + (base + t) / kCkptEvery * (HD * HD) +
+                      cg * COLS;
+#pragma unroll
+          for (int q = 0; q < ROWS / 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float row[COLS];
+#pragma unroll
+              for (int c = 0; c < COLS; ++c) row[c] = st[c][4 * q + e];
+              store_cols<COLS>(ck + (4 * (g + G * q) + e) * HD, row);
+            }
+        }
+      }
       const float4* r4 = reinterpret_cast<const float4*>(rs + t * HD) + g;
       const float4* k4 = reinterpret_cast<const float4*>(ks + t * HD) + g;
       const float4* w4 = reinterpret_cast<const float4*>(ws + t * HD) + g;
@@ -302,7 +384,7 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
 }
 
 // Walks the n tokens of one stage, G at a time.
-template <class K>
+template <class K, bool kCkpt>
 __device__ __forceinline__ void walk(const Params& p, const Head& a,
                                      long long base, int j0,
                                      const float* stage, int C, int n, int g,
@@ -311,13 +393,16 @@ __device__ __forceinline__ void walk(const Params& p, const Head& a,
   int t0 = 0;
 #pragma unroll 1
   for (; t0 + K::G <= n; t0 += K::G)
-    walk_group<K, true>(p, a, base, j0, stage, C, t0, K::G, g, cg, ur, st);
+    walk_group<K, true, kCkpt>(p, a, base, j0, stage, C, t0, K::G, g, cg, ur,
+                               st);
   if (t0 < n)
-    walk_group<K, false>(p, a, base, j0, stage, C, t0, n - t0, g, cg, ur,
-                         st);
+    walk_group<K, false, kCkpt>(p, a, base, j0, stage, C, t0, n - t0, g, cg,
+                                ur, st);
 }
 
-template <class K>
+// kCkpt: also write the state before every kCkptEvery-th token to p.ckpt
+// (the training forward); serving builds the kernel without it.
+template <class K, bool kCkpt>
 __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
     wkv6_kernel(const __grid_constant__ Params p) {
   constexpr int HD = K::HD, VT = K::VT, G = K::G, NT = K::NT;
@@ -340,6 +425,7 @@ __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
   a.w = p.w + b * p.sw[0] + h * p.sw[2];
   a.y = p.y + b * p.sy[0] + h * p.sy[2];
   const long long sbase = (long long)bh * HD * HD;
+  a.ck = kCkpt ? p.ckpt + sbase * p.nck + j0 : nullptr;
 
   float ur[ROWS];
 #pragma unroll
@@ -386,8 +472,9 @@ __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
       load_chunk<K>(p, a, ring + (cn % kStages) * stage_floats, C,
                     (long long)cn * C, min(C, S - cn * C), j0);
     cp_commit();
-    walk<K>(p, a, (long long)ci * C, j0, ring + (ci % kStages) * stage_floats,
-            C, min(C, S - ci * C), g, cg, ur, st);
+    walk<K, kCkpt>(p, a, (long long)ci * C, j0,
+                   ring + (ci % kStages) * stage_floats, C,
+                   min(C, S - ci * C), g, cg, ur, st);
   }
 
   // The final state leaves through the tile, whole rows at a time.
@@ -407,7 +494,7 @@ __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
   }
 }
 
-template <class K>
+template <class K, bool kCkpt>
 cudaError_t launch(Params p, int B, cudaStream_t stream) {
   const size_t token_bytes = sizeof(float) * K::kTokenFloats;
   const size_t tile_bytes = sizeof(float) * K::kTileFloats;
@@ -415,12 +502,18 @@ cudaError_t launch(Params p, int B, cudaStream_t stream) {
   p.chunk = std::min(std::min(p.chunk, p.S), fit);
   const size_t smem = tile_bytes + kStages * p.chunk * token_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_kernel<K, kCkpt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * p.H, K::HD / K::VT);
-  wkv6_kernel<K><<<grid, K::NT, smem, stream>>>(p);
+  wkv6_kernel<K, kCkpt><<<grid, K::NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <class K>
+cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
+  return p.ckpt ? launch<K, true>(p, B, stream)
+                : launch<K, false>(p, B, stream);
 }
 
 // Whether a (B, S, H, hd) tensor allows 16-byte copies along hd: its base
@@ -434,11 +527,306 @@ bool aligned16(const void* ptr, const long long* st, int B, int S, int H) {
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// The backward: dr, dk, dw and du by the row walk below, dv and ds0 by the
+// forward kernel walked back in time (see the header).
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdStages = 2;
+
+// NJ lanes share one state row, each holding E = HD / NJ of its columns
+// (lane l: columns 4 (l + NJ q) + e, e < 4); RB rows a block; CI tokens a
+// sub-span, which is also the butterfly's group; MINB blocks an SM must
+// hold (launch bounds).
+template <int HD_, int NJ_, int RB_, int CI_, int MINB_>
+struct BCfg {
+  static constexpr int HD = HD_, NJ = NJ_, RB = RB_, CI = CI_;
+  static constexpr int E = HD / NJ;
+  static constexpr int NT = RB * NJ;
+  static constexpr int kMinBlocks = MINB_;
+  static constexpr int kSub = kCkptEvery / CI;          // sub-spans a span
+  static constexpr int kTokenFloats = 3 * RB + 2 * HD;  // r k w | v dy
+  static constexpr int kStageFloats = kCkptEvery * kTokenFloats;
+  static constexpr int kSubFloats = kSub * E * NT;
+  static_assert(E % 4 == 0 && 32 % NJ == 0 && NJ % CI == 0, "lanes");
+  static_assert(RB % 4 == 0 && HD % RB == 0 && NT % 32 == 0, "rows");
+  static_assert(kCkptEvery % CI == 0, "sub-spans");
+};
+
+template <int HD>
+struct BPick;
+template <>
+struct BPick<16> { using T = BCfg<16, 4, 16, 4, 4>; };
+template <>
+struct BPick<32> { using T = BCfg<32, 8, 16, 8, 4>; };
+template <>
+struct BPick<64> { using T = BCfg<64, 8, 16, 8, 3>; };
+template <>
+struct BPick<128> { using T = BCfg<128, 16, 8, 8, 2>; };
+
+struct BParams {
+  const float *r, *k, *v, *w, *dy;
+  const float* u;         // (H, hd), contiguous
+  const float* ckpt;      // (B, H, nck, hd, hd), contiguous
+  const float* ds_final;  // (B, H, hd, hd), contiguous, or null for zeros
+  float *dr, *dk, *dw;    // (B, S, H, hd), strides so
+  float* du_part;         // (B, H, hd): du summed over the tokens
+  long long sr[3], sk[3], sv[3], sw[3], sd[3], so[3];
+  int H, S, nck;
+  int vec;  // 1: 16-byte copies, 0: 4-byte copies
+};
+
+struct BHead {
+  const float *r, *k, *v, *w, *dy;
+};
+
+// Span layout, kCkptEvery tokens: r, k, w (kCkptEvery, RB) for the block's
+// rows | v, dy (kCkptEvery, HD).
+template <class K, int W>
+__device__ __forceinline__ void load_span(const BParams& p, const BHead& a,
+                                          float* stage, long long t0, int n,
+                                          int i0) {
+  float* rs = stage;
+  float* ks = rs + kCkptEvery * K::RB;
+  float* ws = ks + kCkptEvery * K::RB;
+  float* vs = ws + kCkptEvery * K::RB;
+  float* ds = vs + kCkptEvery * K::HD;
+  constexpr int QR = K::RB / W;
+#pragma unroll 1
+  for (int x = threadIdx.x; x < n * QR; x += K::NT) {
+    const int t = x / QR, i = i0 + (x % QR) * W;
+    const long long tt = t0 + t;
+    cp_async<W>(rs + t * K::RB + i - i0, a.r + tt * p.sr[1] + i);
+    cp_async<W>(ks + t * K::RB + i - i0, a.k + tt * p.sk[1] + i);
+    cp_async<W>(ws + t * K::RB + i - i0, a.w + tt * p.sw[1] + i);
+  }
+  constexpr int QV = K::HD / W;
+#pragma unroll 1
+  for (int x = threadIdx.x; x < n * QV; x += K::NT) {
+    const int t = x / QV, j = (x % QV) * W;
+    const long long tt = t0 + t;
+    cp_async<W>(vs + t * K::HD + j, a.v + tt * p.sv[1] + j);
+    cp_async<W>(ds + t * K::HD + j, a.dy + tt * p.sd[1] + j);
+  }
+}
+
+template <class K>
+__device__ __forceinline__ void load_span(const BParams& p, const BHead& a,
+                                          float* stage, long long t0, int n,
+                                          int i0) {
+  if (p.vec)
+    load_span<K, 4>(p, a, stage, t0, n, i0);
+  else
+    load_span<K, 1>(p, a, stage, t0, n, i0);
+}
+
+// Lane l's E columns of a row (shared or global memory, 16-byte aligned).
+template <class K>
+__device__ __forceinline__ void load_row(const float* src, int l,
+                                         float (&d)[K::E]) {
+#pragma unroll
+  for (int q = 0; q < K::E / 4; ++q) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(src + 4 * (l + K::NJ * q));
+    d[4 * q] = x.x, d[4 * q + 1] = x.y, d[4 * q + 2] = x.z, d[4 * q + 3] = x.w;
+  }
+}
+
+// The state row through token t of the stage: S <- w S + k v.
+template <class K>
+__device__ __forceinline__ void advance(float (&st)[K::E], const float* ks,
+                                        const float* ws, const float* vs,
+                                        int t, int ri, int l) {
+  const float kk = ks[t * K::RB + ri], ww = ws[t * K::RB + ri];
+  float vj[K::E];
+  load_row<K>(vs + t * K::HD, l, vj);
+#pragma unroll
+  for (int e = 0; e < K::E; ++e) st[e] = fmaf(ww, st[e], kk * vj[e]);
+}
+
+// One span of n tokens (the first at ta in the sequence), walked back from
+// its end with G, the gradient of the state after the span, in registers.
+// Pass 1 runs the state from the span's checkpoint (row i at `ck`) and
+// keeps it at each sub-span's start in this thread's slots of `subck`.
+// Pass 2 takes the sub-spans last to first: it recomputes the state before
+// each of the sub-span's CI tokens into registers (`hist`), then walks
+// them backwards, leaving each token's four sums over this lane's columns
+// (dy.S, G.v, G.S, dy.v) in `part`; one reduction across the row's lanes
+// leaves lane g with token g's, which it finishes and stores.
+template <class K>
+__device__ __forceinline__ void walk_span(const BParams& p, float* dr,
+                                          float* dk, float* dw,
+                                          const float* stage, float* subck,
+                                          const float* ck, long long ta,
+                                          int n, int ri, int l, float ui,
+                                          float (&G)[K::E], float& du) {
+  constexpr int HD = K::HD, NJ = K::NJ, RB = K::RB, CI = K::CI, E = K::E;
+  constexpr int NT = K::NT;
+  const float* rs = stage;
+  const float* ks = rs + kCkptEvery * RB;
+  const float* ws = ks + kCkptEvery * RB;
+  const float* vs = ws + kCkptEvery * RB;
+  const float* ds = vs + kCkptEvery * HD;
+  const int tid = threadIdx.x;
+  float st[E];
+  load_row<K>(ck, l, st);
+  const int nsub = (n + CI - 1) / CI;
+#pragma unroll 1
+  for (int m = 0; m < nsub; ++m) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) subck[(m * E + e) * NT + tid] = st[e];
+    if (m + 1 < nsub) {  // every token of this sub-span is in the span
+#pragma unroll
+      for (int tt = 0; tt < CI; ++tt)
+        advance<K>(st, ks, ws, vs, m * CI + tt, ri, l);
+    }
+  }
+#pragma unroll 1
+  for (int m = nsub - 1; m >= 0; --m) {
+    const int t0 = m * CI, mn = min(CI, n - t0);
+    float hist[CI][E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) st[e] = subck[(m * E + e) * NT + tid];
+#pragma unroll
+    for (int tt = 0; tt < CI; ++tt) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) hist[tt][e] = st[e];
+      if (tt + 1 < mn) advance<K>(st, ks, ws, vs, t0 + tt, ri, l);
+    }
+    float part[4][CI];
+#pragma unroll
+    for (int tt = CI - 1; tt >= 0; --tt) {
+      float a_dr = 0.f, a_dk = 0.f, a_dw = 0.f, a_c = 0.f;
+      if (tt < mn) {
+        const int t = t0 + tt;
+        const float rr = rs[t * RB + ri], ww = ws[t * RB + ri];
+        float vj[E], dj[E];
+        load_row<K>(vs + t * HD, l, vj);
+        load_row<K>(ds + t * HD, l, dj);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          a_dr = fmaf(dj[e], hist[tt][e], a_dr);
+          a_dk = fmaf(G[e], vj[e], a_dk);
+          a_dw = fmaf(G[e], hist[tt][e], a_dw);
+          a_c = fmaf(dj[e], vj[e], a_c);
+          G[e] = fmaf(ww, G[e], rr * dj[e]);
+        }
+      }
+      part[0][tt] = a_dr;
+      part[1][tt] = a_dk;
+      part[2][tt] = a_dw;
+      part[3][tt] = a_c;
+    }
+    // lanes CI, 2 CI, ... apart hold the same tokens over other columns;
+    // then the transposing butterfly over the CI lanes below
+#pragma unroll
+    for (int o = NJ / 2; o >= CI; o /= 2)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int tt = 0; tt < CI; ++tt)
+          part[x][tt] += __shfl_xor_sync(0xffffffffu, part[x][tt], o);
+    butterfly<CI / 2>(part, l % CI);
+    if (l < mn) {  // lane l < CI holds token t0 + l
+      const int t = t0 + l;
+      const float rr = rs[t * RB + ri], kk = ks[t * RB + ri];
+      const float c = part[3][0];
+      const long long o = (ta + t) * p.so[1];
+      dr[o] = fmaf(ui * kk, c, part[0][0]);
+      dk[o] = fmaf(ui * rr, c, part[1][0]);
+      dw[o] = part[2][0];
+      du = fmaf(rr * kk, c, du);
+    }
+  }
+}
+
+template <class K>
+__global__ void __launch_bounds__(K::NT, K::kMinBlocks)
+    wkv6_bwd_kernel(const __grid_constant__ BParams p) {
+  constexpr int HD = K::HD, NJ = K::NJ, RB = K::RB, E = K::E;
+  extern __shared__ float4 smem4[];
+  float* subck = reinterpret_cast<float*>(smem4);  // (kSub, E, NT)
+  float* ring = subck + K::kSubFloats;
+  const int S = p.S, nck = p.nck;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int i0 = blockIdx.y * RB;
+  const int tid = threadIdx.x, l = tid % NJ, ri = tid / NJ, i = i0 + ri;
+  BHead a;
+  a.r = p.r + b * p.sr[0] + h * p.sr[2];
+  a.k = p.k + b * p.sk[0] + h * p.sk[2];
+  a.v = p.v + b * p.sv[0] + h * p.sv[2];
+  a.w = p.w + b * p.sw[0] + h * p.sw[2];
+  a.dy = p.dy + b * p.sd[0] + h * p.sd[2];
+  const long long orow = b * p.so[0] + h * p.so[2] + i;
+  float* dr = p.dr + orow;
+  float* dk = p.dk + orow;
+  float* dw = p.dw + orow;
+  const float ui = p.u[(long long)h * HD + i];
+  const long long sbase = (long long)bh * HD * HD;
+  float G[E];
+  if (p.ds_final) {
+    load_row<K>(p.ds_final + sbase + (long long)i * HD, l, G);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) G[e] = 0.f;
+  }
+  float du = 0.f;
+  const float* ck = p.ckpt + sbase * nck + (long long)i * HD;
+
+  // Spans last to first, through a ring of kBwdStages stages: span c - 1
+  // loads while span c is walked.
+  const long long last = (long long)(nck - 1) * kCkptEvery;
+  load_span<K>(p, a, ring, last, (int)(S - last), i0);
+  cp_commit();
+#pragma unroll 1
+  for (int x = 0; x < nck; ++x) {
+    const int c = nck - 1 - x;
+    cp_wait<0>();     // span c has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; span c + 1 is walked
+    if (c > 0)
+      load_span<K>(p, a, ring + ((x + 1) % kBwdStages) * K::kStageFloats,
+                   (long long)(c - 1) * kCkptEvery, kCkptEvery, i0);
+    cp_commit();
+    const long long ta = (long long)c * kCkptEvery;
+    walk_span<K>(p, dr, dk, dw, ring + (x % kBwdStages) * K::kStageFloats,
+                 subck, ck + ta / kCkptEvery * (HD * HD), ta,
+                 (int)min((long long)kCkptEvery, S - ta), ri, l, ui, G, du);
+  }
+#pragma unroll
+  for (int o = NJ / 2; o > 0; o /= 2)
+    du += __shfl_xor_sync(0xffffffffu, du, o);
+  if (l == 0) p.du_part[(long long)bh * HD + i] = du;
+}
+
+// du = sum over b of du_part, in order.
+__global__ void wkv6_du_kernel(const float* __restrict__ part,
+                               float* __restrict__ du, int B, int n) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) s += part[(long long)b * n + x];
+  du[x] = s;
+}
+
+template <class K>
+cudaError_t launch_bwd(const BParams& p, int B, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (K::kSubFloats + kBwdStages * K::kStageFloats);
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_bwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * p.H, K::HD / K::RB);
+  wkv6_bwd_kernel<K><<<grid, K::NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* s0,
-                        void* y, void* s_final, int B, int S, int H, int hd,
+                        void* y, void* s_final, void* ckpt, int B, int S,
+                        int H, int hd,
                         long long r_sb, long long r_ss, long long r_sh,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
@@ -456,6 +844,7 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   p.s0 = static_cast<const float*>(s0);
   p.y = static_cast<float*>(y);
   p.s_final = static_cast<float*>(s_final);
+  p.ckpt = static_cast<float*>(ckpt);
   const long long strides[5][3] = {{r_sb, r_ss, r_sh}, {k_sb, k_ss, k_sh},
                                    {v_sb, v_ss, v_sh}, {w_sb, w_ss, w_sh},
                                    {y_sb, y_ss, y_sh}};
@@ -471,18 +860,109 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
       return (int)cudaErrorMisalignedAddress;
   p.H = H;
   p.S = S;
+  p.nck = (S + kCkptEvery - 1) / kCkptEvery;
   p.chunk = chunk;
   p.vec = vec ? 1 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return (int)launch<Pick<16>::T>(p, B, st);
-    case 32: return (int)launch<Pick<32>::T>(p, B, st);
-    case 64: return (int)launch<Pick<64>::T>(p, B, st);
-    case 128: return (int)launch<Pick<128>::T>(p, B, st);
+    case 16: return (int)launch_fwd<Pick<16>::T>(p, B, st);
+    case 32: return (int)launch_fwd<Pick<32>::T>(p, B, st);
+    case 64: return (int)launch_fwd<Pick<64>::T>(p, B, st);
+    case 128: return (int)launch_fwd<Pick<128>::T>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" const char* wkv6_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// strides: (b, s, h) element strides of r, k, v, w, dy, dr (dk and dw
+// alike) and dv, 21 in all.  ckpt: the forward's checkpoints of the same
+// inputs; ds_final may be null (zeros).  du_part is (B, H, hd) scratch.
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
+                        const void* w, const void* u, const void* dy,
+                        const void* ckpt, const void* ds_final, void* dr,
+                        void* dk, void* dv, void* dw, void* du, void* ds0,
+                        void* du_part, int B, int S, int H, int hd,
+                        const long long* strides, int chunk, int vec,
+                        void* stream) {
+  if (B < 1 || S < 1 || H < 1 || chunk < 1 || chunk > 128)
+    return (int)cudaErrorInvalidValue;
+  const void* ins[5] = {r, k, v, w, dy};
+  for (int a = 0; a < 5 && vec; ++a)
+    if (!aligned16(ins[a], strides + 3 * a, B, S, H))
+      return (int)cudaErrorMisalignedAddress;
+  if (!aligned16(dv, strides + 18, B, S, H))
+    return (int)cudaErrorMisalignedAddress;
+  BParams p;
+  p.r = static_cast<const float*>(r);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.w = static_cast<const float*>(w);
+  p.dy = static_cast<const float*>(dy);
+  p.u = static_cast<const float*>(u);
+  p.ckpt = static_cast<const float*>(ckpt);
+  p.ds_final = static_cast<const float*>(ds_final);
+  p.dr = static_cast<float*>(dr);
+  p.dk = static_cast<float*>(dk);
+  p.dw = static_cast<float*>(dw);
+  p.du_part = static_cast<float*>(du_part);
+  long long* dst[6] = {p.sr, p.sk, p.sv, p.sw, p.sd, p.so};
+  for (int a = 0; a < 6; ++a)
+    for (int d = 0; d < 3; ++d) dst[a][d] = strides[3 * a + d];
+  p.H = H;
+  p.S = S;
+  p.nck = (S + kCkptEvery - 1) / kCkptEvery;
+  p.vec = vec ? 1 : 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (hd) {
+    case 16: err = launch_bwd<BPick<16>::T>(p, B, st); break;
+    case 32: err = launch_bwd<BPick<32>::T>(p, B, st); break;
+    case 64: err = launch_bwd<BPick<64>::T>(p, B, st); break;
+    case 128: err = launch_bwd<BPick<128>::T>(p, B, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // dv and ds0: the forward kernel on the sequence reversed, with r -> k,
+  // k -> r, v -> dy, s0 -> ds_final: its state is G, its y is dv and its
+  // final state ds0.  Each pointer starts at token S - 1 and walks back.
+  const long long back = S - 1;
+  Params q;
+  q.r = p.k + back * p.sk[1];
+  q.k = p.r + back * p.sr[1];
+  q.v = p.dy + back * p.sd[1];
+  q.w = p.w + back * p.sw[1];
+  q.u = p.u;
+  q.s0 = p.ds_final;
+  q.y = static_cast<float*>(dv) + back * strides[19];
+  q.s_final = static_cast<float*>(ds0);
+  q.ckpt = nullptr;
+  const long long* from[5] = {strides + 3, strides, strides + 12,
+                              strides + 9, strides + 18};  // k r dy w dv
+  long long* to[5] = {q.sr, q.sk, q.sv, q.sw, q.sy};
+  for (int a = 0; a < 5; ++a) {
+    to[a][0] = from[a][0];
+    to[a][1] = -from[a][1];
+    to[a][2] = from[a][2];
+  }
+  q.H = H;
+  q.S = S;
+  q.nck = 0;
+  q.chunk = chunk;
+  q.vec = p.vec;
+  switch (hd) {
+    case 16: err = launch<Pick<16>::T, false>(q, B, st); break;
+    case 32: err = launch<Pick<32>::T, false>(q, B, st); break;
+    case 64: err = launch<Pick<64>::T, false>(q, B, st); break;
+    default: err = launch<Pick<128>::T, false>(q, B, st); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int n = H * hd;
+  wkv6_du_kernel<<<(n + 255) / 256, 256, 0, st>>>(p.du_part,
+                                                  static_cast<float*>(du), B,
+                                                  n);
+  return (int)cudaGetLastError();
 }

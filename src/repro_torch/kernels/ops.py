@@ -9,10 +9,12 @@ reach the call (`torch.no_grad`, `inference_mode`, no input requiring
 grad) its forward writes no lse and saves nothing.  Every path honours
 `scale` and is differentiable.
 
-`rwkv_mix(...)` runs the WKV6 recurrence: the CUDA kernel for CUDA
-tensors, its plain twin for CPU tensors.  Both return the final state
-(the JAX dispatcher's Pallas path returns None there).  The kernel has no
-backward yet: on CUDA inputs that require grad it raises.
+`rwkv_mix(...)` runs the WKV6 recurrence: the CUDA kernels for CUDA
+tensors, through `WKV6` (forward kernel, backward kernel; where no
+gradient can reach the call its forward writes no checkpoints and saves
+nothing), and its plain twin, which autograd differentiates, for CPU
+tensors.  Both return the final state (the JAX dispatcher's Pallas path
+returns None there).
 """
 
 from __future__ import annotations
@@ -55,15 +57,16 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 def rwkv_mix(r, k, v, w, u, *, s0=None, force: str | None = None):
     """WKV6.  r,k,v,w: (B,S,H,hd) float32; u: (H,hd); s0: (B,H,hd,hd) or
-    None.  `force` is "kernel" (needs CUDA tensors; raises
-    NotImplementedError for inputs that require grad) or "plain"
-    (differentiable).  Returns (y, s_final), both float32."""
+    None.  `force` is "kernel" (needs CUDA tensors) or "plain"; both are
+    differentiable.  Returns (y, s_final), both float32."""
     impl = force or ("kernel" if r.is_cuda else "plain")
     if impl == "kernel":
         if not r.is_cuda:
             raise ValueError("rwkv_mix(force='kernel') needs CUDA tensors; "
                              f"got {r.device}")
-        return wkv.wkv6(r, k, v, w, u, s0)
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0))
+        return wkv.WKV6.apply(r, k, v, w, u, s0, grad)
     if impl == "plain":
         return wkv.wkv6_plain(r, k, v, w, u, s0)
     raise ValueError(f"rwkv_mix: force={impl!r} not in ('kernel', 'plain')")

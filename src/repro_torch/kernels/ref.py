@@ -9,7 +9,9 @@ backward kernel).  Unlike the JAX reference, both walk a ragged last KV
 block instead of dropping the keys past the last whole `block_k` (the JAX
 forward's `skv // block_k`, R5) or raising (its VJP's reshape, R8).
 `wkv6_ref` is the sequential WKV6 recurrence, the plain twin of the CUDA
-kernel in `wkv6.py`; autograd differentiates it as it stands.
+forward kernel in `wkv6.py`; autograd differentiates it as it stands.
+`wkv6_bwd_plain` is its reverse walk, the plain twin of the CUDA backward,
+checkpoints and all.
 """
 
 from __future__ import annotations
@@ -163,3 +165,66 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv)
         state = wf[:, t, :, :, None] * state + kv
     return y, state
+
+
+def wkv6_checkpoints(k, v, w, s0, every: int):
+    """The state before tokens 0, every, 2 every, ... of `wkv6_ref`'s
+    recurrence: (B,H,ceil(S/every),hd,hd) fp32, what the CUDA forward
+    writes as its checkpoints."""
+    b, s, h, hd = k.shape
+    kf, vf, wf = (t.float() for t in (k, v, w))
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                         device=k.device) if s0 is None else s0.float())
+    out = []
+    for t in range(s):
+        if t % every == 0:
+            out.append(state)
+        state = (wf[:, t, :, :, None] * state
+                 + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    return torch.stack(out, 2)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final, *, ckpt_every: int = 32):
+    """The VJP of `wkv6_ref` as the CUDA backward computes it, in fp32.
+    dy: (B,S,H,hd) or None, ds_final: (B,H,hd,hd) or None (zeros).  With
+    G = dL/dS (the state after token t), G_T = ds_final, walking t from T
+    down to 1:
+        dr_t = S_{t-1} dy_t + u k_t (dy_t . v_t)
+        dk_t = G_t v_t + u r_t (dy_t . v_t)
+        dv_t = k_t G_t + dy_t (r_t . u k_t)
+        dw_t = rowsum(G_t * S_{t-1})
+        du += r_t k_t (dy_t . v_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T dy_t,   ds0 = G_0.
+    S_{t-1} is recomputed forwards inside each `ckpt_every`-token span from
+    the state at the span's start (`wkv6_checkpoints`, as the kernel's),
+    never by running the state backwards, which divides by w.  Returns
+    (dr, dk, dv, dw, du (H,hd), ds0 (B,H,hd,hd)), all float32."""
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    dyf = torch.zeros_like(rf) if dy is None else dy.float()
+    uf = u.float()
+    ckpts = wkv6_checkpoints(k, v, w, s0, ckpt_every)
+    g = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+         if ds_final is None else ds_final.float().clone())
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((b, h, hd), dtype=torch.float32, device=r.device)
+    for c in reversed(range(ckpts.shape[2])):
+        start, stop = c * ckpt_every, min(s, (c + 1) * ckpt_every)
+        hist, st = [], ckpts[:, :, c]
+        for t in range(start, stop):
+            hist.append(st)
+            st = (wf[:, t, :, :, None] * st
+                  + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        for t in reversed(range(start, stop)):
+            prev = hist[t - start]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (rf, kf, vf, wf, dyf))
+            c_t = (dyt * vt).sum(-1, keepdim=True)              # (B,H,1)
+            dr[:, t] = (torch.einsum("bhij,bhj->bhi", prev, dyt)
+                        + uf * kt * c_t)
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + uf * rt * c_t
+            dv[:, t] = (torch.einsum("bhi,bhij->bhj", kt, g)
+                        + dyt * (rt * uf * kt).sum(-1, keepdim=True))
+            dw[:, t] = (g * prev).sum(-1)
+            du = du + rt * kt * c_t
+            g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), g

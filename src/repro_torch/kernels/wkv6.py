@@ -1,14 +1,23 @@
-"""WKV6 (the RWKV6 time-mix recurrence): the hand-written CUDA kernel and
-its wrapper.
+"""WKV6 (the RWKV6 time-mix recurrence): the hand-written CUDA forward and
+backward kernels, their wrappers, and the autograd Function that joins
+them.
 
-Replaces the Pallas TPU kernel `repro.kernels.rwkv6.wkv6`.  The kernel
-lives in `csrc/wkv6.cu` (see its header for the design and its bound on an
-H100); it is built by nvcc on first use and called through ctypes.  On a
-CPU tensor the wrapper runs the plain twin, `wkv6_plain`, which autograd
-differentiates; on a CUDA tensor it launches the kernel or raises.  The
-kernel has no backward yet, so under grad mode it raises for an input that
-requires grad instead of handing back an output without a gradient.
-`wkv6.launches` counts kernel launches.
+The forward replaces the Pallas TPU kernel `repro.kernels.rwkv6.wkv6`.  The
+backward has no TPU counterpart: the JAX package differentiates the
+`lax.scan` of `repro.models.blocks.rwkv_tmix`, and the backward computes
+the same VJP.  Both live in `csrc/wkv6.cu` (see its header for the designs
+and their bounds on an H100), built by nvcc on first use and called
+through ctypes.  On CPU tensors each wrapper runs its plain twin
+(`wkv6_plain`, `ref.wkv6_bwd_plain`); on CUDA tensors it launches its
+kernel or raises.  `wkv6.launches` counts forward launches and
+`wkv6_bwd.launches` backward calls (three kernels each).
+
+`WKV6` is the way to differentiate through the kernels, and the one that
+`ops.rwkv_mix` calls: its forward asks the kernel for the state every
+CKPT_EVERY tokens and saves the inputs and those checkpoints (nothing where
+no gradient can reach the call), its backward runs the backward kernel.
+Called directly under grad mode with an input that requires grad, the raw
+`wkv6` raises rather than hand back an output that carries no gradient.
 """
 
 from __future__ import annotations
@@ -22,16 +31,15 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 128
-NO_BACKWARD = ("the wkv6 kernel has no backward yet (ROADMAP A3: RWKV "
-               "training with a wkv6 backward kernel); on the CPU the plain "
-               "recurrence is differentiable")
+# tokens between the forward's checkpoints: kCkptEvery in csrc/wkv6.cu
+CKPT_EVERY = 32
 
 
 def bind(lib: ctypes.CDLL):
     """(wkv6_fwd, wkv6_error_string) of a library built from `csrc/wkv6.cu`,
     with their ctypes signatures."""
     fn = lib.wkv6_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 15
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -43,6 +51,17 @@ def bind(lib: ctypes.CDLL):
 @functools.cache
 def _fwd():
     return bind(build.library("wkv6"))
+
+
+@functools.cache
+def _bwd():
+    lib = build.library("wkv6")
+    fn = lib.wkv6_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, _fwd()[1]
 
 
 def copy_bytes(*ts: torch.Tensor) -> int:
@@ -93,29 +112,52 @@ def wkv6_plain(r, k, v, w, u, s0=None):
     return ref.wkv6_ref(r, k, v, w, u, s0)
 
 
-def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
-    """r, k, v, w: (B,S,H,hd) float32; u: (H,hd); s0: (B,H,hd,hd) or None
-    (zeros).  Any S >= 1; hd in HEAD_DIMS on the GPU.  `chunk` is how many
-    tokens the kernel stages in shared memory at a time (1..128, fewer
-    where two stages would not fit); it does not change the result.
-    Returns (y: (B,S,H,hd), s_final: (B,H,hd,hd)), both float32."""
+def wkv6_fwd(r, k, v, w, u, s0=None, *, chunk: int = 32,
+             want_ckpt: bool = False):
+    """The forward: r, k, v, w (B,S,H,hd) float32; u (H,hd); s0 (B,H,hd,hd)
+    or None (zeros).  Any S >= 1; hd in HEAD_DIMS on the GPU.  `chunk` is
+    how many tokens the kernel stages in shared memory at a time (1..128,
+    fewer where two stages would not fit); it does not change the result.
+    Returns (y (B,S,H,hd), s_final (B,H,hd,hd), ckpt), ckpt the float32
+    (B,H,ceil(S/CKPT_EVERY),hd,hd) state before every CKPT_EVERY-th token
+    when `want_ckpt` on the GPU (what `wkv6_bwd` walks back from), else
+    None (the kernel then writes none)."""
     if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, w, u, s0)
+        return (*wkv6_plain(r, k, v, w, u, s0), None)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
-        raise NotImplementedError(f"wkv6: an input requires grad, but "
-                                  f"{NO_BACKWARD}")
-    y, s_final = launch(_fwd(), r, k, v, w, u, s0, chunk)
+        raise RuntimeError(
+            "wkv6: an input requires grad, and the kernel's output would "
+            "carry none; differentiate through WKV6.apply (ops.rwkv_mix "
+            "does), or call under torch.no_grad()")
+    b, s, h, hd = r.shape
+    ckpt = (torch.empty((b, h, -(-s // CKPT_EVERY), hd, hd),
+                        dtype=torch.float32, device=r.device)
+            if want_ckpt else None)
+    y, s_final = launch(_fwd(), r, k, v, w, u, s0, chunk, ckpt)
     wkv6.launches += 1
-    return y, s_final
+    return y, s_final, ckpt
 
 
-def launch(fwd, r, k, v, w, u, s0, chunk):
+def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
+    """`wkv6_fwd`'s (y, s_final) alone.  On a CPU tensor the plain twin,
+    differentiable; on CUDA tensors the kernel, which raises under grad
+    mode for an input that requires grad (see `WKV6`)."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, s0)
+    return wkv6_fwd(r, k, v, w, u, s0, chunk=chunk)[:2]
+
+
+def launch(fwd, r, k, v, w, u, s0, chunk, ckpt=None):
     """Check the CUDA inputs and run the kernel of `fwd` (from `bind`) on
-    them; returns (y, s_final).  Counts nothing: `wkv6` counts its own
-    launches."""
+    them, writing checkpoints into `ckpt` where given; returns (y,
+    s_final).  Counts nothing: `wkv6_fwd` counts its own launches."""
     _check(r, k, v, w, u, s0, chunk)
     b, s, h, hd = r.shape
+    if ckpt is not None and (ckpt.shape != (b, h, -(-s // CKPT_EVERY), hd, hd)
+                             or not ckpt.is_contiguous()):
+        raise ValueError(f"wkv6: ckpt {tuple(ckpt.shape)} is not a "
+                         "contiguous (B,H,ceil(S/CKPT_EVERY),hd,hd)")
     y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
     u = u.contiguous()
     s0 = None if s0 is None else s0.contiguous()
@@ -124,7 +166,8 @@ def launch(fwd, r, k, v, w, u, s0, chunk):
     fn, errstr = fwd
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), None if s0 is None else s0.data_ptr(),
-             y.data_ptr(), s_final.data_ptr(), b, s, h, hd,
+             y.data_ptr(), s_final.data_ptr(),
+             None if ckpt is None else ckpt.data_ptr(), b, s, h, hd,
              *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *w.stride()[:3], *y.stride()[:3], chunk,
              int(copy_bytes(r, k, v, w) == 16),
@@ -136,3 +179,84 @@ def launch(fwd, r, k, v, w, u, s0, chunk):
 
 
 wkv6.launches = 0
+
+
+def wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ckpt, *, chunk: int = 32):
+    """The backward: r, k, v, w, u, s0 as the forward took them, the
+    gradients dy (B,S,H,hd) of y and ds_final (B,H,hd,hd) of s_final
+    (either None: zeros), and the forward's checkpoints (`wkv6_fwd(...,
+    want_ckpt=True)`; unused on the CPU).  Returns (dr, dk, dv, dw,
+    du (H,hd), ds0 (B,H,hd,hd)), all float32."""
+    if r.device.type == "cpu":
+        return ref.wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final,
+                                  ckpt_every=CKPT_EVERY)
+    _check(r, k, v, w, u, s0, chunk)
+    b, s, h, hd = r.shape
+    dy = torch.zeros_like(r) if dy is None else dy
+    extra = {"dy": (dy, (b, s, h, hd)),
+             "ckpt": (ckpt, (b, h, -(-s // CKPT_EVERY), hd, hd))}
+    if ds_final is not None:
+        extra["ds_final"] = (ds_final, (b, h, hd, hd))
+    for name, (t, shape) in extra.items():
+        if t is None or t.shape != shape or t.dtype != torch.float32 \
+                or t.device != r.device or t.stride(-1) != 1:
+            raise ValueError(f"wkv6_bwd: {name} "
+                             f"{None if t is None else tuple(t.shape)}; want "
+                             f"float32 {shape} on {r.device}, contiguous "
+                             "along its last dim")
+    u = u.contiguous()
+    ckpt = ckpt.contiguous()
+    ds_final = None if ds_final is None else ds_final.contiguous()
+    dr, dk, dv, dw = (torch.empty((b, s, h, hd), dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_longlong * 21)(*(
+        st for t in (r, k, v, w, dy, dr, dv) for st in t.stride()[:3]))
+    fn, errstr = _bwd()
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
+             None if ds_final is None else ds_final.data_ptr(),
+             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+             du.data_ptr(), ds0.data_ptr(), du_part.data_ptr(), b, s, h, hd,
+             strides, chunk, int(copy_bytes(r, k, v, w, dy) == 16),
+             torch.cuda.current_stream(r.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: "
+                           f"{errstr(err).decode()} ({err})")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """WKV6 that autograd differentiates: the forward kernel with
+    checkpoints, then the backward kernel (their plain twins on CPU
+    tensors).  `WKV6.apply(r, k, v, w, u, s0, grad)` returns (y, s_final);
+    `grad=False` says that no gradient will reach this call (the caller
+    runs under `torch.no_grad`, or no input requires grad), and the forward
+    then writes no checkpoints and saves nothing, as serving wants."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0=None, grad=True):
+        ctx.set_materialize_grads(False)
+        y, s_final, ckpt = wkv6_fwd(r, k, v, w, u, s0, want_ckpt=grad)
+        if grad:
+            ctx.save_for_backward(r, k, v, w, u, s0, ckpt)
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        saved = ctx.saved_tensors   # unpacked once: checkpoint allows one
+        if not saved:
+            raise RuntimeError("WKV6: backward through a call made with "
+                               "grad=False")
+        r, k, v, w, u, s0, ckpt = saved
+        dy, ds_final = (None if t is None else t.contiguous()
+                        for t in (dy, ds_final))
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w, u, s0, dy, ds_final,
+                                           ckpt)
+        return dr, dk, dv, dw, du, None if s0 is None else ds0, None

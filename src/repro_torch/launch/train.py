@@ -8,8 +8,9 @@ Wires config -> model (fp32 master params) -> data pipeline -> AdamW
 checkpoint / restart, optional fault injection).  One device, no mesh: it
 runs on `cuda` unless `--device cpu` is given, and without a GPU and
 without that flag it raises.  On the GPU every attention call at
-Sq >= 2048 runs the flash forward and backward kernels; only the dense
-family trains there (the wkv6 kernel has no backward yet).
+Sq >= 2048 runs the flash forward and backward kernels, and every RWKV6
+time-mix the wkv6 forward and backward kernels; the dense family and
+RWKV6 train there, as on the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.distributed import fault
 from repro_torch.distributed.compression import EFCompressor
-from repro_torch.kernels import wkv6
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.specs import schedule_for
 from repro_torch.models import lm as lm_mod
@@ -39,9 +39,6 @@ def build_trainer(cfg, *, device, compression: str = "none",
     built and not applied: on one device no gradient crosses a link."""
     dev = torch.device(device)
     model = lm_mod.build(cfg, remat=remat)
-    if dev.type == "cuda" and cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense family trains "
-                                  f"on cuda; {wkv6.NO_BACKWARD}")
     step = make_train_step(model.loss, AdamWConfig(schedule=schedule_for(cfg)))
     params = model.init(torch.Generator(dev).manual_seed(0),
                         dtype=torch.float32)

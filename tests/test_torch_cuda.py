@@ -1,7 +1,7 @@
-"""The CUDA kernels (flash attention forward and backward, WKV6) against
-their plain twins, and the float64 DeepNVM++ pipeline on `cuda` against
-the same pipeline on `cpu` (1e-12 relative, equal tuned organizations),
-on the GPU.
+"""The CUDA kernels (flash attention forward and backward, WKV6 forward and
+backward) against their plain twins, and the float64 DeepNVM++ pipeline
+on `cuda` against the same pipeline on `cpu` (1e-12 relative, equal tuned
+organizations), on the GPU.
 
 Marked `cuda`: each test skips without a CUDA device.  Run on the GPU
 machine with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
@@ -263,9 +263,10 @@ def test_function_differentiates_through_the_kernels(dev):
 
 
 def test_kernels_raise_for_inputs_that_require_grad(dev):
-    """No kernel output without a gradient: the forward and wkv6 raise
-    under grad mode for an input that requires grad, and run under
-    no_grad; ops.attention takes FlashAttention there instead."""
+    """No kernel output without a gradient: the raw flash forward and wkv6
+    raise under grad mode for an input that requires grad, and run under
+    no_grad; ops.attention and ops.rwkv_mix take FlashAttention and WKV6
+    there instead, and differentiate through the backward kernels."""
     q, k, v = _qkv(dev, 1, 64, 1, 64, torch.bfloat16)
     q.requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
@@ -276,12 +277,16 @@ def test_kernels_raise_for_inputs_that_require_grad(dev):
     assert out.grad_fn is not None
     r, kk, vv, w, u, _ = _wkv_inputs(dev, (1, 8, 2, 64))
     u.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(RuntimeError, match="requires grad"):
         wkv.wkv6(r, kk, vv, w, u)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        ops.rwkv_mix(r, kk, vv, w, u)
     with torch.no_grad():
-        wkv.wkv6(r, kk, vv, w, u)
+        assert wkv.wkv6(r, kk, vv, w, u)[0].grad_fn is None
+    before = wkv.wkv6_bwd.launches
+    y, s = ops.rwkv_mix(r, kk, vv, w, u)
+    assert y.grad_fn is not None
+    (y.sum() + s.sum()).backward()   # dy and ds_final: stride-0 expansions
+    assert wkv.wkv6_bwd.launches - before == 1
+    assert u.grad is not None and torch.isfinite(u.grad).all()
 
 
 @pytest.mark.parametrize("remat,forwards", [("full", 4), ("dots", 4),
@@ -429,6 +434,105 @@ def test_wkv6_kernel_rejects_what_it_does_not_take(dev):
         wkv.wkv6(r.bfloat16(), k, v, w, u)
     with pytest.raises(ValueError, match="chunk"):
         wkv.wkv6(r, k, v, w, u, chunk=129)
+
+
+def _wkv_bwd_args(dev, shape, decay=-3.0, with_s0=False, with_dsf=True,
+                  seed=0):
+    """The backward's arguments: the forward's inputs, dy ~ N(0, 1),
+    ds_final ~ 0.1 N (or None) and the forward's checkpoints."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, shape, decay, with_s0, seed)
+    b, _, h, hd = shape
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    dy = torch.randn(shape, generator=g, device=dev)
+    dsf = (0.1 * torch.randn((b, h, hd, hd), generator=g, device=dev)
+           if with_dsf else None)
+    ck = wkv.wkv6_fwd(r, k, v, w, u, s0, want_ckpt=True)[2]
+    return r, k, v, w, u, s0, dy, dsf, ck
+
+
+def _wkv_bwd_held(got, want, with_s0):
+    """Each of dr, dk, dv, dw, du (and ds0 with s0) finite and within
+    1e-4 x max(max |want|, 1) absolute (chip_smoke.py's bar)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 5 and not with_s0:
+            continue
+        bar = 1e-4 * max(b.abs().max().item(), 1.0)
+        assert torch.isfinite(a).all() and (a - b).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("shape,decay,with_s0,with_dsf", [
+    ((1, 128, 2, 32), -3.0, False, False),
+    ((2, 256, 4, 64), -3.0, True, True),
+    ((1, 2100, 2, 64), -3.0, False, True),    # ragged last span
+    ((4, 1, 40, 64), -3.0, True, True),       # one decode step: S = 1
+    ((2, 100, 3, 16), -3.0, True, True),
+    ((2, 100, 3, 128), -3.0, True, False),
+    ((2, 256, 4, 64), 2.0, False, True),      # strong decay
+    ((2, 33, 3, 32), -3.0, True, True),       # one token past a span
+])
+def test_wkv6_backward_matches_plain(dev, shape, decay, with_s0, with_dsf):
+    args = _wkv_bwd_args(dev, shape, decay, with_s0, with_dsf)
+    got = wkv.wkv6_bwd(*args)
+    want = ref.wkv6_bwd_plain(*args[:-1])
+    torch.cuda.synchronize()
+    _wkv_bwd_held(got, want, with_s0)
+
+
+def test_wkv6_backward_reads_misaligned_rows(dev):
+    """Rows that allow no 16-byte copies take the 4-byte path in both the
+    row walk and the dv pass."""
+    r, k, v, w, u, s0, dy, dsf, _ = _wkv_bwd_args(dev, (2, 77, 3, 64),
+                                                  with_s0=True)
+    args = [_misaligned(t) for t in (r, k, v, w)]
+    assert wkv.copy_bytes(*args, dy) == 4
+    ck = wkv.wkv6_fwd(*args, u, s0, want_ckpt=True)[2]
+    got = wkv.wkv6_bwd(*args, u, s0, dy, dsf, ck)
+    _wkv_bwd_held(got, ref.wkv6_bwd_plain(*args, u, s0, dy, dsf), True)
+
+
+def test_wkv6_forward_checkpoints_hold_the_states(dev):
+    """want_ckpt: the state before tokens 0, 32, 64, ... (WKV_BAR of the
+    plain recurrence's), and y bitwise equal to the serving kernel's."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, (2, 100, 3, 64), with_s0=True)
+    y, _, ck = wkv.wkv6_fwd(r, k, v, w, u, s0, want_ckpt=True)
+    assert ck.shape == (2, 3, 4, 64, 64)
+    assert _wkv_ok(ck, ref.wkv6_checkpoints(k, v, w, s0, wkv.CKPT_EVERY))
+    assert torch.equal(y, wkv.wkv6(r, k, v, w, u, s0)[0])
+
+
+def test_wkv6_backward_is_deterministic(dev):
+    """Two backward calls at the training shape (4, 2048, 40, 64) give
+    bitwise-equal outputs: no atomics."""
+    args = _wkv_bwd_args(dev, (4, 2048, 40, 64), with_dsf=False)
+    first, second = wkv.wkv6_bwd(*args), wkv.wkv6_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_rwkv_model_train_step_launches_forwards_and_backwards(dev):
+    """One loss + backward of a 2-layer RWKV6 model with remat full: per
+    layer a wkv6 forward, its recompute and a wkv6 backward; gradients
+    against the plain recurrence's within 5e-2 relative L2."""
+    cfg = ArchConfig(name="gpu-rwkv", family="ssm", n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=4, head_dim=64, d_ff=512,
+                     vocab=512, rwkv=True)
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                dtype=torch.float32)
+    leaves = [params["embed"]["table"], params["seg0"][0]["tmix"]["wr"],
+              params["seg0"][1]["tmix"]["w0"],
+              params["seg0"][1]["tmix"]["bonus"]]
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, 301), device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    before = (wkv.wkv6.launches, wkv.wkv6_bwd.launches)
+    got = torch.autograd.grad(lm.build(cfg).loss(params, batch), leaves)
+    assert (wkv.wkv6.launches - before[0],
+            wkv.wkv6_bwd.launches - before[1]) == (2 * cfg.n_layers,
+                                                   cfg.n_layers)
+    want = torch.autograd.grad(
+        lm.build(cfg, force="plain").loss(params, batch), leaves)
+    for g, w in zip(got, want):
+        assert ((g - w).norm() / w.norm()).item() <= 5e-2
 
 
 def test_rwkv_model_launches_one_kernel_per_layer_per_step(dev):
