@@ -27,8 +27,11 @@ Phases, each fatal on failure:
      ds_final (and at the main shape without, as training calls it): dr,
      dk, dv, dw, du and ds0 against `ref.wkv6_bwd_plain` within 1e-4 x
      max(max |want|, 1) absolute, the forward's checkpoints against the
-     plain recurrence's states and its y bitwise equal to serving's, and
-     two backward calls at (4, 2048, 40, 64) bitwise equal;
+     plain recurrence's states and its y bitwise equal to serving's, the
+     backward's reverse-pass checkpoints (the gradient after every span)
+     against `ref.wkv6_grad_checkpoints`, and two backward calls at (4,
+     2048, 40, 64) bitwise equal; the wkv6 backward's span walk must not
+     spill (phase 1);
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: `repro_torch.launch.serve.main` serving
      TinyLlama-1.1B, RWKV6-3B and, last, Gemma-7B (head dim 256: exactly
@@ -46,8 +49,11 @@ Phases, each fatal on failure:
      exactly 64 wkv6 forwards, each writing checkpoints, and 32 wkv6
      backwards a step), its step through the kernels against the plain
      twins at RWKV_CHECK_LAYERS layers, and the backward timed at (4,
-     2048, 40, 64) beside its plain twin and bound, with the forward with
-     and without checkpoints; last, after the Gemma-7B serve, the same
+     2048, 40, 64) beside its plain twin and bound (by CUDA events, by
+     the profiler per launch, summed and from the first launch's start to
+     the last one's end, and the host time of one wrapper call), with the
+     forward with and without checkpoints; last, after the Gemma-7B serve,
+     the same
      training phase on
      Gemma-7B at full width (every published width; its one reduction is
      depth, 6 of 28 layers, GEMMA_TRAIN_LAYERS, as fp32 masters with
@@ -424,6 +430,45 @@ def device_kernels(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_span(fn, name: str, calls: int, per_call: int):
+    """(sum, span) in ms per call of fn, from torch.profiler over `calls`
+    calls, each launching `per_call` kernels whose name holds `name`: their
+    device time, and the time from the first one's start to the last one's
+    end, which adds the gaps between them.  Both per call that the profile
+    holds (a profile can lose the first calls' kernels); (None, None) where
+    it holds none, or a count that no whole number of calls gives."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    if not evts or len(evts) % per_call:
+        return None, None
+    held = len(evts) // per_call
+    busy = sum(e.time_range.end - e.time_range.start for e in evts)
+    span = (max(e.time_range.end for e in evts)
+            - min(e.time_range.start for e in evts))
+    return busy / 1e3 / held, span / 1e3 / held
+
+
+def host_ms(fn, calls: int) -> float:
+    """Host time (ms) of one call of fn: `calls` calls back to back after
+    the device drained, without waiting for their device work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return out
 
 
 def kernel_device_ms(fn, name: str, calls: int = 50):
@@ -1241,23 +1286,28 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
             "library_ms": None}
 
 
+# Each wkv6 launch site has an entry of its own, so a profile's row names
+# the launch that made it: the forward (serving's, or training's with
+# checkpoints: `wkv6_kernel`) and the backward's three launches.
+WKV6_BWD_KERNELS = {"wkv6_rev_kernel": "reverse pass",
+                    "wkv6_pair_kernel": "span walk by pairs",
+                    "wkv6_du_kernel": "du sum"}
+
+
 def wkv6_parts(rows) -> dict:
-    """A profile's wkv6 rows: the forward (the checkpointing kernel) and
-    the backward (the row walk, the forward kernel walked back for dv,
-    the du sum)."""
-    fwd = [e for e in rows if "wkv6_kernel" in e.key and "true>" in e.key]
-    bwd = [e for e in rows if "wkv6_bwd_kernel" in e.key
-           or "wkv6_du_kernel" in e.key
-           or ("wkv6_kernel" in e.key and "false>" in e.key)]
-    return {"forward": fwd, "backward": bwd}
+    """A profile's wkv6 rows: the forward and the backward."""
+    return {"forward": [e for e in rows if "wkv6_kernel" in e.key],
+            "backward": [e for e in rows if any(
+                n in e.key for n in WKV6_BWD_KERNELS)]}
 
 
 def wkv6_name(key: str) -> str:
-    """A profiler row's wkv6 kernel, short: the checkpointing forward, the
-    backward's dv pass (the forward kernel walked back), or the name."""
+    """A profiler row's wkv6 kernel, short: the entry's name and what it
+    does (the forward: with checkpoints or without)."""
     name = re.search(r"wkv6_\w*kernel", key)[0]
-    return name + (" (checkpoints)" if "true>" in key else
-                   " (dv pass)" if "false>" in key else "")
+    if name == "wkv6_kernel":
+        return name + (" (checkpoints)" if "true>" in key else " (serving)")
+    return f"{name} ({WKV6_BWD_KERNELS[name]})"
 
 
 def wkv_bwd_inputs(case, seed=3):
@@ -1293,12 +1343,14 @@ def check_wkv6_bwd(wkv, ref) -> float:
                                                         wkv.CKPT_EVERY))
         same_y = torch.equal(y, y_serve)
         for ds_final in ((dsf, None) if case is WKV_MAIN else (dsf,)):
-            got = wkv.wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ck,
-                               chunk=case[4])
+            *got, gck = wkv.bwd_launch(wkv._bwd(), r, k, v, w, u, s0, dy,
+                                       ds_final, ck, case[4])
             want = ref.wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final,
                                       ckpt_every=wkv.CKPT_EVERY)
+            ok_g, err_g = wkv_ok(gck, ref.wkv6_grad_checkpoints(
+                r, w, dy, ds_final, wkv.CKPT_EVERY))
             torch.cuda.synchronize()
-            errs, ok = {}, ok_ck and same_y
+            errs, ok = {}, ok_ck and same_y and ok_g
             for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
                                   want):
                 if name == "ds0" and s0 is None:
@@ -1311,14 +1363,16 @@ def check_wkv6_bwd(wkv, ref) -> float:
                               "ds_final": ds_final is not None,
                               "max_abs_err": errs, "bar": WKV_BWD_BAR,
                               "ckpt_max_abs_err": err_ck,
+                              "grad_ckpt_max_abs_err": err_g,
                               "y_with_ckpt_equal": same_y, "ok": ok}),
                   flush=True)
             if not ok:
                 fail(f"wkv6_bwd {case}: errors {errs}, checkpoints {err_ck}"
-                     f" ({ok_ck}), y equal {same_y}")
+                     f" ({ok_ck}), the reverse pass's {err_g} ({ok_g}), y "
+                     f"equal {same_y}")
             if case is WKV_MAIN and ds_final is None:
                 main_err = max(errs.values())
-        del r, k, v, w, u, s0, dy, dsf, y, ck, got, want
+        del r, k, v, w, u, s0, dy, dsf, y, ck, got, gck, want
     r, k, v, w, u, _, dy, _ = wkv_bwd_inputs(WKV_MAIN)
     _, _, ck = wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True)
     first = wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck)
@@ -1347,30 +1401,39 @@ def wkv_bwd_bound(case, every: int) -> tuple[float, str]:
 def time_wkv6_train(wkv, ref, card) -> tuple:
     """Phase 4a for training at the main shape (training calls it without
     s0): the forward with its checkpoints beside the forward without
-    (serving's), and the backward (its three launches, by profiler too)
-    against its plain twin and its bound.  Returns (ms, plain_ms, bound_ms,
-    bound_by) of the backward."""
+    (serving's), and the backward against its plain twin and its bound,
+    with where a call's time goes: its three launches by profiler, their
+    sum and their span, and the host's time per call.  Returns (ms,
+    plain_ms, bound_ms, bound_by) of the backward."""
     r, k, v, w, u, _, dy, _ = wkv_bwd_inputs(WKV_MAIN)
     fwd_ms = time_ms(lambda: wkv.wkv6(r, k, v, w, u), 20)
     ck_ms = time_ms(lambda: wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True), 20)
     fwd_ms2 = time_ms(lambda: wkv.wkv6(r, k, v, w, u), 20)
     _, _, ck = wkv.wkv6_fwd(r, k, v, w, u, want_ckpt=True)
-    ms = time_ms(lambda: wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck), 20)
+
+    def bwd():
+        wkv.wkv6_bwd(r, k, v, w, u, None, dy, None, ck)
+    ms = time_ms(bwd, 20)
     plain_ms = time_ms(lambda: ref.wkv6_bwd_plain(r, k, v, w, u, None, dy,
                                                   None), 2, warmup=1)
     bound_ms, bound_by = wkv_bwd_bound(WKV_MAIN, wkv.CKPT_EVERY)
     no_s0 = WKV_MAIN[:6] + (False,) + WKV_MAIN[7:]
     ck_bound = wkv_bound(no_s0, wkv.CKPT_EVERY)
-    rows = device_kernels(lambda: [wkv.wkv6_bwd(r, k, v, w, u, None, dy,
-                                                None, ck) for _ in range(10)])
+    rows = device_kernels(lambda: [bwd() for _ in range(10)])
     parts = ", ".join(f"{wkv6_name(e.key)} "
-                      f"{e.self_device_time_total / 1e4:.4f} ms"
+                      f"{e.self_device_time_total / 1e3 / e.count:.4f} ms "
+                      f"x{e.count}"
                       for e in rows if "wkv6" in e.key) or "not measured"
+    busy, span = device_span(bwd, "wkv6", 10, 3)
+    host = host_ms(bwd, 20)
     print(f"wkv6 {WKV_MAIN[:4]} fp32 without s0: forward {fwd_ms:.4f} / "
           f"{fwd_ms2:.4f} ms (bound {wkv_bound(no_s0)[0]:.4f} ms), with "
           f"checkpoints {ck_ms:.4f} ms (bound {ck_bound[0]:.4f} ms, "
-          f"{ck_bound[1]}); backward "
-          f"{ms:.4f} ms (per launch, profiler: {parts}), plain "
+          f"{ck_bound[1]}); backward {ms:.4f} ms by CUDA events (per "
+          f"launch, profiler: {parts}; launches summed "
+          + ("not measured" if busy is None else
+             f"{busy:.4f} ms, first start to last end {span:.4f} ms")
+          + f"; host time of one wrapper call {host:.4f} ms), plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
           flush=True)
     return ms, plain_ms, bound_ms, bound_by
@@ -1630,10 +1693,13 @@ def main() -> int:
         for row in ptxas_report(log):
             print(f"  {name}: {row['kernel']}: {row['registers']} registers,"
                   f" {row['spill']} bytes spill stores", flush=True)
-            # the tensor-core kernels: no spills, no serialized wgmma
+            # the tensor-core kernels: no spills, no serialized wgmma; the
+            # wkv6 backward's span walk: no spills
             if "_bf16<" in row["kernel"] and (row["spill"] or row["c75"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled, "
                      f"{row['c75']}")
+            if "wkv6_pair_kernel" in row["kernel"] and row["spill"]:
+                fail(f"{row['kernel']}: {row['spill']} bytes spilled")
 
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)

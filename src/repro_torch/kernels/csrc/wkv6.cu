@@ -72,9 +72,16 @@
 //    depths (it edits the Pick<64> and kStages lines).
 //  * Checkpoints for the backward.  Given a `ckpt` pointer (training), the
 //    kernel also writes the state before tokens 0, 32, 64, ...
-//    (kCkptEvery) to (B, H, ceil(S / 32), hd, hd), each thread its own
-//    elements straight from registers.  That is a template flag: serving
-//    passes none and runs the kernel built without it.
+//    (kCkptEvery) to (B, H, ceil(S / 32), hd, hd).  They leave as the
+//    final state does: at its token the state goes into the tile, and once
+//    the group of G tokens is walked the block stores the tile as whole
+//    rows (two barriers a checkpoint).  A runtime phase and direction
+//    (Params) let the backward's reverse pass put its checkpoints on the
+//    forward's span boundaries.  That is a template flag: serving passes
+//    no pointer and runs the kernel built without it, and each launch site
+//    has an entry of its own (`wkv6_kernel<K, false>` serving,
+//    `wkv6_kernel<K, true>` training, `wkv6_rev_kernel<K>` the backward),
+//    so a profile names the launch.
 //
 // The backward (`wkv6_bwd`) has no TPU counterpart: the JAX package
 // differentiates the `lax.scan` of src/repro/models/blocks.py:381.  With
@@ -88,43 +95,39 @@
 // dw needs S_{t-1} and G_t at the same step.  S_{t-1} is never recovered by
 // running the state backwards ((S_t - k^T v) / w) nor dw from log-space
 // sums divided by w: w reaches 1e-6 and below, and fp32 would turn that
-// division into O(0.1) errors.  Both walks here multiply by w <= 1 only.
+// division into O(0.1) errors.  Every walk here multiplies by w <= 1 only,
+// in fp32 (tf32 tensor cores would miss the 1e-4 bar).
+// Bound at the training step's shape (B=4, S=2048, H=40, hd=64, fp32, as
+// chip_smoke.py counts it): bytes, r, k, v, w and dy read and dr, dk, dv,
+// dw written (9 x 83.9 MB) plus the 168 MB of checkpoints read, 0.275 ms
+// at 3.35 TB/s; operations, 14 B S H hd^2 = 18.8 GFLOP (3 each for the
+// state's recompute and G's update, 2 each for dr, dk, dv, dw, per state
+// element and token), 0.2805 ms at 67 TFLOP/s fp32.  The bound is 0.2805
+// ms, operations.
 // Three launches, no atomics (two calls give equal bits):
-//  * wkv6_bwd_kernel: rows are independent in dr, dk, dw (sums over j), so
-//    a block owns RB rows of one head, all columns; NJ neighbouring lanes
-//    share a row.  Spans of kCkptEvery tokens are taken last to first,
-//    staged (r, k, w rows, v, dy) through a two-stage cp.async ring.  In a
-//    span, pass 1 runs the state on from the span's checkpoint and keeps
-//    it at every CI-th token in the thread's own shared-memory slots; pass
-//    2 takes those sub-spans last to first, recomputes the state before
-//    each of its CI tokens into registers, and walks them backwards with G
-//    in registers.  Each token leaves four sums over the lane's columns
-//    (dy.S, G.v, G.S, dy.v); one transposing butterfly over the CI lanes
-//    (after adding lanes CI, 2 CI, ... apart where NJ > CI) leaves lane g
-//    with token g's whole sums, and it stores dr, dk, dw.  du is summed
-//    per (b, h, row) over the tokens and written to a (B, H, hd) scratch.
-//  * dv and ds0: dv_t = k_t (G_t + diag(u) r_t^T dy_t) and G_{t-1} =
-//    diag(w_t) G_t + r_t^T dy_t are the forward recurrence with r and k
-//    swapped, v -> dy and s0 -> ds_final, run from the last token to the
-//    first: the forward kernel itself, on pointers that start at token
-//    S - 1 with negated token strides.  Its y is dv, its final state ds0.
-//  * wkv6_du_kernel sums du over b, in order.
-// Bounds at the training step's shape (B=4, S=2048, H=40, hd=64, fp32) on
-// an H100 SXM:
-//  * bytes: r, k, v, w and dy read, dr, dk, dv and dw written, 9 x 83.9 MB,
-//    plus the 168 MB of checkpoints read: ~0.92 GB, 0.28 ms at 3.35 TB/s;
-//  * instructions: at least 8 fp32 instructions per state element per
-//    token (2 for the state's recompute, 2 for the G update, one FMA each
-//    for dr, dw, dk, dv), 336 M warp instructions, ~0.36 ms at the
-//    forward's rate.  The bound is ~0.36 ms, instructions.  As FLOP (3
-//    for the recompute, 3 for G, 2 each for dr, dk, dv, dw: 14 B S H hd^2
-//    = 18.8 GFLOP) it is 0.28 ms at 67 TFLOP/s fp32, as chip_smoke.py
-//    counts it.
-// This first design spends more: the row walk 10 per element and token
-// (the state is recomputed twice, once for the sub-span checkpoints, once
-// into registers) plus the butterflies, and the dv pass the forward's 4,
-// on inputs it reads again.  Tensor cores and the chunked form are later
-// work.
+//  * The reverse pass (`wkv6_rev_kernel`): dv_t = k_t (G_t + diag(u)
+//    r_t^T dy_t) and G_{t-1} = diag(w_t) G_t + r_t^T dy_t are the forward
+//    recurrence with r and k swapped, v -> dy and s0 -> ds_final, run from
+//    the last token to the first: the checkpointing forward itself, on
+//    pointers that start at token S - 1 with negated token strides.  Its y
+//    is dv, its final state ds0, and its checkpoints, phased to the
+//    forward's span boundaries and stored last slot first, are G after
+//    every span of kCkptEvery tokens ((B, H, nck, hd, hd) scratch).
+//  * The span walk (`wkv6_pair_kernel`, below its own header): with both
+//    checkpoints every span of 32 tokens is independent, so a block owns
+//    one span of one head (64 rows, one thread a row at hd 64) and no
+//    block waits for another (10,240 blocks at the training shape: many
+//    waves, and no chain as long as the sequence).  Inside the span it
+//    regroups the recurrence's sums by token pairs: per row and token ~2
+//    hd operations (the checkpoint rows against dy and v), and ~6 per pair
+//    of tokens, against ~7 hd per row and token for walking S and G
+//    through the span, and no reduction across lanes.  Every factor is a
+//    product of w; nothing is divided.  The block stages the span with
+//    cp.async, forms M = dy v^T once, and writes dr, dk, dw as whole rows
+//    a token.
+//  * wkv6_du_kernel sums du over b and the spans, in a fixed order.
+// tools/wkv6_bwd_variants.py builds and times other layouts of the span
+// walk (it edits the PPick<64> line) beside an earlier wkv6.cu.
 
 #include <cuda_runtime.h>
 
@@ -180,9 +183,14 @@ struct Params {
   float* ckpt;      // (B, H, nck, hd, hd), contiguous: the kCkpt kernel's
   long long sr[3], sk[3], sv[3], sw[3], sy[3];  // element strides of b, s, h
   int H, S;
-  int nck;    // checkpoints a head: ceil(S / kCkptEvery)
+  int nck;    // checkpoints a head
   int chunk;  // tokens per stage
   int vec;    // 1: 16-byte copies, 0: 4-byte copies
+  // kCkpt: the state before token t is kept where (t + phase) % kCkptEvery
+  // is 0, and before token 0, in slot (t + phase) / kCkptEvery, stored at
+  // nck - 1 - slot where ck_back (the backward's reverse pass), else at
+  // slot (the forward: phase 0)
+  int phase, ck_back;
 };
 
 // One block's (batch, head): base pointers (the token strides are read
@@ -302,6 +310,37 @@ __device__ __forceinline__ void butterfly(float (&part)[COLS][G], int g) {
   }
 }
 
+// The state into the padded (VT, HD + 1) tile, thread (g, cg) its own
+// elements (rows 4 (g + G q) + e, columns cg COLS + c).
+template <class K>
+__device__ __forceinline__ void state_to_tile(
+    float* tile, int g, int cg, const float (&st)[K::COLS][K::ROWS]) {
+#pragma unroll
+  for (int c = 0; c < K::COLS; ++c)
+#pragma unroll
+    for (int q = 0; q < K::ROWS / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(cg * K::COLS + c) * (K::HD + 1) + 4 * (g + K::G * q) + e] =
+            st[c][4 * q + e];
+}
+
+// The tile's VT columns of all HD rows to dst (row stride HD): lanes along
+// j, so a warp stores whole rows.
+template <class K>
+__device__ __forceinline__ void tile_to_rows(const float* tile, float* dst) {
+  for (int x = threadIdx.x; x < K::HD * K::VT; x += K::NT) {
+    const int i = x / K::VT, jj = x % K::VT;
+    dst[(long long)i * K::HD + jj] = tile[jj * (K::HD + 1) + i];
+  }
+}
+
+// Where checkpoint `slot` of the block's head and columns lies.
+__device__ __forceinline__ float* ckpt_slot(const Params& p, const Head& a,
+                                            long long slot, int hd) {
+  return a.ck + (p.ck_back ? p.nck - 1 - slot : slot) * (long long)hd * hd;
+}
+
 // Walks tokens t0 .. t0 + m - 1 (m <= G; kFull: m == G) of one stage whose
 // first token is `base` in the sequence, and stores their y.
 // Thread (g, cg) holds rows 4 (g + G q) + e, q < ROWS / 4, e < 4, of
@@ -310,11 +349,13 @@ __device__ __forceinline__ void butterfly(float (&part)[COLS][G], int g) {
 // transposing butterfly over the G lanes sums them, leaving lane g with
 // token t0 + g: G - 1 shuffles per column per group instead of
 // log2(G) per column per token, and no shuffle on the walk's chain.
+// kCkpt: a checkpoint falling in the group goes into the tile at its token
+// and leaves once the group is walked.
 template <class K, bool kFull, bool kCkpt>
 __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
-                                           long long base, int j0,
-                                           const float* stage, int C, int t0,
-                                           int m, int g, int cg,
+                                           float* tile, long long base,
+                                           int j0, const float* stage, int C,
+                                           int t0, int m, int g, int cg,
                                            const float (&ur)[K::ROWS],
                                            float (&st)[K::COLS][K::ROWS]) {
   constexpr int HD = K::HD, VT = K::VT, G = K::G;
@@ -323,8 +364,10 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
   const float* ks = rs + C * HD;
   const float* ws = ks + C * HD;
   const float* vs = ws + C * HD;
-  // the group's first token, counted from the last checkpoint
-  const int ck0 = kCkpt ? (int)((base + t0) % kCkptEvery) : 0;
+  // the group's first token, counted from the last checkpoint; the state
+  // before token t0 + tc is a checkpoint (the group holds at most one)
+  const int ck0 = kCkpt ? (int)((base + t0 + p.phase) % kCkptEvery) : 0;
+  const int tc = (kCkptEvery - ck0) % kCkptEvery;
   float part[COLS][G];
 #pragma unroll
   for (int tt = 0; tt < G; ++tt) {
@@ -333,21 +376,7 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
     if (kFull || tt < m) {
       const int t = t0 + tt;
       if constexpr (kCkpt) {
-        // the state before a token of a multiple of kCkptEvery: each
-        // thread writes its rows' COLS columns straight from registers
-        if ((ck0 + tt) % kCkptEvery == 0) {
-          float* ck = a.ck + (base + t) / kCkptEvery * (HD * HD) +
-                      cg * COLS;
-#pragma unroll
-          for (int q = 0; q < ROWS / 4; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              float row[COLS];
-#pragma unroll
-              for (int c = 0; c < COLS; ++c) row[c] = st[c][4 * q + e];
-              store_cols<COLS>(ck + (4 * (g + G * q) + e) * HD, row);
-            }
-        }
+        if (tt == tc) state_to_tile<K>(tile, g, cg, st);
       }
       const float4* r4 = reinterpret_cast<const float4*>(rs + t * HD) + g;
       const float4* k4 = reinterpret_cast<const float4*>(ks + t * HD) + g;
@@ -381,30 +410,37 @@ __device__ __forceinline__ void walk_group(const Params& p, const Head& a,
     for (int c = 0; c < COLS; ++c) out[c] = part[c][0];
     store_cols<COLS>(a.y + (base + t0 + g) * p.sy[1] + j0 + cg * COLS, out);
   }
+  if constexpr (kCkpt) {
+    if (tc < m) {  // uniform: every thread of the block takes it or none
+      __syncthreads();
+      tile_to_rows<K>(
+          tile, ckpt_slot(p, a, (base + t0 + tc + p.phase) / kCkptEvery, HD));
+      __syncthreads();  // the tile is free again
+    }
+  }
 }
 
 // Walks the n tokens of one stage, G at a time.
 template <class K, bool kCkpt>
 __device__ __forceinline__ void walk(const Params& p, const Head& a,
-                                     long long base, int j0,
+                                     float* tile, long long base, int j0,
                                      const float* stage, int C, int n, int g,
                                      int cg, const float (&ur)[K::ROWS],
                                      float (&st)[K::COLS][K::ROWS]) {
   int t0 = 0;
 #pragma unroll 1
   for (; t0 + K::G <= n; t0 += K::G)
-    walk_group<K, true, kCkpt>(p, a, base, j0, stage, C, t0, K::G, g, cg, ur,
-                               st);
+    walk_group<K, true, kCkpt>(p, a, tile, base, j0, stage, C, t0, K::G, g,
+                               cg, ur, st);
   if (t0 < n)
-    walk_group<K, false, kCkpt>(p, a, base, j0, stage, C, t0, n - t0, g, cg,
-                                ur, st);
+    walk_group<K, false, kCkpt>(p, a, tile, base, j0, stage, C, t0, n - t0,
+                                g, cg, ur, st);
 }
 
-// kCkpt: also write the state before every kCkptEvery-th token to p.ckpt
-// (the training forward); serving builds the kernel without it.
+// kCkpt: also write the state every kCkptEvery tokens to p.ckpt (see
+// Params); serving builds the kernel without it.
 template <class K, bool kCkpt>
-__global__ void __launch_bounds__(K::NT, K::kMinBlocks)
-    wkv6_kernel(const __grid_constant__ Params p) {
+__device__ __forceinline__ void wkv6_body(const Params& p) {
   constexpr int HD = K::HD, VT = K::VT, G = K::G, NT = K::NT;
   constexpr int ROWS = K::ROWS, COLS = K::COLS;
   extern __shared__ float4 smem4[];
@@ -453,6 +489,16 @@ __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
   }
   cp_wait<kStages - 1>();
   __syncthreads();
+  // With a phase, token 0 is no multiple of kCkptEvery from the phase, and
+  // the state before it (s0) goes to slot 0 here.  The tile is only read
+  // until the walk's first barrier.
+  if (kCkpt && p.phase) {
+    float* dst = ckpt_slot(p, a, 0, HD);
+    for (int x = tid; x < HD * VT; x += NT) {
+      const int i = x / VT, jj = x % VT;
+      dst[(long long)i * HD + jj] = p.s0 ? tile[jj * (HD + 1) + i] : 0.f;
+    }
+  }
   float st[COLS][ROWS];
 #pragma unroll
   for (int c = 0; c < COLS; ++c)
@@ -472,48 +518,51 @@ __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
       load_chunk<K>(p, a, ring + (cn % kStages) * stage_floats, C,
                     (long long)cn * C, min(C, S - cn * C), j0);
     cp_commit();
-    walk<K, kCkpt>(p, a, (long long)ci * C, j0,
+    walk<K, kCkpt>(p, a, tile, (long long)ci * C, j0,
                    ring + (ci % kStages) * stage_floats, C,
                    min(C, S - ci * C), g, cg, ur, st);
   }
 
   // The final state leaves through the tile, whole rows at a time.
-#pragma unroll
-  for (int c = 0; c < COLS; ++c)
-#pragma unroll
-    for (int q = 0; q < ROWS / 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        tile[(cg * COLS + c) * (HD + 1) + 4 * (g + G * q) + e] =
-            st[c][4 * q + e];
+  state_to_tile<K>(tile, g, cg, st);
   __syncthreads();
-  float* sf = p.s_final + sbase + j0;
-  for (int x = tid; x < HD * VT; x += NT) {
-    const int i = x / VT, jj = x % VT;
-    sf[(long long)i * HD + jj] = tile[jj * (HD + 1) + i];
-  }
+  tile_to_rows<K>(tile, p.s_final + sbase + j0);
 }
 
 template <class K, bool kCkpt>
-cudaError_t launch(Params p, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(K::NT, K::kMinBlocks)
+    wkv6_kernel(const __grid_constant__ Params p) {
+  wkv6_body<K, kCkpt>(p);
+}
+
+// The backward's reverse pass: the checkpointing forward on the sequence
+// walked back.  An entry of its own, so that a profile tells its launches
+// from the forward's.
+template <class K>
+__global__ void __launch_bounds__(K::NT, K::kMinBlocks)
+    wkv6_rev_kernel(const __grid_constant__ Params p) {
+  wkv6_body<K, true>(p);
+}
+
+template <class K, class Kernel>
+cudaError_t launch(Kernel kernel, Params p, int B, cudaStream_t stream) {
   const size_t token_bytes = sizeof(float) * K::kTokenFloats;
   const size_t tile_bytes = sizeof(float) * K::kTileFloats;
   const int fit = (int)((kSmemMax - tile_bytes) / (kStages * token_bytes));
   p.chunk = std::min(std::min(p.chunk, p.S), fit);
   const size_t smem = tile_bytes + kStages * p.chunk * token_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<K, kCkpt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * p.H, K::HD / K::VT);
-  wkv6_kernel<K, kCkpt><<<grid, K::NT, smem, stream>>>(p);
+  kernel<<<grid, K::NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <class K>
 cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
-  return p.ckpt ? launch<K, true>(p, B, stream)
-                : launch<K, false>(p, B, stream);
+  return p.ckpt ? launch<K>(wkv6_kernel<K, true>, p, B, stream)
+                : launch<K>(wkv6_kernel<K, false>, p, B, stream);
 }
 
 // Whether a (B, S, H, hd) tensor allows 16-byte copies along hd: its base
@@ -527,50 +576,13 @@ bool aligned16(const void* ptr, const long long* st, int B, int S, int H) {
   return true;
 }
 
-// ---------------------------------------------------------------------------
-// The backward: dr, dk, dw and du by the row walk below, dv and ds0 by the
-// forward kernel walked back in time (see the header).
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdStages = 2;
-
-// NJ lanes share one state row, each holding E = HD / NJ of its columns
-// (lane l: columns 4 (l + NJ q) + e, e < 4); RB rows a block; CI tokens a
-// sub-span, which is also the butterfly's group; MINB blocks an SM must
-// hold (launch bounds).
-template <int HD_, int NJ_, int RB_, int CI_, int MINB_>
-struct BCfg {
-  static constexpr int HD = HD_, NJ = NJ_, RB = RB_, CI = CI_;
-  static constexpr int E = HD / NJ;
-  static constexpr int NT = RB * NJ;
-  static constexpr int kMinBlocks = MINB_;
-  static constexpr int kSub = kCkptEvery / CI;          // sub-spans a span
-  static constexpr int kTokenFloats = 3 * RB + 2 * HD;  // r k w | v dy
-  static constexpr int kStageFloats = kCkptEvery * kTokenFloats;
-  static constexpr int kSubFloats = kSub * E * NT;
-  static_assert(E % 4 == 0 && 32 % NJ == 0 && NJ % CI == 0, "lanes");
-  static_assert(RB % 4 == 0 && HD % RB == 0 && NT % 32 == 0, "rows");
-  static_assert(kCkptEvery % CI == 0, "sub-spans");
-};
-
-template <int HD>
-struct BPick;
-template <>
-struct BPick<16> { using T = BCfg<16, 4, 16, 4, 4>; };
-template <>
-struct BPick<32> { using T = BCfg<32, 8, 16, 8, 4>; };
-template <>
-struct BPick<64> { using T = BCfg<64, 8, 16, 8, 3>; };
-template <>
-struct BPick<128> { using T = BCfg<128, 16, 8, 8, 2>; };
-
 struct BParams {
   const float *r, *k, *v, *w, *dy;
-  const float* u;         // (H, hd), contiguous
-  const float* ckpt;      // (B, H, nck, hd, hd), contiguous
-  const float* ds_final;  // (B, H, hd, hd), contiguous, or null for zeros
-  float *dr, *dk, *dw;    // (B, S, H, hd), strides so
-  float* du_part;         // (B, H, hd): du summed over the tokens
+  const float* u;       // (H, hd), contiguous
+  const float* ckpt;    // S before span c: (B, H, nck, hd, hd), contiguous
+  const float* gck;     // G after span c (the reverse pass's), the same
+  float *dr, *dk, *dw;  // (B, S, H, hd), strides so
+  float* du_part;       // (B, H, nck, hd): du over each span
   long long sr[3], sk[3], sv[3], sw[3], sd[3], so[3];
   int H, S, nck;
   int vec;  // 1: 16-byte copies, 0: 4-byte copies
@@ -580,245 +592,293 @@ struct BHead {
   const float *r, *k, *v, *w, *dy;
 };
 
-// Span layout, kCkptEvery tokens: r, k, w (kCkptEvery, RB) for the block's
-// rows | v, dy (kCkptEvery, HD).
+// ---------------------------------------------------------------------------
+// The span walk by token pairs (`wkv6_pair_kernel`).  In a span of L
+// tokens, with S_a the state before it and G_b the gradient after it (the
+// two checkpoints), write T[x][y] = w_{y+1} ... w_{x-1} (x > y; 1 for
+// x = y + 1), E_t = w_0 ... w_{t-1}, F_t = w_{t+1} ... w_{L-1}, per row.
+// Then, with M[x][y] = dy_x . v_y (per head), A_t = dy_t . S_a[i],
+// B_t = v_t . G_b[i], Z = G_b[i] . S_a[i] (per row i), and
+//     P_t[s] = sum_{y<t} T[t][y] k_y M[s][y]  (P_0 = 0,
+//              P_{t+1}[s] = w_t P_t[s] + k_t M[s][t]),
+//     Q_t = sum_{y<t} T[t][y] k_y B_y,   U_t = sum_{x>t} T[x][t] r_x A_x:
+//  dr_t = E_t A_t + P_t[t] + u k_t c_t
+//  dk_t = F_t B_t + sum_{s>t} T[s][t] r_s M[s][t] + u r_t c_t
+//  dw_t = F_t E_t Z + F_t Q_t + E_t U_t + sum_{s>t} T[s][t] r_s P_t[s]
+// (c_t = M[t][t]): the recurrence's sums regrouped by token pairs, every
+// factor a product of w <= 1, nothing divided.  Per row and token that is
+// ~2 HD operations for A and B and ~6 a pair for the rest, against ~7 HD
+// for walking S and G through the span.  A block owns RB rows of one head
+// and one span, one thread a row; tokens past the sequence's end are
+// staged as w = 1 and zeros, which add nothing.
+// ---------------------------------------------------------------------------
+
+template <int HD_, int RB_, int MINB_>
+struct PCfg {
+  static constexpr int HD = HD_, RB = RB_, kMinBlocks = MINB_;
+  static constexpr int NT = RB < 32 ? 32 : RB;  // threads past RB: M only
+  static constexpr int L = kCkptEvery;
+  static constexpr int HP = HD + 4;  // padded v and dy rows: lanes reading
+                                     // rows x read other banks
+  // r, k, w (L, RB) | v, dy (L, HP) | Mt (L, L), Mt[y][x] = M[x][y]; after
+  // M and A, B: A, B (L, RB) over v and dy, U over w (each thread its own
+  // column, once it holds its w)
+  static constexpr int kFloats = 3 * L * RB + 2 * L * HP + L * L;
+  static_assert(L == 32 && RB % 4 == 0 && HD % RB == 0, "rows");
+  static_assert(NT == 32 || NT == 64, "threads");
+};
+
+template <int HD>
+struct PPick;
+template <>
+struct PPick<16> { using T = PCfg<16, 16, 4>; };
+template <>
+struct PPick<32> { using T = PCfg<32, 32, 4>; };
+template <>
+struct PPick<64> { using T = PCfg<64, 64, 4>; };
+template <>
+struct PPick<128> { using T = PCfg<128, 64, 3>; };
+
 template <class K, int W>
-__device__ __forceinline__ void load_span(const BParams& p, const BHead& a,
-                                          float* stage, long long t0, int n,
-                                          int i0) {
-  float* rs = stage;
-  float* ks = rs + kCkptEvery * K::RB;
-  float* ws = ks + kCkptEvery * K::RB;
-  float* vs = ws + kCkptEvery * K::RB;
-  float* ds = vs + kCkptEvery * K::HD;
-  constexpr int QR = K::RB / W;
+__device__ __forceinline__ void stage_pair(const BParams& p, const BHead& a,
+                                           float* rs, float* ks, float* ws,
+                                           float* vs, float* ds,
+                                           long long ta, int n, int i0) {
+  constexpr int RB = K::RB, HD = K::HD, HP = K::HP, L = K::L, NT = K::NT;
+  constexpr int QR = RB / W, QV = HD / W;
 #pragma unroll 1
-  for (int x = threadIdx.x; x < n * QR; x += K::NT) {
-    const int t = x / QR, i = i0 + (x % QR) * W;
-    const long long tt = t0 + t;
-    cp_async<W>(rs + t * K::RB + i - i0, a.r + tt * p.sr[1] + i);
-    cp_async<W>(ks + t * K::RB + i - i0, a.k + tt * p.sk[1] + i);
-    cp_async<W>(ws + t * K::RB + i - i0, a.w + tt * p.sw[1] + i);
+  for (int x = threadIdx.x; x < n * QR; x += NT) {
+    const int t = x / QR, i = (x % QR) * W;
+    const long long tt = ta + t;
+    cp_async<W>(rs + t * RB + i, a.r + tt * p.sr[1] + i0 + i);
+    cp_async<W>(ks + t * RB + i, a.k + tt * p.sk[1] + i0 + i);
+    cp_async<W>(ws + t * RB + i, a.w + tt * p.sw[1] + i0 + i);
   }
-  constexpr int QV = K::HD / W;
 #pragma unroll 1
-  for (int x = threadIdx.x; x < n * QV; x += K::NT) {
+  for (int x = threadIdx.x; x < n * QV; x += NT) {
     const int t = x / QV, j = (x % QV) * W;
-    const long long tt = t0 + t;
-    cp_async<W>(vs + t * K::HD + j, a.v + tt * p.sv[1] + j);
-    cp_async<W>(ds + t * K::HD + j, a.dy + tt * p.sd[1] + j);
+    const long long tt = ta + t;
+    cp_async<W>(vs + t * HP + j, a.v + tt * p.sv[1] + j);
+    cp_async<W>(ds + t * HP + j, a.dy + tt * p.sd[1] + j);
   }
-}
-
-template <class K>
-__device__ __forceinline__ void load_span(const BParams& p, const BHead& a,
-                                          float* stage, long long t0, int n,
-                                          int i0) {
-  if (p.vec)
-    load_span<K, 4>(p, a, stage, t0, n, i0);
-  else
-    load_span<K, 1>(p, a, stage, t0, n, i0);
-}
-
-// Lane l's E columns of a row (shared or global memory, 16-byte aligned).
-template <class K>
-__device__ __forceinline__ void load_row(const float* src, int l,
-                                         float (&d)[K::E]) {
-#pragma unroll
-  for (int q = 0; q < K::E / 4; ++q) {
-    const float4 x =
-        *reinterpret_cast<const float4*>(src + 4 * (l + K::NJ * q));
-    d[4 * q] = x.x, d[4 * q + 1] = x.y, d[4 * q + 2] = x.z, d[4 * q + 3] = x.w;
-  }
-}
-
-// The state row through token t of the stage: S <- w S + k v.
-template <class K>
-__device__ __forceinline__ void advance(float (&st)[K::E], const float* ks,
-                                        const float* ws, const float* vs,
-                                        int t, int ri, int l) {
-  const float kk = ks[t * K::RB + ri], ww = ws[t * K::RB + ri];
-  float vj[K::E];
-  load_row<K>(vs + t * K::HD, l, vj);
-#pragma unroll
-  for (int e = 0; e < K::E; ++e) st[e] = fmaf(ww, st[e], kk * vj[e]);
-}
-
-// One span of n tokens (the first at ta in the sequence), walked back from
-// its end with G, the gradient of the state after the span, in registers.
-// Pass 1 runs the state from the span's checkpoint (row i at `ck`) and
-// keeps it at each sub-span's start in this thread's slots of `subck`.
-// Pass 2 takes the sub-spans last to first: it recomputes the state before
-// each of the sub-span's CI tokens into registers (`hist`), then walks
-// them backwards, leaving each token's four sums over this lane's columns
-// (dy.S, G.v, G.S, dy.v) in `part`; one reduction across the row's lanes
-// leaves lane g with token g's, which it finishes and stores.
-template <class K>
-__device__ __forceinline__ void walk_span(const BParams& p, float* dr,
-                                          float* dk, float* dw,
-                                          const float* stage, float* subck,
-                                          const float* ck, long long ta,
-                                          int n, int ri, int l, float ui,
-                                          float (&G)[K::E], float& du) {
-  constexpr int HD = K::HD, NJ = K::NJ, RB = K::RB, CI = K::CI, E = K::E;
-  constexpr int NT = K::NT;
-  const float* rs = stage;
-  const float* ks = rs + kCkptEvery * RB;
-  const float* ws = ks + kCkptEvery * RB;
-  const float* vs = ws + kCkptEvery * RB;
-  const float* ds = vs + kCkptEvery * HD;
-  const int tid = threadIdx.x;
-  float st[E];
-  load_row<K>(ck, l, st);
-  const int nsub = (n + CI - 1) / CI;
+  // tokens past the end: w = 1, the rest zeros
 #pragma unroll 1
-  for (int m = 0; m < nsub; ++m) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) subck[(m * E + e) * NT + tid] = st[e];
-    if (m + 1 < nsub) {  // every token of this sub-span is in the span
-#pragma unroll
-      for (int tt = 0; tt < CI; ++tt)
-        advance<K>(st, ks, ws, vs, m * CI + tt, ri, l);
-    }
+  for (int x = threadIdx.x; x < (L - n) * RB; x += NT) {
+    const int t = n + x / RB, i = x % RB;
+    rs[t * RB + i] = 0.f;
+    ks[t * RB + i] = 0.f;
+    ws[t * RB + i] = 1.f;
   }
 #pragma unroll 1
-  for (int m = nsub - 1; m >= 0; --m) {
-    const int t0 = m * CI, mn = min(CI, n - t0);
-    float hist[CI][E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) st[e] = subck[(m * E + e) * NT + tid];
-#pragma unroll
-    for (int tt = 0; tt < CI; ++tt) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) hist[tt][e] = st[e];
-      if (tt + 1 < mn) advance<K>(st, ks, ws, vs, t0 + tt, ri, l);
-    }
-    float part[4][CI];
-#pragma unroll
-    for (int tt = CI - 1; tt >= 0; --tt) {
-      float a_dr = 0.f, a_dk = 0.f, a_dw = 0.f, a_c = 0.f;
-      if (tt < mn) {
-        const int t = t0 + tt;
-        const float rr = rs[t * RB + ri], ww = ws[t * RB + ri];
-        float vj[E], dj[E];
-        load_row<K>(vs + t * HD, l, vj);
-        load_row<K>(ds + t * HD, l, dj);
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          a_dr = fmaf(dj[e], hist[tt][e], a_dr);
-          a_dk = fmaf(G[e], vj[e], a_dk);
-          a_dw = fmaf(G[e], hist[tt][e], a_dw);
-          a_c = fmaf(dj[e], vj[e], a_c);
-          G[e] = fmaf(ww, G[e], rr * dj[e]);
-        }
-      }
-      part[0][tt] = a_dr;
-      part[1][tt] = a_dk;
-      part[2][tt] = a_dw;
-      part[3][tt] = a_c;
-    }
-    // lanes CI, 2 CI, ... apart hold the same tokens over other columns;
-    // then the transposing butterfly over the CI lanes below
-#pragma unroll
-    for (int o = NJ / 2; o >= CI; o /= 2)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int tt = 0; tt < CI; ++tt)
-          part[x][tt] += __shfl_xor_sync(0xffffffffu, part[x][tt], o);
-    butterfly<CI / 2>(part, l % CI);
-    if (l < mn) {  // lane l < CI holds token t0 + l
-      const int t = t0 + l;
-      const float rr = rs[t * RB + ri], kk = ks[t * RB + ri];
-      const float c = part[3][0];
-      const long long o = (ta + t) * p.so[1];
-      dr[o] = fmaf(ui * kk, c, part[0][0]);
-      dk[o] = fmaf(ui * rr, c, part[1][0]);
-      dw[o] = part[2][0];
-      du = fmaf(rr * kk, c, du);
-    }
+  for (int x = threadIdx.x; x < (L - n) * HD; x += NT) {
+    const int t = n + x / HD, j = x % HD;
+    vs[t * HP + j] = 0.f;
+    ds[t * HP + j] = 0.f;
   }
 }
 
 template <class K>
 __global__ void __launch_bounds__(K::NT, K::kMinBlocks)
-    wkv6_bwd_kernel(const __grid_constant__ BParams p) {
-  constexpr int HD = K::HD, NJ = K::NJ, RB = K::RB, E = K::E;
+    wkv6_pair_kernel(const __grid_constant__ BParams p) {
+  constexpr int HD = K::HD, RB = K::RB, NT = K::NT, L = K::L, HP = K::HP;
+  constexpr int kRowBlocks = HD / RB;
   extern __shared__ float4 smem4[];
-  float* subck = reinterpret_cast<float*>(smem4);  // (kSub, E, NT)
-  float* ring = subck + K::kSubFloats;
-  const int S = p.S, nck = p.nck;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int i0 = blockIdx.y * RB;
-  const int tid = threadIdx.x, l = tid % NJ, ri = tid / NJ, i = i0 + ri;
+  float* rs = reinterpret_cast<float*>(smem4);  // (L, RB)
+  float* ks = rs + L * RB;
+  float* ws = ks + L * RB;
+  float* vs = ws + L * RB;  // (L, HP)
+  float* ds = vs + L * HP;
+  float* mt = ds + L * HP;  // (L, L)
+  float* as = vs;           // (L, RB) each, once v and dy are done with
+  float* bs = as + L * RB;
+  float* us = ws;
+  const int blk = blockIdx.x;
+  const int i0 = blk % kRowBlocks * RB;
+  const int c = blk / kRowBlocks % p.nck;
+  const int bh = blk / kRowBlocks / p.nck;
+  const int b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x;
   BHead a;
   a.r = p.r + b * p.sr[0] + h * p.sr[2];
   a.k = p.k + b * p.sk[0] + h * p.sk[2];
   a.v = p.v + b * p.sv[0] + h * p.sv[2];
   a.w = p.w + b * p.sw[0] + h * p.sw[2];
   a.dy = p.dy + b * p.sd[0] + h * p.sd[2];
-  const long long orow = b * p.so[0] + h * p.so[2] + i;
-  float* dr = p.dr + orow;
-  float* dk = p.dk + orow;
-  float* dw = p.dw + orow;
-  const float ui = p.u[(long long)h * HD + i];
-  const long long sbase = (long long)bh * HD * HD;
-  float G[E];
-  if (p.ds_final) {
-    load_row<K>(p.ds_final + sbase + (long long)i * HD, l, G);
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) G[e] = 0.f;
-  }
-  float du = 0.f;
-  const float* ck = p.ckpt + sbase * nck + (long long)i * HD;
-
-  // Spans last to first, through a ring of kBwdStages stages: span c - 1
-  // loads while span c is walked.
-  const long long last = (long long)(nck - 1) * kCkptEvery;
-  load_span<K>(p, a, ring, last, (int)(S - last), i0);
+  const long long ta = (long long)c * L;
+  const int n = (int)min((long long)L, (long long)p.S - ta);
+  if (p.vec)
+    stage_pair<K, 4>(p, a, rs, ks, ws, vs, ds, ta, n, i0);
+  else
+    stage_pair<K, 1>(p, a, rs, ks, ws, vs, ds, ta, n, i0);
   cp_commit();
-#pragma unroll 1
-  for (int x = 0; x < nck; ++x) {
-    const int c = nck - 1 - x;
-    cp_wait<0>();     // span c has landed (this thread's copies)
-    __syncthreads();  // ... everyone's; span c + 1 is walked
-    if (c > 0)
-      load_span<K>(p, a, ring + ((x + 1) % kBwdStages) * K::kStageFloats,
-                   (long long)(c - 1) * kCkptEvery, kCkptEvery, i0);
-    cp_commit();
-    const long long ta = (long long)c * kCkptEvery;
-    walk_span<K>(p, dr, dk, dw, ring + (x % kBwdStages) * K::kStageFloats,
-                 subck, ck + ta / kCkptEvery * (HD * HD), ta,
-                 (int)min((long long)kCkptEvery, S - ta), ri, l, ui, G, du);
-  }
-#pragma unroll
-  for (int o = NJ / 2; o > 0; o /= 2)
-    du += __shfl_xor_sync(0xffffffffu, du, o);
-  if (l == 0) p.du_part[(long long)bh * HD + i] = du;
-}
+  cp_wait<0>();
+  __syncthreads();
 
-// du = sum over b of du_part, in order.
-__global__ void wkv6_du_kernel(const float* __restrict__ part,
-                               float* __restrict__ du, int B, int n) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < B; ++b) s += part[(long long)b * n + x];
-  du[x] = s;
+  // M[x][y] = dy_x . v_y: thread (x, half) the YS columns y of its half
+  // (both triangles; the walk reads x >= y), into Mt[y][x].
+  {
+    constexpr int YS = L / (NT / 32);
+    const int x = tid % 32, y0 = tid / 32 * YS;
+    float acc[YS];
+#pragma unroll
+    for (int y = 0; y < YS; ++y) acc[y] = 0.f;
+    const float4* d4 = reinterpret_cast<const float4*>(ds + x * HP);
+#pragma unroll 2
+    for (int q = 0; q < HD / 4; ++q) {
+      const float4 dd = d4[q];
+#pragma unroll
+      for (int y = 0; y < YS; ++y) {
+        const float4 vv =
+            reinterpret_cast<const float4*>(vs + (y0 + y) * HP)[q];
+        acc[y] = fmaf(dd.x, vv.x, acc[y]);
+        acc[y] = fmaf(dd.y, vv.y, acc[y]);
+        acc[y] = fmaf(dd.z, vv.z, acc[y]);
+        acc[y] = fmaf(dd.w, vv.w, acc[y]);
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < YS; ++y) mt[(y0 + y) * L + x] = acc[y];
+  }
+
+  // A_t = dy_t . S_a[i], B_t = v_t . G_b[i] and Z = G_b[i] . S_a[i] for
+  // this thread's row, from the checkpoint rows (one 16-byte chunk ahead)
+  const int i = i0 + tid;
+  const bool row = tid < RB;
+  float A[L], B[L], Z = 0.f;
+#pragma unroll
+  for (int t = 0; t < L; ++t) A[t] = B[t] = 0.f;
+  if (row) {
+    const long long off = (((long long)bh * p.nck + c) * HD + i) * HD;
+    const float4* sa = reinterpret_cast<const float4*>(p.ckpt + off);
+    const float4* gb = reinterpret_cast<const float4*>(p.gck + off);
+    float4 s_next = sa[0], g_next = gb[0];
+#pragma unroll 1
+    for (int q = 0; q < HD / 4; ++q) {
+      const float4 s4 = s_next, g4 = g_next;
+      if (q + 1 < HD / 4) s_next = sa[q + 1], g_next = gb[q + 1];
+      Z = fmaf(g4.x, s4.x, Z);
+      Z = fmaf(g4.y, s4.y, Z);
+      Z = fmaf(g4.z, s4.z, Z);
+      Z = fmaf(g4.w, s4.w, Z);
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        const float4 dd = reinterpret_cast<const float4*>(ds + t * HP)[q];
+        const float4 vv = reinterpret_cast<const float4*>(vs + t * HP)[q];
+        A[t] = fmaf(s4.x, dd.x, A[t]);
+        A[t] = fmaf(s4.y, dd.y, A[t]);
+        A[t] = fmaf(s4.z, dd.z, A[t]);
+        A[t] = fmaf(s4.w, dd.w, A[t]);
+        B[t] = fmaf(g4.x, vv.x, B[t]);
+        B[t] = fmaf(g4.y, vv.y, B[t]);
+        B[t] = fmaf(g4.z, vv.z, B[t]);
+        B[t] = fmaf(g4.w, vv.w, B[t]);
+      }
+    }
+  }
+  __syncthreads();  // v and dy are done with: A and B go over them
+  if (!row) return;
+  float r[L], w[L];
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    r[t] = rs[t * RB + tid];
+    w[t] = ws[t * RB + tid];
+    as[t * RB + tid] = A[t];
+    bs[t * RB + tid] = B[t];
+  }
+  {  // U, walked back: U_{t-1} = w_t U_t + r_t A_t
+    float U = 0.f;
+    us[(L - 1) * RB + tid] = U;
+#pragma unroll
+    for (int t = L - 1; t > 0; --t) {
+      U = fmaf(w[t], U, r[t] * A[t]);
+      us[(t - 1) * RB + tid] = U;
+    }
+  }
+
+  // The walk forwards: P, Q and E carried, the pair sums over s > t.
+  const float ui = p.u[(long long)h * HD + i];
+  const long long orow = b * p.so[0] + h * p.so[2] + i;
+  float P[L];
+#pragma unroll
+  for (int t = 0; t < L; ++t) P[t] = 0.f;
+  float E = 1.f, Q = 0.f, du = 0.f;
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    const float kt = ks[t * RB + tid], At = as[t * RB + tid];
+    const float Bt = bs[t * RB + tid], Ut = us[t * RB + tid];
+    const float ct = mt[t * L + t];
+    // the pair sums, even and odd s apart: two chains each
+    float T = 1.f, dkp[2] = {0.f, 0.f}, dw4[2] = {0.f, 0.f};
+#pragma unroll
+    for (int q = (t + 1) / 4; q < L / 4; ++q) {
+      const float4 m4 = reinterpret_cast<const float4*>(mt + t * L)[q];
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = 4 * q + e;
+        if (s > t) {
+          const float Y = T * r[s];
+          dkp[s % 2] = fmaf(Y, mv[e], dkp[s % 2]);
+          dw4[s % 2] = fmaf(Y, P[s], dw4[s % 2]);
+          P[s] = fmaf(w[t], P[s], kt * mv[e]);
+          T *= w[s];
+        }
+      }
+    }
+    // into this thread's slots of k, r and U, read for the last time
+    // above: no branch in the walk (tokens past n add 0 to du)
+    ks[t * RB + tid] = fmaf(ui * kt, ct, fmaf(E, At, P[t]));
+    rs[t * RB + tid] = fmaf(ui * r[t], ct, fmaf(T, Bt, dkp[0] + dkp[1]));
+    us[t * RB + tid] = fmaf(T, fmaf(E, Z, Q), fmaf(E, Ut, dw4[0] + dw4[1]));
+    du = fmaf(r[t] * kt, ct, du);
+    Q = fmaf(w[t], Q, kt * Bt);
+    E *= w[t];
+  }
+#pragma unroll 1
+  for (int t = 0; t < n; ++t) {
+    const long long o = (ta + t) * p.so[1] + orow;
+    p.dr[o] = ks[t * RB + tid];
+    p.dk[o] = rs[t * RB + tid];
+    p.dw[o] = us[t * RB + tid];
+  }
+  p.du_part[((long long)bh * p.nck + c) * HD + i] = du;
 }
 
 template <class K>
-cudaError_t launch_bwd(const BParams& p, int B, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (K::kSubFloats + kBwdStages * K::kStageFloats);
+cudaError_t launch_pair(const BParams& p, int B, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * K::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_bwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_pair_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * p.H, K::HD / K::RB);
-  wkv6_bwd_kernel<K><<<grid, K::NT, smem, stream>>>(p);
+  const long long blocks = (long long)B * p.H * p.nck * (K::HD / K::RB);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wkv6_pair_kernel<K><<<(unsigned)blocks, K::NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// du[h, i] = the sum of du_part (B, H, nck, hd) over b and the spans, in
+// a fixed order: warp x of 32 sums every 32nd (b, span) pair from x, then
+// warp 0 sums the 32.  Grid (H, ceil(hd / 32)); lane i of a warp is row
+// 32 y + i.
+__global__ void __launch_bounds__(1024)
+    wkv6_du_kernel(const float* __restrict__ part, float* __restrict__ du,
+                   int B, int H, int nck, int hd) {
+  __shared__ float red[32][33];
+  const int h = blockIdx.x, lane = threadIdx.x % 32, wp = threadIdx.x / 32;
+  const int i = blockIdx.y * 32 + lane;
+  float s = 0.f;
+  if (i < hd)
+    for (int x = wp; x < B * nck; x += 32)
+      s += part[(((long long)(x / nck) * H + h) * nck + x % nck) * hd + i];
+  red[wp][lane] = s;
+  __syncthreads();
+  if (wp == 0 && i < hd) {
+    float t = 0.f;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) t += red[x][lane];
+    du[(long long)h * hd + i] = t;
+  }
 }
 
 }  // namespace
@@ -863,6 +923,8 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   p.nck = (S + kCkptEvery - 1) / kCkptEvery;
   p.chunk = chunk;
   p.vec = vec ? 1 : 0;
+  p.phase = 0;
+  p.ck_back = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return (int)launch_fwd<Pick<16>::T>(p, B, st);
@@ -879,67 +941,51 @@ extern "C" const char* wkv6_error_string(int err) {
 
 // strides: (b, s, h) element strides of r, k, v, w, dy, dr (dk and dw
 // alike) and dv, 21 in all.  ckpt: the forward's checkpoints of the same
-// inputs; ds_final may be null (zeros).  du_part is (B, H, hd) scratch.
+// inputs; ds_final may be null (zeros).  Scratch, nck = ceil(S /
+// kCkptEvery): gck (B, H, nck, hd, hd), where the reverse pass leaves the
+// gradient of the state after each span, and du_part (B, H, nck, hd).
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* dy,
                         const void* ckpt, const void* ds_final, void* dr,
                         void* dk, void* dv, void* dw, void* du, void* ds0,
-                        void* du_part, int B, int S, int H, int hd,
+                        void* gck, void* du_part, int B, int S, int H, int hd,
                         const long long* strides, int chunk, int vec,
                         void* stream) {
   if (B < 1 || S < 1 || H < 1 || chunk < 1 || chunk > 128)
+    return (int)cudaErrorInvalidValue;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128)
     return (int)cudaErrorInvalidValue;
   const void* ins[5] = {r, k, v, w, dy};
   for (int a = 0; a < 5 && vec; ++a)
     if (!aligned16(ins[a], strides + 3 * a, B, S, H))
       return (int)cudaErrorMisalignedAddress;
-  if (!aligned16(dv, strides + 18, B, S, H))
+  if (!aligned16(dv, strides + 18, B, S, H) ||
+      reinterpret_cast<uintptr_t>(ckpt) % 16 ||
+      reinterpret_cast<uintptr_t>(gck) % 16)
     return (int)cudaErrorMisalignedAddress;
-  BParams p;
-  p.r = static_cast<const float*>(r);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.w = static_cast<const float*>(w);
-  p.dy = static_cast<const float*>(dy);
-  p.u = static_cast<const float*>(u);
-  p.ckpt = static_cast<const float*>(ckpt);
-  p.ds_final = static_cast<const float*>(ds_final);
-  p.dr = static_cast<float*>(dr);
-  p.dk = static_cast<float*>(dk);
-  p.dw = static_cast<float*>(dw);
-  p.du_part = static_cast<float*>(du_part);
-  long long* dst[6] = {p.sr, p.sk, p.sv, p.sw, p.sd, p.so};
-  for (int a = 0; a < 6; ++a)
-    for (int d = 0; d < 3; ++d) dst[a][d] = strides[3 * a + d];
-  p.H = H;
-  p.S = S;
-  p.nck = (S + kCkptEvery - 1) / kCkptEvery;
-  p.vec = vec ? 1 : 0;
+  const int nck = (S + kCkptEvery - 1) / kCkptEvery;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (hd) {
-    case 16: err = launch_bwd<BPick<16>::T>(p, B, st); break;
-    case 32: err = launch_bwd<BPick<32>::T>(p, B, st); break;
-    case 64: err = launch_bwd<BPick<64>::T>(p, B, st); break;
-    case 128: err = launch_bwd<BPick<128>::T>(p, B, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
 
-  // dv and ds0: the forward kernel on the sequence reversed, with r -> k,
-  // k -> r, v -> dy, s0 -> ds_final: its state is G, its y is dv and its
-  // final state ds0.  Each pointer starts at token S - 1 and walks back.
+  // 1. dv, ds0 and the gradient after every span: the checkpointing
+  // forward on the sequence reversed, with r -> k, k -> r, v -> dy, s0 ->
+  // ds_final.  Its state is G, its y dv, its final state ds0.  Each
+  // pointer starts at token S - 1 and walks back; reversed token t' is
+  // token S - 1 - t', so the state before it is G after that token, the
+  // end of a span where (S - t') % kCkptEvery == 0 (phase) or t' == 0,
+  // stored from the last slot down (ck_back): gck[c] is G after span c.
   const long long back = S - 1;
+  const long long* sk = strides + 3;
   Params q;
-  q.r = p.k + back * p.sk[1];
-  q.k = p.r + back * p.sr[1];
-  q.v = p.dy + back * p.sd[1];
-  q.w = p.w + back * p.sw[1];
-  q.u = p.u;
-  q.s0 = p.ds_final;
+  q.r = static_cast<const float*>(k) + back * sk[1];
+  q.k = static_cast<const float*>(r) + back * strides[1];
+  q.v = static_cast<const float*>(dy) + back * strides[13];
+  q.w = static_cast<const float*>(w) + back * strides[10];
+  q.u = static_cast<const float*>(u);
+  q.s0 = static_cast<const float*>(ds_final);
   q.y = static_cast<float*>(dv) + back * strides[19];
   q.s_final = static_cast<float*>(ds0);
-  q.ckpt = nullptr;
+  q.ckpt = static_cast<float*>(gck);
   const long long* from[5] = {strides + 3, strides, strides + 12,
                               strides + 9, strides + 18};  // k r dy w dv
   long long* to[5] = {q.sr, q.sk, q.sv, q.sw, q.sy};
@@ -950,19 +996,58 @@ extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
   }
   q.H = H;
   q.S = S;
-  q.nck = 0;
+  q.nck = nck;
   q.chunk = chunk;
-  q.vec = p.vec;
+  q.vec = vec ? 1 : 0;
+  q.phase = (kCkptEvery - S % kCkptEvery) % kCkptEvery;
+  q.ck_back = 1;
   switch (hd) {
-    case 16: err = launch<Pick<16>::T, false>(q, B, st); break;
-    case 32: err = launch<Pick<32>::T, false>(q, B, st); break;
-    case 64: err = launch<Pick<64>::T, false>(q, B, st); break;
-    default: err = launch<Pick<128>::T, false>(q, B, st); break;
+    case 16:
+      err = launch<Pick<16>::T>(wkv6_rev_kernel<Pick<16>::T>, q, B, st);
+      break;
+    case 32:
+      err = launch<Pick<32>::T>(wkv6_rev_kernel<Pick<32>::T>, q, B, st);
+      break;
+    case 64:
+      err = launch<Pick<64>::T>(wkv6_rev_kernel<Pick<64>::T>, q, B, st);
+      break;
+    default:
+      err = launch<Pick<128>::T>(wkv6_rev_kernel<Pick<128>::T>, q, B, st);
+      break;
   }
   if (err != cudaSuccess) return (int)err;
-  const int n = H * hd;
-  wkv6_du_kernel<<<(n + 255) / 256, 256, 0, st>>>(p.du_part,
-                                                  static_cast<float*>(du), B,
-                                                  n);
+
+  // 2. dr, dk, dw and du by span, every span at once.
+  BParams p;
+  p.r = static_cast<const float*>(r);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.w = static_cast<const float*>(w);
+  p.dy = static_cast<const float*>(dy);
+  p.u = static_cast<const float*>(u);
+  p.ckpt = static_cast<const float*>(ckpt);
+  p.gck = static_cast<const float*>(gck);
+  p.dr = static_cast<float*>(dr);
+  p.dk = static_cast<float*>(dk);
+  p.dw = static_cast<float*>(dw);
+  p.du_part = static_cast<float*>(du_part);
+  long long* dst[6] = {p.sr, p.sk, p.sv, p.sw, p.sd, p.so};
+  for (int a = 0; a < 6; ++a)
+    for (int d = 0; d < 3; ++d) dst[a][d] = strides[3 * a + d];
+  p.H = H;
+  p.S = S;
+  p.nck = nck;
+  p.vec = vec ? 1 : 0;
+  switch (hd) {
+    case 16: err = launch_pair<PPick<16>::T>(p, B, st); break;
+    case 32: err = launch_pair<PPick<32>::T>(p, B, st); break;
+    case 64: err = launch_pair<PPick<64>::T>(p, B, st); break;
+    default: err = launch_pair<PPick<128>::T>(p, B, st); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. du over b and the spans.
+  wkv6_du_kernel<<<dim3(H, (hd + 31) / 32), 1024, 0, st>>>(
+      p.du_part, static_cast<float*>(du), B, H, nck, hd);
   return (int)cudaGetLastError();
 }

@@ -184,6 +184,91 @@ def wkv6_checkpoints(k, v, w, s0, every: int):
     return torch.stack(out, 2)
 
 
+def wkv6_grad_checkpoints(r, w, dy, ds_final, every: int):
+    """The gradient of the state after each span of `every` tokens, walked
+    back from ds_final by G_{t-1} = diag(w_t) G_t + r_t^T dy_t:
+    (B,H,ceil(S/every),hd,hd) fp32, entry c dL/dS after token
+    min((c + 1) every, S) - 1, so the last entry is ds_final (zeros where
+    it is None; dy None is zeros too).  What the CUDA backward's reverse
+    pass writes, and the span walk starts from."""
+    b, s, h, hd = r.shape
+    rf, wf = r.float(), w.float()
+    dyf = torch.zeros_like(rf) if dy is None else dy.float()
+    g = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+         if ds_final is None else ds_final.float())
+    out = [None] * -(-s // every)
+    for t in reversed(range(s)):
+        if t == s - 1 or (t + 1) % every == 0:
+            out[t // every] = g
+        g = (wf[:, t, :, :, None] * g
+             + rf[:, t, :, :, None] * dyf[:, t, :, None, :])
+    return torch.stack(out, 2)
+
+
+def wkv6_span_pairs(r, k, v, w, u, dy, ckpt, gck, every: int):
+    """dr, dk, dw and du (H,hd) of the backward by the span walk by token
+    pairs, as the CUDA kernel `wkv6_pair_kernel` regroups them: each span
+    of `every` tokens from its state checkpoint `ckpt` (`wkv6_checkpoints`)
+    and its gradient checkpoint `gck` (`wkv6_grad_checkpoints`) alone, with
+    T[x][y] = w_{y+1} ... w_{x-1}, E_t = w_0 ... w_{t-1}, F_t = w_{t+1} ...
+    w_{L-1} per row, M[x][y] = dy_x . v_y, A_t = dy_t . S_a[i],
+    B_t = v_t . G_b[i], Z = G_b[i] . S_a[i]:
+        dr_t = E_t A_t + P_t[t] + u k_t c_t
+        dk_t = F_t B_t + sum_{s>t} T[s][t] r_s M[s][t] + u r_t c_t
+        dw_t = F_t (E_t Z + Q_t) + E_t U_t + sum_{s>t} T[s][t] r_s P_t[s]
+    where P_t[s] = sum_{y<t} T[t][y] k_y M[s][y], Q_t = sum_{y<t} T[t][y]
+    k_y B_y, U_t = sum_{x>t} T[x][t] r_x A_x, c_t = M[t][t].  Tokens past
+    S are w = 1 and zeros.  Every factor is a product of w; nothing is
+    divided.  fp32."""
+    b, s, h, hd = r.shape
+    n = ckpt.shape[2]
+    pad = n * every - s
+
+    def spans(x, fill):   # (b, s, h, hd) -> (b, h, n, every, hd)
+        x = torch.cat([x.float(), torch.full((b, pad, h, hd), fill,
+                                             device=x.device)], 1)
+        return x.reshape(b, n, every, h, hd).permute(0, 3, 1, 2, 4)
+    rs, ks, vs, ws = (spans(x, f) for x, f in ((r, 0.), (k, 0.), (v, 0.),
+                                               (w, 1.)))
+    dys = spans(torch.zeros_like(r) if dy is None else dy, 0.)
+    sa, gb = ckpt.float(), gck.float()
+    m = torch.einsum("bhcxj,bhcyj->bhcxy", dys, vs)
+    a = torch.einsum("bhcij,bhctj->bhcti", sa, dys)
+    bb = torch.einsum("bhcij,bhctj->bhcti", gb, vs)
+    z = (gb * sa).sum(-1)
+    uu = u.float()[None, :, None, :]
+    U = [None] * every
+    U[every - 1] = torch.zeros_like(z)
+    for t in range(every - 1, 0, -1):
+        U[t - 1] = ws[:, :, :, t] * U[t] + rs[:, :, :, t] * a[:, :, :, t]
+    P = [torch.zeros_like(z) for _ in range(every)]
+    e, q = torch.ones_like(z), torch.zeros_like(z)
+    dr, dk, dw = (torch.empty_like(rs) for _ in range(3))
+    for t in range(every):
+        kt, rt, wt = ks[:, :, :, t], rs[:, :, :, t], ws[:, :, :, t]
+        ct = m[:, :, :, t, t][..., None]
+        tt, dkp, dw4 = torch.ones_like(z), torch.zeros_like(z), \
+            torch.zeros_like(z)
+        for x in range(t + 1, every):
+            y = tt * rs[:, :, :, x]
+            mv = m[:, :, :, x, t][..., None]
+            dkp = dkp + y * mv
+            dw4 = dw4 + y * P[x]
+            P[x] = wt * P[x] + kt * mv
+            tt = tt * ws[:, :, :, x]
+        dr[:, :, :, t] = e * a[:, :, :, t] + P[t] + uu * kt * ct
+        dk[:, :, :, t] = tt * bb[:, :, :, t] + dkp + uu * rt * ct
+        dw[:, :, :, t] = tt * (e * z + q) + e * U[t] + dw4
+        q = wt * q + kt * bb[:, :, :, t]
+        e = e * wt
+    c_all = torch.diagonal(m, dim1=-2, dim2=-1)[..., None]
+    du = (rs * ks * c_all).sum((0, 2, 3))
+
+    def back(x):          # (b, h, n, every, hd) -> (b, s, h, hd)
+        return x.permute(0, 2, 3, 1, 4).reshape(b, n * every, h, hd)[:, :s]
+    return back(dr), back(dk), back(dw), du
+
+
 def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final, *, ckpt_every: int = 32):
     """The VJP of `wkv6_ref` as the CUDA backward computes it, in fp32.
     dy: (B,S,H,hd) or None, ds_final: (B,H,hd,hd) or None (zeros).  With

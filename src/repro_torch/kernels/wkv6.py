@@ -53,15 +53,24 @@ def _fwd():
     return bind(build.library("wkv6"))
 
 
-@functools.cache
-def _bwd():
-    lib = build.library("wkv6")
+def bind_bwd(lib: ctypes.CDLL):
+    """(wkv6_bwd, wkv6_error_string) of a library built from `csrc/wkv6.cu`,
+    with their ctypes signatures."""
     fn = lib.wkv6_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn, _fwd()[1]
+    return fn, bind(lib)[1]
+
+
+@functools.cache
+def _bwd():
+    return bind_bwd(build.library("wkv6"))
+
+
+# the backward's 21 (b, s, h) strides of r, k, v, w, dy, dr (dk, dw) and dv
+_STRIDES = ctypes.c_longlong * 21
 
 
 def copy_bytes(*ts: torch.Tensor) -> int:
@@ -190,11 +199,23 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ckpt, *, chunk: int = 32):
     if r.device.type == "cpu":
         return ref.wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final,
                                   ckpt_every=CKPT_EVERY)
+    out = bwd_launch(_bwd(), r, k, v, w, u, s0, dy, ds_final, ckpt, chunk)
+    wkv6_bwd.launches += 1
+    return out[:6]
+
+
+def bwd_launch(bwd, r, k, v, w, u, s0, dy, ds_final, ckpt, chunk=32):
+    """Check the CUDA inputs and run the backward of `bwd` (from
+    `bind_bwd`) on them: `wkv6_bwd`'s six outputs, then gck, the float32
+    (B,H,ceil(S/CKPT_EVERY),hd,hd) gradient of the state after each span
+    of CKPT_EVERY tokens (the reverse pass's checkpoints, which the span
+    walk starts from; `ref.wkv6_grad_checkpoints`).  Counts nothing:
+    `wkv6_bwd` counts its own calls."""
     _check(r, k, v, w, u, s0, chunk)
     b, s, h, hd = r.shape
+    nck = -(-s // CKPT_EVERY)
     dy = torch.zeros_like(r) if dy is None else dy
-    extra = {"dy": (dy, (b, s, h, hd)),
-             "ckpt": (ckpt, (b, h, -(-s // CKPT_EVERY), hd, hd))}
+    extra = {"dy": (dy, (b, s, h, hd)), "ckpt": (ckpt, (b, h, nck, hd, hd))}
     if ds_final is not None:
         extra["ds_final"] = (ds_final, (b, h, hd, hd))
     for name, (t, shape) in extra.items():
@@ -207,26 +228,27 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ckpt, *, chunk: int = 32):
     u = u.contiguous()
     ckpt = ckpt.contiguous()
     ds_final = None if ds_final is None else ds_final.contiguous()
-    dr, dk, dv, dw = (torch.empty((b, s, h, hd), dtype=torch.float32,
-                                  device=r.device) for _ in range(4))
-    du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
-    ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    strides = (ctypes.c_longlong * 21)(*(
-        st for t in (r, k, v, w, dy, dr, dv) for st in t.stride()[:3]))
-    fn, errstr = _bwd()
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (new(b, s, h, hd) for _ in range(4))
+    du, ds0 = new(h, hd), new(b, h, hd, hd)
+    gck, du_part = new(b, h, nck, hd, hd), new(b, h, nck, hd)
+    strides = _STRIDES(*(st for t in (r, k, v, w, dy, dr, dv)
+                         for st in t.stride()[:3]))
+    fn, errstr = bwd
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
              None if ds_final is None else ds_final.data_ptr(),
              dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-             du.data_ptr(), ds0.data_ptr(), du_part.data_ptr(), b, s, h, hd,
-             strides, chunk, int(copy_bytes(r, k, v, w, dy) == 16),
+             du.data_ptr(), ds0.data_ptr(), gck.data_ptr(),
+             du_part.data_ptr(), b, s, h, hd, strides, chunk,
+             int(copy_bytes(r, k, v, w, dy) == 16),
              torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    wkv6_bwd.launches += 1
-    return dr, dk, dv, dw, du, ds0
+    return dr, dk, dv, dw, du, ds0, gck
 
 
 wkv6_bwd.launches = 0

@@ -500,6 +500,54 @@ def test_wkv6_forward_checkpoints_hold_the_states(dev):
     assert torch.equal(y, wkv.wkv6(r, k, v, w, u, s0)[0])
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,with_dsf", [(1, True), (33, True), (47, False),
+                                        (64, True), (100, True),
+                                        (2100, True)])
+def test_wkv6_reverse_pass_checkpoints_match_plain(dev, s, with_dsf, hd):
+    """The gradient after every span that the backward's reverse pass
+    leaves for the span walk, against `ref.wkv6_grad_checkpoints` (the
+    elementwise bar of `_wkv_ok`): S a multiple of the span, and S whose
+    spans counted back from the last token are out of phase (1, 33, 47,
+    100, 2100), the last one zeros without ds_final."""
+    args = _wkv_bwd_args(dev, (1 if s == 2100 else 2, s, 3, hd),
+                         with_s0=True, with_dsf=with_dsf)
+    r, k, v, w, u, s0, dy, dsf, ck = args
+    gck = wkv.bwd_launch(wkv._bwd(), *args)[6]
+    want = ref.wkv6_grad_checkpoints(r, w, dy, dsf, wkv.CKPT_EVERY)
+    torch.cuda.synchronize()
+    assert gck.shape == want.shape and _wkv_ok(gck, want)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("s", [33, 2047, 2100])
+def test_wkv6_backward_at_span_phases(dev, s, hd):
+    """The backward against its plain twin where the span walk's last span
+    is short (S = 33, 2047, 2100: the reverse pass's checkpoints out of
+    phase with the forward's)."""
+    args = _wkv_bwd_args(dev, (1, s, 2, hd), with_s0=True, seed=s)
+    got = wkv.wkv6_bwd(*args)
+    want = ref.wkv6_bwd_plain(*args[:-1])
+    torch.cuda.synchronize()
+    _wkv_bwd_held(got, want, True)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,chunk", [(33, 1), (100, 16), (100, 64),
+                                     (300, 128)])
+def test_wkv6_forward_checkpoints_through_the_tile(dev, s, chunk, hd):
+    """The checkpoints the forward stores through its shared tile, at
+    chunks that put them at every place in a stage, against
+    `ref.wkv6_checkpoints`; y bitwise equal to the serving kernel's."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, (2, s, 3, hd), with_s0=True,
+                                    seed=chunk)
+    y, _, ck = wkv.wkv6_fwd(r, k, v, w, u, s0, chunk=chunk, want_ckpt=True)
+    want = ref.wkv6_checkpoints(k, v, w, s0, wkv.CKPT_EVERY)
+    torch.cuda.synchronize()
+    assert ck.shape == want.shape and _wkv_ok(ck, want)
+    assert torch.equal(y, wkv.wkv6(r, k, v, w, u, s0, chunk=chunk)[0])
+
+
 def test_wkv6_backward_is_deterministic(dev):
     """Two backward calls at the training shape (4, 2048, 40, 64) give
     bitwise-equal outputs: no atomics."""

@@ -133,6 +133,85 @@ def test_checkpoints_are_the_states_before_every_span():
         assert (ck[:, :, c] - want).abs().max().item() <= 1e-6
 
 
+# (B, S, H, hd, decay, with ds_final): S a multiple of the span; S = 47,
+# 70 and 1, whose spans, counted back from the last token, are out of
+# phase with the forward's; R6's strong decay; hd 16 and 64
+GCK_CASES = [
+    (2, 64, 2, 16, -3.0, True),
+    (2, 47, 3, 16, -3.0, True),
+    (2, 47, 2, 16, -3.0, False),
+    (2, 1, 3, 16, -3.0, True),
+    (1, 96, 2, 16, 2.0, True),
+    (1, 70, 2, 64, -3.0, True),
+]
+
+
+@pytest.mark.parametrize("b,s,h,hd,decay,with_dsf", GCK_CASES)
+def test_grad_checkpoints_are_the_gradients_after_every_span(
+        b, s, h, hd, decay, with_dsf):
+    """`ref.wkv6_grad_checkpoints` (what the GPU tests hold the backward's
+    reverse pass to): the last entry is ds_final itself (zeros without),
+    and entry c < last the gradient of the state after span c, which is
+    ds0 of the suffix after that span with the state checkpoint there as
+    s0: as the G that `wkv6_bwd_plain` walks, and as `jax.vjp` of the
+    reference's `wkv6_ref`, within the bar above."""
+    args, dy, dsf = _inputs((b, s, h, hd), seed=s + 3 * hd, decay=decay,
+                            with_s0=True)
+    dsf = dsf if with_dsf else None
+    r, k, v, w, u, s0 = args
+    gck = ref.wkv6_grad_checkpoints(_t(r), _t(w), _t(dy), _t(dsf), 32)
+    nck = -(-s // 32)
+    assert gck.shape == (b, h, nck, hd, hd)
+    assert torch.equal(gck[:, :, -1], torch.zeros((b, h, hd, hd))
+                       if dsf is None else _t(dsf))
+    sck = ref.wkv6_checkpoints(_t(k), _t(v), _t(w), _t(s0), 32)
+    for c in range(nck - 1):
+        a = 32 * (c + 1)
+        suffix = tuple(x[:, a:] for x in (r, k, v, w)) + (
+            u, sck[:, :, c + 1].numpy())
+        got = [None] * 5 + [gck[:, :, c]]
+        plain = ref.wkv6_bwd_plain(*(_t(x) for x in suffix), _t(dy[:, a:]),
+                                   _t(dsf))
+        _held(got, [None] * 5 + [plain[5]], f"wkv6_bwd_plain, span {c}")
+        _held(got, [None] * 5 + [_jax_vjp(suffix, dy[:, a:], dsf)[5]],
+              f"jax.vjp, span {c}")
+
+
+# (B, S, H, hd, decay, with_s0, with ds_final): full spans, a short last
+# span (S = 47, 70, 1), R6's strong decay, hd 16 and 64
+PAIR_CASES = [
+    (2, 64, 2, 16, -3.0, True, True),
+    (2, 47, 3, 16, -3.0, False, True),
+    (2, 1, 3, 16, -3.0, True, False),
+    (1, 70, 2, 64, -3.0, True, True),
+    (2, 65, 2, 16, 2.0, True, True),
+    (1, 96, 2, 64, 2.0, False, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,hd,decay,with_s0,with_dsf", PAIR_CASES)
+def test_span_pairs_match_the_recurrence_and_jax(b, s, h, hd, decay, with_s0,
+                                                 with_dsf):
+    """`ref.wkv6_span_pairs`, the span walk by token pairs that the CUDA
+    backward runs (each span from its two checkpoints, products of w
+    only), gives dr, dk, dw and du of `wkv6_bwd_plain` and of `jax.vjp`
+    of the reference `wkv6_ref`, within the bar above."""
+    args, dy, dsf = _inputs((b, s, h, hd), seed=2 * s + hd, decay=decay,
+                            with_s0=with_s0)
+    dsf = dsf if with_dsf else None
+    r, k, v, w, u, s0 = (_t(a) for a in args)
+    ck = ref.wkv6_checkpoints(k, v, w, s0, 32)
+    gck = ref.wkv6_grad_checkpoints(r, w, _t(dy), _t(dsf), 32)
+    dr, dk, dw, du = ref.wkv6_span_pairs(r, k, v, w, u, _t(dy), ck, gck, 32)
+    got = [dr, dk, None, dw, du, None]
+
+    def but_dv_ds0(want):   # dv and ds0 are the reverse pass's
+        return [None if x in (2, 5) else g for x, g in enumerate(want)]
+    _held(got, but_dv_ds0(ref.wkv6_bwd_plain(r, k, v, w, u, s0, _t(dy),
+                                             _t(dsf))), "wkv6_bwd_plain")
+    _held(got, but_dv_ds0(_jax_vjp(args, dy, dsf)), "jax.vjp")
+
+
 @pytest.mark.parametrize("ckpt_every", [1, 5, 8, 64])
 def test_ckpt_every_changes_nothing_beyond_rounding(ckpt_every):
     """The span length is the kernel's kCkptEvery; any other length gives
