@@ -95,20 +95,47 @@ Phases, each fatal on failure:
      and on this machine's CPU: every result's rows within 1e-12 of the
      warm run's, with equal tuned orgs; seconds, cells/s, peak memory and
      the warm run's device-busy share, printed as a `{"pipeline": ...}`
-     line.
+     line;
+  7. after it, the sweep service and its CLI (`repro_torch.sweep`) on
+     `cuda`, at the traffic of benchmarks/bench_serve.py (the goldens
+     isocap, dtco, dtco_isoarea and lm_nvm, SERVICE_COPIES clients each:
+     32 concurrent requests, 3,696 cells a round) and the full mega spec
+     as one request: `dtco.analyze` / `isoarea_analyze` on the card, their
+     headlines against the reference's numbers (PIPELINE_GOLDEN) and
+     their rows against the CPU's (1e-12); `python -m repro_torch.sweep
+     run specs/dtco.json --csv` as a subprocess, its rows against
+     `sweep.run` on the CPU (1e-12, equal labels) with the tuned orgs of
+     the card's run equal to the CPU's; `python -m repro_torch.sweep
+     serve --http 127.0.0.1:0 --warmup-spec specs/isocap.json
+     --stats-on-exit` as a subprocess, driven through
+     `repro_torch.sweep.client`: a cold first request (lm_nvm) and a
+     warm one (isocap), the 32-request burst for summaries and again for
+     rows (all cache hits), every response against `sweep.run` on the CPU
+     (1e-12), the mega spec as one `shard` request (ShardPlan(64, 288),
+     104,832 cells) against the pipeline phase's CPU summary, and SIGTERM
+     with a request in flight (exit 0, the response delivered, the stats
+     document read from stderr); then, in process, the burst one request
+     at a time (`coalesce=False`) against the coalesced burst, and the
+     profiler's device-busy share of one coalesced burst, printed as a
+     `{"service": ...}` line.
 Prints one `{"kernels": [...]}` line, the `{"pipeline": ...}` line, the
-card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
+`{"service": ...}` line, the card line, and last `{"ok": true, "device":
+{...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -254,6 +281,12 @@ PIPELINE_REL = 1e-12
 # agree to 1e-12 relative, divided by the 3.5e-4 gap, so ~3e-9 relative.
 ANCHOR_ERR_REL = 1e-8
 MEGA_PLAN = dict(scenario_chunk=64, design_chunk=288)
+# The sweep service (phase 7) at the traffic of benchmarks/bench_serve.py:
+# every golden below, SERVICE_COPIES clients each (32 concurrent requests,
+# 3,696 cells a round); SERVICE_REPS timed rounds each way in process.
+SERVICE_GOLDENS = ("isocap", "dtco", "dtco_isoarea", "lm_nvm")
+SERVICE_COPIES = 8
+SERVICE_REPS = 3
 PIPELINE_GOLDEN = {
     "table2": {
         "sram": {
@@ -356,6 +389,48 @@ PIPELINE_GOLDEN = {
             "energy_reduction_max": 46.92869299418143,
             "latency_reduction_max": 1.931271867702876,
             "edp_reduction_max": 86.45868136499293,
+        },
+    },
+    "dtco_headline": {
+        "sram": {
+            "leak_w_first": 6.442749179585304,
+            "leak_w_last": 13.368079484320571,
+            "leak_growth": 2.0749029818946054,
+        },
+        "stt": {
+            "leak_reduction_first": 5.627666571229109,
+            "leak_reduction_last": 12.479898865599642,
+            "edp_reduction_first": 2.018293759983032,
+            "edp_reduction_last": 2.860295391021024,
+        },
+        "sot": {
+            "leak_reduction_first": 10.700748930481616,
+            "leak_reduction_last": 24.455026747618508,
+            "edp_reduction_first": 3.8881181934244755,
+            "edp_reduction_last": 5.755264468669321,
+        },
+    },
+    "dtco_isoarea_headline": {
+        "sram": {
+            "leak_w_first": 6.442749179585304,
+            "leak_w_last": 13.368079484320571,
+            "leak_growth": 2.0749029818946054,
+        },
+        "stt": {
+            "capacity_mb_first": 7.0,
+            "capacity_mb_last": 7.0,
+            "leak_reduction_first": 2.367589763308926,
+            "leak_reduction_last": 5.331168579308886,
+            "edp_reduction_first": 1.2103579836770761,
+            "edp_reduction_last": 1.96178945416301,
+        },
+        "sot": {
+            "capacity_mb_first": 10.0,
+            "capacity_mb_last": 9.0,
+            "leak_reduction_first": 3.585595312271066,
+            "leak_reduction_last": 9.31422193251624,
+            "edp_reduction_first": 2.1959387563857016,
+            "edp_reduction_last": 4.2185013933407305,
         },
     },
     "table2_anchor_max_rel_err": 0.0003477563438318577,
@@ -1660,6 +1735,327 @@ def pipeline_phase(card) -> dict:
         "isoarea_capacities_mb": caps,
         "phase_s": time.perf_counter() - t_phase}
     print(f"pipeline phase: {record['phase_s']:.1f} s", flush=True)
+    return record, on_cpu.summary()
+
+
+def csv_rel(path: Path, want: list, where: str) -> float:
+    """Largest relative difference between a CSV written by the CLI and
+    in-process rows; fails on a label, header or row count that differs."""
+    with open(path, newline="") as f:
+        got = list(csv.DictReader(f))
+    if len(got) != len(want):
+        fail(f"{where}: {len(got)} rows != {len(want)}")
+    err = 0.0
+    for g, w in zip(got, want):
+        if list(g) != list(w):
+            fail(f"{where}: columns {list(g)} != {list(w)}")
+        for k, v in w.items():
+            if isinstance(v, float):
+                err = max(err, abs(float(g[k]) - v) / max(abs(v), 1e-300))
+            elif g[k] != str(v):
+                fail(f"{where}: {k} {g[k]!r} != {v!r}")
+    return err
+
+
+def service_phase(card, mega_summary) -> dict:
+    """Phase 7: the DTCO analyses, the sweep CLI and the sweep service
+    (`repro_torch.sweep`) on the card, the CLI and the service through
+    their real entry points as subprocesses.  `mega_summary` is the
+    pipeline phase's CPU run of the mega spec.  Returns the
+    `{"service": ...}` record."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import scenarios
+    from repro_torch.core import dtco, sweep
+    from repro_torch.sweep import client
+    from repro_torch.sweep import service as service_mod
+    from repro_torch.sweep.service import SweepService
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    print(f"service: {card}", flush=True)
+    errs = {}
+
+    # 1. the cross-node DTCO studies on the card
+    for name, study, head in (
+            ("dtco", dtco.analyze, dtco.headline),
+            ("dtco_isoarea", dtco.isoarea_analyze, dtco.isoarea_headline)):
+        rows = study(device=dev)
+        errs[f"{name}_headline_vs_reference"] = held(
+            f"{name} headline (cuda) vs the JAX reference",
+            nested_rel(head(rows), PIPELINE_GOLDEN[f"{name}_headline"],
+                       name))
+        errs[f"{name}_rows_vs_cpu"] = held(
+            f"{name} rows, cuda vs cpu", nested_rel(
+                [dataclasses.asdict(r) for r in rows],
+                [dataclasses.asdict(r) for r in study(device="cpu")], name))
+
+    # 2. the CLI as a user runs it (on cuda: no --device)
+    docs = {n: json.loads((ROOT / "specs" / f"{n}.json").read_text())
+            for n in SERVICE_GOLDENS}
+    on_cpu = {n: sweep.SymbolicSweepSpec.from_json(d).run(device="cpu")
+              for n, d in docs.items()}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out_dir = ROOT / "runs" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csv_path = out_dir / "dtco.csv"
+    t = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep", "run", "specs/dtco.json",
+         "--csv", str(csv_path)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    cli_s = time.perf_counter() - t
+    if done.returncode:
+        fail(f"sweep CLI run exited {done.returncode}: {done.stderr[-2000:]}")
+    print(f"  CLI: {done.stderr.strip()} ({cli_s:.2f} s with the "
+          "interpreter and the CUDA context)", flush=True)
+    errs["cli_dtco_rows_vs_cpu"] = held(
+        "CLI run specs/dtco.json (cuda) vs sweep.run (cpu)",
+        csv_rel(csv_path, on_cpu["dtco"].rows(), "cli/dtco"))
+    cuda_dtco = sweep.SymbolicSweepSpec.from_json(docs["dtco"]).run(
+        device=dev)
+    if [str(d.org) for d in cuda_dtco.designs] \
+            != [str(d.org) for d in on_cpu["dtco"].designs]:
+        fail("dtco: tuned organizations on cuda differ from the CPU's")
+
+    # 3. the service through its real entry point
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.sweep", "serve", "--http",
+         "127.0.0.1:0", "--warmup-spec", "specs/isocap.json",
+         "--stats-on-exit"], cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        url = None
+        while url is None:
+            line = proc.stderr.readline()
+            if not line:
+                fail(f"sweep service exited {proc.wait()} before listening")
+            print(f"  serve: {line.rstrip()}", flush=True)
+            if line.startswith("listening on http://"):
+                url = line.split("http://", 1)[1].strip()
+        startup_s = time.perf_counter() - t
+        sent = 0
+
+        def request(body):
+            nonlocal sent
+            sent += 1
+            t = time.perf_counter()
+            resp = client.http_request(url, body, timeout=300.0)
+            if not resp.get("ok"):
+                fail(f"service request failed: {resp.get('error')}")
+            return resp, time.perf_counter() - t
+
+        def check(resp, name, views=("summary",)):
+            err = 0.0
+            for view in views:
+                want = on_cpu[name].rows() if view == "rows" \
+                    else on_cpu[name].summary()
+                err = max(err, nested_rel(resp[view], want,
+                                          f"service/{name}/{view}"))
+            return err
+
+        cold, cold_s = request({"spec": docs["lm_nvm"], "want": ["summary"]})
+        warm, warm_s = request({"spec": docs["isocap"], "want": ["summary"]})
+        if (cold["source"], warm["source"]) != ("evaluated", "evaluated"):
+            fail(f"first requests: sources {cold['source']}, "
+                 f"{warm['source']}")
+        errs["service_first_requests_vs_cpu"] = held(
+            "service cold (lm_nvm) and warm (isocap) first requests vs cpu",
+            max(check(cold, "lm_nvm"), check(warm, "isocap")))
+        print(f"  first requests: cold (lm_nvm) {cold_s:.4f} s, warm "
+              f"(isocap) {warm_s:.4f} s", flush=True)
+        names = [n for n in SERVICE_GOLDENS for _ in range(SERVICE_COPIES)]
+        cells = sum(sweep.n_cells(on_cpu[n].spec) for n in names)
+
+        def burst(want):
+            nonlocal sent
+            sent += len(names)
+            with ThreadPoolExecutor(max_workers=len(names)) as pool:
+                t = time.perf_counter()
+                out = list(pool.map(lambda n: client.http_request(
+                    url, {"spec": docs[n], "want": [want]}, timeout=300.0),
+                    names))
+                sec = time.perf_counter() - t
+            for resp in out:
+                if not resp.get("ok"):
+                    fail(f"burst request failed: {resp.get('error')}")
+            return out, sec
+
+        summaries, burst_s = burst("summary")
+        sources = {s: sum(r["source"] == s for r in summaries)
+                   for s in ("evaluated", "coalesced", "cache")}
+        rows, rows_burst_s = burst("rows")
+        if any(r["source"] != "cache" for r in rows):
+            fail("the second burst was not answered from the cache")
+        errs["service_bursts_vs_cpu"] = held(
+            f"service bursts ({len(names)} requests, {cells} cells; "
+            "summary, then rows) vs cpu",
+            max(check(r, n, (v,)) for v, out in (("summary", summaries),
+                                                 ("rows", rows))
+                for r, n in zip(out, names)))
+        print(f"  burst of {len(names)}: {burst_s:.4f} s ({sources}); the "
+              f"rows burst from the cache {rows_burst_s:.4f} s", flush=True)
+
+        # the mega spec as one sharded request
+        mega_req = {"spec": sweep.SymbolicSweepSpec.from_spec(
+            scenarios.mega_spec()).to_doc(), "want": ["summary"],
+            "shard": dict(MEGA_PLAN)}
+        mega, mega_s = request(mega_req)
+        if (mega["cells"], mega["source"]) != (104_832, "sharded"):
+            fail(f"mega request: {mega['cells']} cells, {mega['source']}")
+        errs["service_mega_vs_cpu"] = held(
+            "service mega request (shard envelope) vs the CPU run",
+            nested_rel(mega["summary"], mega_summary, "service/mega"))
+        print(f"  mega request: {len(json.dumps(mega_req))} bytes, "
+              f"{mega_s:.4f} s, {mega['cells'] / mega_s:,.0f} cells/s",
+              flush=True)
+
+        # SIGTERM with a request in flight: the mega request again, the
+        # signal sent once the service has admitted it
+        for _ in range(3):
+            box = {}
+            inflight = threading.Thread(target=lambda: box.update(
+                resp=client.http_request(url, mega_req, timeout=300.0)))
+            inflight.start()
+            while inflight.is_alive() and not client.http_stats(url)[
+                    "stats"]["limits"]["pending"]:
+                pass
+            if inflight.is_alive():
+                break
+            inflight.join()
+            sent += 1
+        else:
+            fail("no request was in flight when polled (3 tries)")
+        sent += 1
+        proc.send_signal(signal.SIGTERM)
+        _, err_text = proc.communicate(timeout=120)
+        inflight.join(120.0)
+        if proc.returncode != 0:
+            fail(f"sweep service exited {proc.returncode} on SIGTERM")
+        if not box.get("resp", {}).get("ok"):
+            fail(f"in-flight request not answered: {box}")
+        errs["service_inflight_vs_cpu"] = held(
+            "service request in flight at SIGTERM vs the CPU run",
+            nested_rel(box["resp"]["summary"], mega_summary, "sigterm"))
+        stats = json.loads(err_text[err_text.index("{"):])
+        if stats["requests"] != {"total": sent, "ok": sent, "errors": 0}:
+            fail(f"service stats {stats['requests']} after {sent} requests")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"  SIGTERM with a request in flight: exit 0, response "
+          f"delivered; stats {stats['requests']}, cache "
+          f"{stats['result_cache']}, coalesce {stats['coalesce']}",
+          flush=True)
+
+    # 4. serial against coalesced, in process on the card
+    def fire(svc, want="summary"):
+        barrier = threading.Barrier(len(names) + 1)
+        out = [None] * len(names)
+
+        def shoot(i):
+            barrier.wait()
+            out[i] = svc.handle({"spec": docs[names[i]], "want": [want]})
+
+        threads = [threading.Thread(target=shoot, args=(i,))
+                   for i in range(len(names))]
+        for th in threads:
+            th.start()
+        barrier.wait()
+        t = time.perf_counter()
+        for th in threads:
+            th.join()
+        sec = time.perf_counter() - t
+        if not all(r["ok"] for r in out):
+            fail(f"in-process burst: {[r.get('error') for r in out]}")
+        return out, sec
+
+    def serial(svc):
+        t = time.perf_counter()
+        for n in names:
+            if not svc.handle({"spec": docs[n], "want": ["summary"]})["ok"]:
+                fail(f"serial request {n} failed")
+        return time.perf_counter() - t
+
+    with SweepService(window_ms=1.0, cache_size=0, device=dev) as absorb:
+        serial(absorb)          # every member and union shape once
+        fire(absorb)
+    with SweepService(coalesce=False, cache_size=0, device=dev) as svc:
+        serial_runs = [serial(svc) for _ in range(SERVICE_REPS)]
+    with SweepService(window_ms=1.0, cache_size=0, device=dev) as svc:
+        coal_runs = [fire(svc)[1] for _ in range(SERVICE_REPS)]
+        inproc = svc.stats()
+        out, _ = fire(svc, "rows")
+        errs["inprocess_coalesced_rows_vs_cpu"] = held(
+            "in-process coalesced burst rows (cuda) vs cpu",
+            max(check(r, n, ("rows",)) for r, n in zip(out, names)))
+        prof = device_kernels(lambda: fire(svc))
+    serial_s, coal_s = sorted(serial_runs)[1], sorted(coal_runs)[1]
+
+    # where a warm request's host time goes, per golden (median of 3 ms):
+    # parsing the document, its cache key, resolving the names, the
+    # evaluation on the card (tables memoized), the summary view
+    def host_split(doc):
+        steps = {"parse": lambda: service_mod._parse(
+                     {"spec": doc, "want": ["summary"]}),
+                 "key": lambda: service_mod.spec_key(parsed.sym),
+                 "resolve": lambda: parsed.sym.resolve(),
+                 "evaluate": lambda: service_mod.evaluate_spec(
+                     spec, device=dev),
+                 "summary": lambda: result.summary()}
+        parsed = steps["parse"]()
+        spec = steps["resolve"]()
+        result = steps["evaluate"]()
+        out = {}
+        for step, fn in steps.items():
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append(1e3 * (time.perf_counter() - t))
+            out[step] = sorted(runs)[1]
+        return out
+
+    split_ms = {n: host_split(docs[n]) for n in SERVICE_GOLDENS}
+    print(f"  a warm request's host ms by step: {split_ms}", flush=True)
+    busy_ms = sum(e.self_device_time_total for e in prof) / 1e3 \
+        if prof else None
+    busy = busy_ms / (1e3 * coal_s) if prof else None
+    print(f"  in process: serial {serial_runs} s, coalesced {coal_runs} s; "
+          f"coalesced burst device busy {busy_ms} ms ({busy})", flush=True)
+    record = {
+        "card": card, "transport": "http", "requests": len(names),
+        "cells_per_round": cells,
+        "seconds": {"cold_first_request": cold_s,
+                    "warm_first_request": warm_s,
+                    "warmup": stats["warmup"]["warmup_s"],
+                    "startup_to_listening": startup_s,
+                    "http_burst": burst_s,
+                    "http_rows_burst_cache": rows_burst_s,
+                    "cli_run_dtco": cli_s,
+                    "serial": serial_s, "coalesced": coal_s,
+                    "mega_request": mega_s},
+        "serial_runs_s": serial_runs, "coalesced_runs_s": coal_runs,
+        "requests_per_s": {"serial": len(names) / serial_s,
+                           "coalesced": len(names) / coal_s},
+        "cells_per_s": {"serial": cells / serial_s,
+                        "coalesced": cells / coal_s,
+                        "mega_request": mega["cells"] / mega_s},
+        "elapsed_ms": {"inprocess_coalesced": inproc["elapsed_ms"],
+                       "http_server": stats["elapsed_ms"]},
+        "coalesce": {"inprocess": inproc["coalesce"],
+                     "http_server": stats["coalesce"]},
+        "http_burst_sources": sources,
+        "mega_cells": mega["cells"],
+        "max_rel_err": errs, "worst_rel_err": max(errs.values()),
+        "warm_request_split_ms": split_ms,
+        "coalesced_burst_device_busy_ms": busy_ms,
+        "coalesced_burst_device_busy_share": busy,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"service phase: {record['phase_s']:.1f} s", flush=True)
     return record
 
 
@@ -1781,7 +2177,9 @@ def main() -> int:
     # 6. the float64 DeepNVM++ pipeline, on a card with Gemma's memory
     # released
     torch.cuda.empty_cache()
-    pipeline = pipeline_phase(card)
+    pipeline, mega_summary = pipeline_phase(card)
+    # 7. the sweep service and its CLI on the card
+    service = service_phase(card, mega_summary)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1812,6 +2210,7 @@ def main() -> int:
         "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
         wkv_entry, wkv_bwd_entry]}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"service": service}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

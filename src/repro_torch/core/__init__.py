@@ -8,19 +8,23 @@ Layers (paper Fig. 2):
     engine             ... the circuit sweep as one batched computation
     workloads / traffic DL workload memory statistics          (SIII-C)
     workload_engine    ... the workload fold as one batched computation
+    cachesim           trace/analytic DRAM model               (SIII-D)
     sweep              one declarative SweepSpec driving both engines
                        (+ the symbolic, JSON-round-trippable v2 form)
     dse                Pareto fronts / capacity plateaus on SweepResults
     isocap / isoarea / scaling   architecture-level analyses   (Figs 3-10)
+    dtco               cross-node DTCO sweep on the batched node axis
     device             the pipeline's device argument and its memo key
 """
 
 from repro_torch.core import (  # noqa: F401
     bitcell,
     cachemodel,
+    cachesim,
     calibration,
     device,
     dse,
+    dtco,
     engine,
     isoarea,
     isocap,

@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention forward and backward, WKV6 forward and
 backward) against their plain twins, and the float64 DeepNVM++ pipeline
+(the engines, the golden specs, the DTCO analyses and the sweep service)
 on `cuda` against the same pipeline on `cpu` (1e-12 relative, equal tuned
 organizations), on the GPU.
 
@@ -679,3 +680,93 @@ def test_pipeline_golden_spec_cuda_matches_cpu(dev, name):
                     assert abs(g[k] - v) <= PIPE_REL * abs(v), (name, k)
                 else:
                     assert g[k] == v, (name, k)
+
+
+def _assert_doc_close(got, want, where=""):
+    """Nested dicts / lists of floats within PIPE_REL; the rest equal."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), where
+        for k in want:
+            _assert_doc_close(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_doc_close(g, w, f"{where}[{i}]")
+    elif isinstance(want, float):
+        assert abs(got - want) <= PIPE_REL * abs(want), (where, got, want)
+    else:
+        assert got == want, where
+
+
+def test_pipeline_dtco_cuda_matches_cpu(dev):
+    import dataclasses
+
+    from repro_torch.core import dtco
+    for fn, head in ((dtco.analyze, dtco.headline),
+                     (dtco.isoarea_analyze, dtco.isoarea_headline)):
+        got, want = fn(device="cuda"), fn(device="cpu")
+        _assert_doc_close([dataclasses.asdict(r) for r in got],
+                          [dataclasses.asdict(r) for r in want])
+        _assert_doc_close(head(got), head(want))
+
+
+def test_pipeline_service_cuda_matches_cpu(dev):
+    """The same request sequence through a service on `cuda` and one on
+    `cpu`: the same sources and stats counters, every view within
+    PIPE_REL; then a coalesced burst on `cuda` against `sweep.run` on
+    `cpu`."""
+    import json
+    import threading
+
+    from repro_torch.sweep.service import SweepService
+    views = ["rows", "summary", "pareto", "plateaus"]
+    docs = {n: json.loads((SPECS / f"{n}.json").read_text())
+            for n in ("isocap", "dtco", "dtco_isoarea", "lm_nvm",
+                      "mixed_cnn_lm")}
+    requests = [{"spec": d, "want": views} for d in docs.values()]
+    requests += [{"spec": docs["isocap"], "want": ["rows"]},
+                 {"spec": docs["dtco"], "want": ["summary"],
+                  "shard": {"scenario_chunk": 3, "devices": 1}}]
+    on = {d: SweepService(window_ms=0.0, device=d) for d in ("cuda", "cpu")}
+    try:
+        assert on["cuda"].device == f"cuda:{torch.cuda.current_device()}"
+        on["cuda"].warmup(specs=[str(SPECS / "isocap.json")], grid=True)
+        for req in requests:
+            got, want = (on[d].handle(req) for d in ("cuda", "cpu"))
+            assert got["ok"] and want["ok"], (got.get("error"), req)
+            assert got["source"] == want["source"]
+            for view in views:
+                if view in want:
+                    _assert_doc_close(got[view], want[view], view)
+        counters = [{k: on[d].stats()[k] for k in ("requests",
+                                                   "result_cache")}
+                    for d in ("cuda", "cpu")]
+        assert counters[0] == counters[1]
+    finally:
+        for svc in on.values():
+            svc.close()
+    svc = SweepService(window_ms=50.0, device="cuda")
+    burst = [docs[n] for n in ("isocap", "dtco", "dtco_isoarea",
+                               "lm_nvm")] * 4
+    out = [None] * len(burst)
+    barrier = threading.Barrier(len(burst))
+
+    def fire(i):
+        barrier.wait()
+        out[i] = svc.handle({"spec": burst[i], "want": ["rows"]})
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(burst))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+            assert not t.is_alive()
+    finally:
+        svc.close()
+    for d, resp in zip(burst, out):
+        assert resp["ok"], resp.get("error")
+        want = sweep.SymbolicSweepSpec.from_json(d).run(device="cpu")
+        _assert_doc_close(resp["rows"], want.rows(), d["name"])
+    assert svc.coalescer.coalesced_requests + svc.coalescer.deduped_requests

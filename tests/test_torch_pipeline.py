@@ -103,7 +103,8 @@ def _rewrite(text: str) -> str:
 
 PLAIN_COPIES = ("core/tech.py", "core/mtj.py", "core/bitcell.py",
                 "core/workloads.py", "core/traffic.py", "core/dse.py",
-                "core/report.py", "scenarios.py", "launch/flops.py")
+                "core/report.py", "core/cachesim.py", "scenarios.py",
+                "launch/flops.py", "sweep/client.py")
 
 
 @pytest.mark.parametrize("module", PLAIN_COPIES)
@@ -137,6 +138,16 @@ DIFFERS = {
     "core/isoarea.py": {"corners", "designs", "dram_reduction_curve",
                         "analyze"},
     "core/scaling.py": {"tuned_table", "ppa_sweep", "workload_sweep"},
+    "core/dtco.py": {"analyze", "_rows", "isoarea_spec", "isoarea_analyze"},
+    "sweep/service.py": {"evaluate_spec", "SweepService.__init__",
+                         "SweepService._result_for", "SweepService.warmup",
+                         "enable_compilation_cache", "SweepHTTPServer"},
+    "sweep/__init__.py": set(),
+    "sweep/__main__.py": set(),
+    "sweep_cli.py": {"_add_shard_flags", "_add_device_flag", "_run_spec",
+                     "cmd_run", "cmd_mega", "cmd_invert", "_default_service",
+                     "_default_services", "_service", "answer", "serve",
+                     "cmd_serve", "main"},
 }
 
 
@@ -192,8 +203,13 @@ def test_ported_modules_differ_only_where_listed(module):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     for path in [*(SRC / "repro_torch" / "core").glob("*.py"),
+                 *(SRC / "repro_torch" / "sweep").glob("*.py"),
+                 SRC / "repro_torch" / "sweep_cli.py",
                  SRC / "repro_torch" / "scenarios.py",
-                 SRC / "repro_torch" / "launch" / "flops.py"]:
+                 SRC / "repro_torch" / "launch" / "flops.py",
+                 ROOT / "examples" / "torch_quickstart.py",
+                 ROOT / "examples" / "torch_nvm_dse.py",
+                 ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = [a.name for a in node.names] \
                 if isinstance(node, ast.Import) else \
@@ -668,6 +684,10 @@ def test_chip_smoke_constants_are_the_references_numbers(ref):
         ref.isoarea.analyze())
     assert golden["scaling_headline"] == ref.scaling.headline(
         ref.scaling.workload_sweep())
+    from repro.core import dtco
+    assert golden["dtco_headline"] == dtco.headline(dtco.analyze())
+    assert golden["dtco_isoarea_headline"] == dtco.isoarea_headline(
+        dtco.isoarea_analyze())
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "table2_cache", ROOT / "benchmarks" / "table2_cache.py")
