@@ -117,10 +117,29 @@ Phases, each fatal on failure:
      document read from stderr); then, in process, the burst one request
      at a time (`coalesce=False`) against the coalesced burst, and the
      profiler's device-busy share of one coalesced burst, printed as a
-     `{"service": ...}` line.
-Prints one `{"kernels": [...]}` line, the `{"pipeline": ...}` line, the
-`{"service": ...}` line, the card line, and last `{"ok": true, "device":
-{...}}`.  Exits non-zero,
+     `{"service": ...}` line;
+  8. after it, the inverse designer (`repro_torch.inverse`) on `cuda`:
+     the hardened centres recover the grid winner of isocap and
+     dtco_isoarea as iso-area EDP problems (the same corner, values within
+     1e-12), the grid against the reference's (INVERSE_GOLDEN, pinned by
+     tests/test_torch_inverse.py); `python -m repro_torch.sweep invert
+     specs/inverse_isocap.json --json` as a subprocess at the shipped 4
+     starts x 120 iterations (the golden corner, grid_best_value within
+     1e-12, best_value and standard_value within 1e-9 of the reference's,
+     parity <= 1e-12, area within the budget, a strict win over the grid)
+     and the same solve twice in process; the wide problem (INVERSE_WIDE:
+     dtco_isoarea's 12 corners, 8 leaf groups, 64 leaves, one full chunk
+     of 16 starts x 120 iterations): loss and gradient at the centres and
+     at a seeded offset against the same lowering on the CPU (1e-12,
+     1e-10 of the gradient's largest component), its solve (parity <=
+     1e-12, within the budget, no worse than the grid), the elasticity
+     table against the CPU's (1e-10 absolute, equal top knobs); solve
+     seconds, start-steps/s, ms and host ms a step, device kernels a
+     step, peak memory and the profiler's device-busy share of the
+     descent, printed as an `{"inverse": ...}` line.
+Prints one `{"kernels": [...]}` line, the `{"pipeline": ...}`,
+`{"service": ...}` and `{"inverse": ...}` lines, the card line, and last
+`{"ok": true, "device": {...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
 """
 
@@ -434,6 +453,46 @@ PIPELINE_GOLDEN = {
         },
     },
     "table2_anchor_max_rel_err": 0.0003477563438318577,
+}
+# The inverse designer (phase 8).  The reference's grid winners of the two
+# specs as iso-area EDP problems, and its solve of the shipped problem
+# (specs/inverse_isocap.json, 4 starts x 120 iterations);
+# tests/test_torch_inverse.py pins these to `repro.inverse` on the CPU.
+# Bars: the grid within 1e-12, the solve's values within 1e-9 (120 Adam
+# steps carry the last ulps of two implementations), parity <= 1e-12.
+INVERSE_SOLVE_REL = 1e-9
+INVERSE_GRAD_REL = 1e-10
+# The wide problem: dtco_isoarea's 12 corners (8 leaf groups, 64 leaves),
+# one full chunk of starts.
+INVERSE_WIDE = dict(spec="dtco_isoarea", starts=16, iters=120)
+INVERSE_GOLDEN = {
+    "recover": {
+        "isocap": {
+            "corner": {"mem": "sot", "capacity_mb": 3.0,
+                       "node": "16nm-finfet", "org_index": 2,
+                       "org": "1b x 128r x 256c x sequential"},
+            "value": 0.6287132765751648,
+            "area_mm2": 1.950000577897137,
+            "area_budget_mm2": 5.531051665241455,
+        },
+        "dtco_isoarea": {
+            "corner": {"mem": "sot", "capacity_mb": 9.0,
+                       "node": "7nm-scaled", "org_index": 2,
+                       "org": "1b x 128r x 256c x sequential"},
+            "value": 0.7183027158359055,
+            "area_mm2": 0.9961391448539957,
+            "area_budget_mm2": 5.6401255233758,
+        },
+    },
+    "shipped": {
+        "corner": {"mem": "sot", "capacity_mb": 3.0,
+                   "node": "16nm-finfet", "org_index": 2,
+                   "org": "1b x 128r x 256c x sequential"},
+        "best_value": 0.47658224007809374,
+        "standard_value": 0.47658224007809336,
+        "grid_best_value": 0.6287132765751648,
+        "area_budget_mm2": 5.531051665241455,
+    },
 }
 
 
@@ -2059,6 +2118,234 @@ def service_phase(card, mega_summary) -> dict:
     return record
 
 
+def inverse_phase(card) -> dict:
+    """Phase 8: the inverse designer (`repro_torch.inverse`) on the card:
+    hardened recovery against the grid winners, the shipped problem
+    through `python -m repro_torch.sweep invert` as a subprocess, a wide
+    problem (dtco_isoarea: 8 leaf groups, one full chunk of 16 starts) in
+    process against the same lowering on the CPU, and its elasticity
+    table.  Returns the `{"inverse": ...}` record."""
+    import numpy as np
+    from repro_torch import inverse
+    from repro_torch.core.sweep import SymbolicSweepSpec
+    from repro_torch.inverse import driver, relax, sensitivity
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    print(f"inverse: {card}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+
+    def problem(name, **kw):
+        return inverse.InverseProblem(
+            sweep=SymbolicSweepSpec.load(str(ROOT / "specs" / f"{name}.json")),
+            objective="edp", name=f"{name}-inv", **kw)
+
+    def same(label, got, want):
+        if got != want:
+            fail(f"{label}: {got} != {want}")
+
+    # (a) the relaxed pipeline hardened at the centres recovers the grid
+    # winner, and the grid is the reference's
+    for name, want in INVERSE_GOLDEN["recover"].items():
+        prob = problem(name)
+        low = relax.lower(prob, device=dev)
+        grid = inverse.grid_argmin(prob, low, device=dev)
+        rec = inverse.recover_corner(prob, low, device=dev)
+        same(f"{name}: recovered corner", rec["corner"], grid["corner"])
+        same(f"{name}: grid corner vs the reference", grid["corner"],
+             want["corner"])
+        errs[f"{name}_recover_vs_grid"] = held(
+            f"{name}: hardened centres vs grid argmin (cuda)",
+            abs(rec["value"] - grid["value"]) / grid["value"])
+        errs[f"{name}_grid_vs_reference"] = held(
+            f"{name}: grid value, area, iso budget (cuda) vs the reference",
+            nested_rel([grid["value"], grid["area_mm2"],
+                        low.area_budget_mm2],
+                       [want["value"], want["area_mm2"],
+                        want["area_budget_mm2"]], name))
+
+    # (b) the shipped problem through the CLI as a user runs it, and the
+    # same solve in process (timed without the interpreter's start)
+    gold = INVERSE_GOLDEN["shipped"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out_dir = ROOT / "runs" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    doc_path = out_dir / "inverse_isocap.json"
+    t = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep", "invert",
+         "specs/inverse_isocap.json", "--json", str(doc_path)], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t
+    if done.returncode:
+        fail(f"sweep CLI invert exited {done.returncode}: "
+             f"{done.stderr[-2000:]}")
+    print(f"  CLI invert: {done.stderr.splitlines()[0]} ({cli_s:.2f} s with "
+          "the interpreter and the CUDA context)", flush=True)
+    doc = json.loads(doc_path.read_text())
+    same("shipped: corner vs the reference", doc["corner"], gold["corner"])
+    errs["shipped_grid_vs_reference"] = held(
+        "shipped: grid_best_value vs the reference",
+        nested_rel(doc["grid_best_value"], gold["grid_best_value"]))
+    errs["shipped_solve_vs_reference"] = held(
+        "shipped: best_value, standard_value vs the reference",
+        nested_rel([doc["best_value"], doc["standard_value"]],
+                   [gold["best_value"], gold["standard_value"]]),
+        INVERSE_SOLVE_REL)
+    errs["shipped_parity"] = held("shipped: parity_rel_err (cuda)",
+                                  doc["parity_rel_err"])
+    if not doc["area_mm2"] <= doc["area_budget_mm2"] * (1.0 + 1e-9):
+        fail(f"shipped: area {doc['area_mm2']} over its budget")
+    if not doc["best_value"] < doc["grid_best_value"]:
+        fail("shipped: the solve does not beat the grid argmin")
+    shipped = inverse.InverseProblem.load(
+        str(ROOT / "specs" / "inverse_isocap.json"))
+    runs_s = []
+    for _ in range(2):    # the process's first solve, then a warm one
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = inverse.solve(shipped, device=dev)
+        runs_s.append(time.perf_counter() - t)
+    shipped_cold_s, shipped_s = runs_s
+    errs["shipped_inprocess_vs_cli"] = held(
+        "shipped: the in-process solve vs the CLI's (values, leaves)",
+        nested_rel({k: res.to_doc()[k] for k in ("corner", "best_value",
+                                                  "standard_value",
+                                                  "leaves")},
+                   {k: doc[k] for k in ("corner", "best_value",
+                                        "standard_value", "leaves")},
+                   "shipped"), INVERSE_SOLVE_REL)
+    print(f"  shipped ({shipped.starts} starts x {shipped.iters} iters): "
+          f"best {doc['best_value']!r} vs grid {doc['grid_best_value']!r},"
+          f" solve in process {shipped_cold_s:.3f} s the first time, "
+          f"{shipped_s:.3f} s warm", flush=True)
+
+    # (c) the wide problem: one full chunk of starts
+    wide = problem(INVERSE_WIDE["spec"], starts=INVERSE_WIDE["starts"],
+                   iters=INVERSE_WIDE["iters"])
+    low = relax.lower(wide, device=dev)
+    low_cpu = relax.lower(wide, device="cpu")
+    if low.theta0.size != 64 or len(low.groups) != 8:
+        fail(f"wide: {len(low.groups)} groups, {low.theta0.size} leaves")
+    rng = np.random.default_rng(5)
+    offset = low.theta0 + rng.uniform(-0.05, 0.05, low.theta0.size)
+    gv = torch.func.grad_and_value(low.loss)
+    gv_cpu = torch.func.grad_and_value(low_cpu.loss)
+    for where, theta in (("centres", low.theta0), ("offset", offset)):
+        for temp in (0.5, relax.HARD_TEMP):
+            g, v = gv(torch.from_numpy(theta).to(dev), temp)
+            g_cpu, v_cpu = gv_cpu(torch.from_numpy(theta), temp)
+            errs[f"wide_loss_{where}_{temp:g}"] = held(
+                f"wide: loss at the {where}, temp {temp:g}, cuda vs cpu",
+                abs(float(v) - float(v_cpu)) / abs(float(v_cpu)))
+            errs[f"wide_grad_{where}_{temp:g}"] = held(
+                f"wide: gradient at the {where}, temp {temp:g}, cuda vs "
+                "cpu (of its largest component)",
+                float((g.cpu() - g_cpu).abs().max() / g_cpu.abs().max()),
+                INVERSE_GRAD_REL)
+    starts = driver._theta_starts(low)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    driver._solve_starts(low, starts)
+    descent_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = inverse.solve(wide, device=dev)
+    wide_s = time.perf_counter() - t
+    errs["wide_parity"] = held("wide: parity_rel_err (cuda)",
+                               res.parity_rel_err)
+    if not res.area_mm2 <= res.area_budget_mm2 * (1.0 + 1e-9):
+        fail(f"wide: area {res.area_mm2} over its budget")
+    if not res.best_value <= res.grid_best_value:
+        fail(f"wide: best {res.best_value} worse than the grid's "
+             f"{res.grid_best_value}")
+    finite = sum(1 for x in res.start_losses if math.isfinite(x))
+    steps = wide.starts * wide.iters
+    # host time of one vmapped step, and the card's share of one chunk
+    step = torch.func.vmap(gv, in_dims=(0, None))
+    batch = torch.from_numpy(starts).to(dev)
+    step_host_ms = host_ms(lambda: step(batch, 0.5), 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        driver._solve_starts(low, starts)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        if kernels else None
+    launches = sum(e.count for e in kernels) / wide.iters if kernels else None
+    # the chunk's starts and bounds in, its thetas and losses out: a
+    # copy inside the step would show as a count near the iterations
+    # (device-to-device copies, a slice's backward, stay on the card)
+    copies = sum(e.count for e in kernels
+                 if "Memcpy HtoD" in e.key or "Memcpy DtoH" in e.key)
+    if copies >= wide.iters:
+        fail(f"wide: {copies} host <-> device copies in a chunk of "
+             f"{wide.iters} steps")
+    busy = busy_ms / (1e3 * descent_s) if kernels else None
+    print(f"  wide ({wide.starts} starts x {wide.iters} iters, "
+          f"{finite} finite): best {res.best_value!r} vs grid "
+          f"{res.grid_best_value!r}; descent {descent_s:.3f} s "
+          f"({steps / descent_s:.1f} start-steps/s, "
+          f"{1e3 * descent_s / wide.iters:.2f} ms a step, host "
+          f"{step_host_ms:.2f} ms a step), solve {wide_s:.3f} s; device "
+          f"busy {busy_ms} ms of the descent ({busy}), {launches} device "
+          f"kernels a step, {copies} host <-> device copies a chunk",
+          flush=True)
+
+    # (d) the elasticity table, cuda against cpu
+    t = time.perf_counter()
+    rows = sensitivity.sensitivity_rows(wide, low, device=dev)
+    sens_s = time.perf_counter() - t
+    rows_cpu = sensitivity.sensitivity_rows(wide, low_cpu, device="cpu")
+    same("sensitivity: row labels", [
+        {k: v for k, v in r.items() if k != "elasticity"} for r in rows],
+        [{k: v for k, v in r.items() if k != "elasticity"}
+         for r in rows_cpu])
+    errs["sensitivity_abs"] = held(
+        "sensitivity: elasticities, cuda vs cpu (absolute)",
+        max(abs(a["elasticity"] - b["elasticity"])
+            for a, b in zip(rows, rows_cpu)), INVERSE_GRAD_REL)
+    top, top_cpu = sensitivity.top_knobs(rows), sensitivity.top_knobs(rows_cpu)
+    same("sensitivity: top knobs", [(r["node"], r["mem"], r["leaf"])
+                                    for r in top],
+         [(r["node"], r["mem"], r["leaf"]) for r in top_cpu])
+    print(f"  sensitivity: {len(rows)} rows in {sens_s:.3f} s; top knobs "
+          f"{[(r['node'], r['mem'], r['leaf']) for r in top]}", flush=True)
+
+    record = {
+        "card": card,
+        "seconds": {"shipped_solve": shipped_s,
+                    "shipped_solve_first": shipped_cold_s,
+                    "shipped_cli": cli_s,
+                    "wide_solve": wide_s, "wide_descent": descent_s,
+                    "wide_sensitivity": sens_s},
+        "shipped": {"starts": shipped.starts, "iters": shipped.iters,
+                    "best_value": doc["best_value"],
+                    "grid_best_value": doc["grid_best_value"],
+                    "parity_rel_err": doc["parity_rel_err"],
+                    "corner": doc["corner"]["org"]},
+        "wide": {"spec": INVERSE_WIDE["spec"], "starts": wide.starts,
+                 "iters": wide.iters, "finite_starts": finite,
+                 "best_value": res.best_value,
+                 "grid_best_value": res.grid_best_value,
+                 "parity_rel_err": res.parity_rel_err},
+        "start_steps_per_s": {
+            "shipped": shipped.starts * shipped.iters / shipped_s,
+            "wide_descent": steps / descent_s},
+        "step_ms": 1e3 * descent_s / wide.iters,
+        "step_host_ms": step_host_ms,
+        "device_kernels_per_step": launches,
+        "host_device_copies_per_chunk": copies,
+        "chunk_device_busy_ms": busy_ms, "chunk_device_busy_share": busy,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_rel_err": errs,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"inverse phase: {record['phase_s']:.1f} s", flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2180,6 +2467,8 @@ def main() -> int:
     pipeline, mega_summary = pipeline_phase(card)
     # 7. the sweep service and its CLI on the card
     service = service_phase(card, mega_summary)
+    # 8. the inverse designer on the card
+    inverse = inverse_phase(card)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2211,6 +2500,7 @@ def main() -> int:
         wkv_entry, wkv_bwd_entry]}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"inverse": inverse}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

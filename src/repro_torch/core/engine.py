@@ -143,12 +143,14 @@ def _ppa_kernel(cell, cal, is_sram, node, peri, caps_bytes, banks, rows,
     Every expression keeps the scalar path's operation order so float64
     results match the Python-float reference to the last ulps.  A select
     between two constants is written with float64 tensors: torch.where of
-    two Python floats would give the default dtype, float32.
+    two Python floats would give the default dtype, float32.  They are
+    filled on the device (``torch.full``), so a call copies nothing from
+    the host: the inverse designer's loss runs this map every step.
     """
     f64 = torch.float64
 
     def const(x: float) -> torch.Tensor:
-        return torch.tensor(x, dtype=f64, device=cell.device)
+        return torch.full((), x, dtype=f64, device=cell.device)
 
     # broadcast axes: n = node, m = technology, c = capacity, o = org
     def M(x):      # [n, m] -> [n, m, 1, 1]

@@ -3,14 +3,17 @@
     python -m repro_torch.sweep run spec.json --csv out.csv
     python -m repro_torch.sweep run spec.json --device cpu
     python -m repro_torch.sweep show spec.json
+    python -m repro_torch.sweep invert specs/inverse_isocap.json
+    python -m repro_torch.sweep invert spec.json --objective edp --iso-area
     python -m repro_torch.sweep mega --summary
     python -m repro_torch.sweep serve < requests.jsonl
     python -m repro_torch.sweep serve --http 127.0.0.1:8731 \
         --warmup-spec specs/isocap.json --stats-on-exit
 
-``run``, ``mega`` and ``serve`` evaluate on ``--device`` (``cuda`` unless
-``--device cpu`` is given; without CUDA they raise, and nothing falls
-back to the CPU).  ``show`` evaluates nothing and takes no device.
+``run``, ``mega``, ``invert`` and ``serve`` evaluate on ``--device``
+(``cuda`` unless ``--device cpu`` is given; without CUDA they raise, and
+nothing falls back to the CPU).  ``show`` evaluates nothing and takes no
+device.
 
 ``run`` lowers one JSON spec document (core/sweep.py, schema
 ``deepnvm.sweepspec/2``) through the registries and evaluates it — exactly
@@ -25,9 +28,14 @@ port runs a sweep on one device).  ``mega`` builds and runs the full
 DTCO cross product (``repro_torch.scenarios.mega_spec``, 1e5+ cells)
 through that path.  ``show`` resolves without evaluating (spec linting).
 
-``invert`` keeps the JAX package's arguments (a ``deepnvm.inverse/1``
-problem document or a bare sweepspec plus flags), but the inverse
-designer is not ported yet (ROADMAP A10): it exits non-zero saying so.
+``invert`` runs the gradient-based inverse-design solver
+(:mod:`repro_torch.inverse`) over a spec's corner grid on ``--device``:
+it accepts either a ``deepnvm.inverse/1`` problem document or a bare
+sweepspec plus flags (``--objective edp --iso-area`` is the paper-style
+"minimize EDP at the grid's own max area" question), prints the
+converged-design summary to stderr, and emits the auditable result
+document (leaves, standard-path re-evaluation, parity, gain vs the grid
+argmin) as JSON.
 
 ``serve`` is the long-lived mode, backed by the concurrent
 :class:`repro_torch.sweep.service.SweepService` (see that module for the
@@ -189,12 +197,57 @@ def cmd_mega(args: argparse.Namespace) -> None:
 
 
 def cmd_invert(args: argparse.Namespace) -> None:
-    """The JAX package's gradient-based inverse design; its port
-    (``repro_torch.inverse``) is ROADMAP A10, so this exits non-zero."""
-    raise SystemExit(
-        f"invert {args.spec}: the inverse designer is not ported to "
-        "PyTorch yet (ROADMAP A10); run `python -m repro.sweep invert` "
-        "from the JAX package meanwhile")
+    """Gradient-based inverse design: accepts a ``deepnvm.inverse/1``
+    problem document or a bare sweepspec (the spec's corner grid becomes
+    the relaxation's span; solver fields come from the flags)."""
+    import dataclasses
+
+    from repro_torch import inverse
+
+    if args.spec == "-":
+        doc = json.loads(sys.stdin.read())
+    else:
+        with open(args.spec) as f:
+            doc = json.load(f)
+    if doc.get("schema") == inverse.SCHEMA:
+        prob = inverse.InverseProblem.from_json(doc)
+    else:
+        prob = inverse.InverseProblem(
+            sweep=SymbolicSweepSpec.from_json(doc),
+            name=doc.get("name", "inverse"))
+    # flags override the document's fields only when given
+    over: dict = {}
+    if args.objective is not None:
+        over["objective"] = args.objective
+    if args.iso_area:
+        over["area_budget_mm2"] = "iso"
+    elif args.budget is not None:
+        over["area_budget_mm2"] = args.budget
+    elif args.no_budget:
+        over["area_budget_mm2"] = None
+    if args.target is not None:
+        over["target"] = args.target
+    if args.include_dram:
+        over["include_dram"] = True
+    for field in ("starts", "iters", "lr", "seed"):
+        if getattr(args, field) is not None:
+            over[field] = getattr(args, field)
+    if over:
+        prob = dataclasses.replace(prob, **over)
+
+    t0 = time.perf_counter()
+    res = inverse.solve(prob, device=args.device)
+    dt = time.perf_counter() - t0
+    print(f"{prob.name}: {prob.starts} starts x {prob.iters} iters "
+          f"in {dt:.1f}s", file=sys.stderr)
+    print(res.summary(), file=sys.stderr)
+    out = json.dumps(res.to_doc(), indent=2) + "\n"
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(out)
+        print(f"result -> {args.json}", file=sys.stderr)
+    else:
+        sys.stdout.write(out)
 
 
 def cmd_show(args: argparse.Namespace) -> None:
@@ -374,6 +427,7 @@ def main(argv: list[str] | None = None) -> None:
     inv_p.add_argument("--json", metavar="PATH",
                        help="write the result document here (default: "
                             "stdout)")
+    _add_device_flag(inv_p)
     inv_p.set_defaults(func=cmd_invert)
 
     show_p = sub.add_parser("show", help="resolve a spec without running")

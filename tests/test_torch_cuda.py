@@ -1,14 +1,17 @@
 """The CUDA kernels (flash attention forward and backward, WKV6 forward and
 backward) against their plain twins, and the float64 DeepNVM++ pipeline
-(the engines, the golden specs, the DTCO analyses and the sweep service)
-on `cuda` against the same pipeline on `cpu` (1e-12 relative, equal tuned
-organizations), on the GPU.
+(the engines, the golden specs, the DTCO analyses, the sweep service and
+the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
+relative, equal tuned organizations; the inverse designer's gradients
+within 1e-10 of their largest component, its solve within 1e-9), on the
+GPU.
 
 Marked `cuda`: each test skips without a CUDA device.  Run on the GPU
 machine with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
 This file imports no JAX (the GPU machine has none).
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -770,3 +773,113 @@ def test_pipeline_service_cuda_matches_cpu(dev):
         want = sweep.SymbolicSweepSpec.from_json(d).run(device="cpu")
         _assert_doc_close(resp["rows"], want.rows(), d["name"])
     assert svc.coalescer.coalesced_requests + svc.coalescer.deduped_requests
+
+
+# ---------------------------------------------------------------------------
+# The inverse designer: cuda against cpu
+# ---------------------------------------------------------------------------
+
+
+def _inverse_problem(name, **kw):
+    from repro_torch import inverse
+    return inverse.InverseProblem(
+        sweep=sweep.SymbolicSweepSpec.load(str(SPECS / f"{name}.json")),
+        objective="edp", **kw)
+
+
+@pytest.mark.parametrize("name", ["isocap", "dtco_isoarea"])
+def test_inverse_loss_and_gradient_cuda_match_cpu(dev, name):
+    from repro_torch.inverse import relax
+    prob = _inverse_problem(name)
+    on = {d: relax.lower(prob, device=d) for d in ("cuda", "cpu")}
+    theta0 = on["cpu"].theta0
+    offset = theta0 + np.random.default_rng(2).uniform(-0.05, 0.05,
+                                                       theta0.size)
+    for theta in (theta0, offset):
+        for temp in (0.5, relax.HARD_TEMP):
+            got_g, got = torch.func.grad_and_value(on["cuda"].loss)(
+                torch.from_numpy(theta).to("cuda"), temp)
+            want_g, want = torch.func.grad_and_value(on["cpu"].loss)(
+                torch.from_numpy(theta), temp)
+            assert abs(float(got) - float(want)) <= PIPE_REL * abs(
+                float(want))
+            assert float((got_g.cpu() - want_g).abs().max()) \
+                <= 1e-10 * float(want_g.abs().max())
+            obj, area, _ = on["cuda"].objective_matrix(
+                torch.from_numpy(theta).to("cuda"), temp)
+            w_obj, w_area, _ = on["cpu"].objective_matrix(
+                torch.from_numpy(theta), temp)
+            assert _max_rel(obj.cpu().numpy(), w_obj.numpy()) <= PIPE_REL
+            assert _max_rel(area.cpu().numpy(), w_area.numpy()) <= PIPE_REL
+
+
+@pytest.mark.parametrize("name", ["isocap", "dtco_isoarea"])
+def test_inverse_recover_corner_cuda_matches_cpu(dev, name):
+    from repro_torch import inverse
+    prob = _inverse_problem(name)
+    got = inverse.recover_corner(prob, device="cuda")
+    want = inverse.recover_corner(prob, device="cpu")
+    grid = inverse.grid_argmin(prob, device="cuda")
+    assert got["corner"] == want["corner"] == grid["corner"]
+    assert abs(got["value"] - want["value"]) <= PIPE_REL * want["value"]
+    assert _max_rel(got["objective_matrix"], want["objective_matrix"]) \
+        <= PIPE_REL
+
+
+def test_inverse_two_start_solve_cuda_matches_cpu(dev):
+    from repro_torch import inverse
+    prob = dataclasses.replace(
+        inverse.InverseProblem.load(str(SPECS / "inverse_isocap.json")),
+        starts=2, iters=40)
+    got = inverse.solve(prob, device="cuda")
+    want = inverse.solve(prob, device="cpu")
+    assert got.corner == want.corner
+    assert got.converged_start == want.converged_start
+    assert got.parity_rel_err <= 1e-12
+    assert got.best_value < got.grid_best_value
+    assert got.area_mm2 <= got.area_budget_mm2 * (1.0 + 1e-9)
+    for a, b in ((got.best_value, want.best_value),
+                 (got.standard_value, want.standard_value),
+                 *zip(got.trajectory, want.trajectory)):
+        assert abs(a - b) <= 1e-9 * abs(b)
+    assert abs(got.grid_best_value - want.grid_best_value) \
+        <= PIPE_REL * want.grid_best_value
+
+
+def test_inverse_sensitivity_cuda_matches_cpu(dev):
+    from repro_torch.inverse import relax, sensitivity
+    prob = _inverse_problem("dtco_isoarea")
+    rows = {d: sensitivity.sensitivity_rows(
+        prob, relax.lower(prob, device=d), device=d) for d in ("cuda", "cpu")}
+    assert len(rows["cuda"]) == len(rows["cpu"]) == 640
+    for g, w in zip(rows["cuda"], rows["cpu"]):
+        assert g["leaf"] == w["leaf"] and g["node"] == w["node"]
+        assert abs(g["elasticity"] - w["elasticity"]) <= 1e-10
+    assert [(r["node"], r["mem"], r["leaf"])
+            for r in sensitivity.top_knobs(rows["cuda"])] \
+        == [(r["node"], r["mem"], r["leaf"])
+            for r in sensitivity.top_knobs(rows["cpu"])]
+
+
+def test_inverse_step_copies_nothing_between_host_and_card(dev):
+    """A vmapped loss-and-gradient step reads only the lowering's device
+    constants: the profiler sees no host <-> device copy in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.inverse import relax
+    low = relax.lower(_inverse_problem("isocap"), device="cuda")
+    step = torch.func.vmap(torch.func.grad_and_value(low.loss),
+                           in_dims=(0, None))
+    theta = torch.from_numpy(low.theta0).to("cuda")[None].repeat(4, 1)
+    step(theta, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(theta, 0.5)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert rows, "the profiler saw no device work"
+    # device-to-device copies (a slice's backward) stay on the card
+    assert not [e.key for e in rows
+                if "Memcpy HtoD" in e.key or "Memcpy DtoH" in e.key]

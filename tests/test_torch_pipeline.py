@@ -104,7 +104,8 @@ def _rewrite(text: str) -> str:
 PLAIN_COPIES = ("core/tech.py", "core/mtj.py", "core/bitcell.py",
                 "core/workloads.py", "core/traffic.py", "core/dse.py",
                 "core/report.py", "core/cachesim.py", "scenarios.py",
-                "launch/flops.py", "sweep/client.py")
+                "launch/flops.py", "sweep/client.py", "inverse/bounds.py",
+                "inverse/problem.py")
 
 
 @pytest.mark.parametrize("module", PLAIN_COPIES)
@@ -204,6 +205,7 @@ def test_ported_modules_differ_only_where_listed(module):
 def test_port_imports_no_jax_and_nothing_of_repro():
     for path in [*(SRC / "repro_torch" / "core").glob("*.py"),
                  *(SRC / "repro_torch" / "sweep").glob("*.py"),
+                 *(SRC / "repro_torch" / "inverse").glob("*.py"),
                  SRC / "repro_torch" / "sweep_cli.py",
                  SRC / "repro_torch" / "scenarios.py",
                  SRC / "repro_torch" / "launch" / "flops.py",

@@ -1,4 +1,4 @@
-"""The port's sweep CLI (`python -m repro_torch.sweep run|show|mega|serve`)
+"""The port's sweep CLI (`python -m repro_torch.sweep run|show|mega|serve|invert`)
 on the CPU, against the JAX reference's CLI (`repro.sweep_cli`) and
 against the port's own in-process pipeline.
 
@@ -8,8 +8,10 @@ against the port's own in-process pipeline.
 with `report.fmt_exact`); `show` prints what the reference prints; `mega
 --quick --summary` matches the reference's summary within 1e-12.  The
 port's decisions: `--device` defaults to cuda and raises without it,
-`--devices` takes only 1, `serve --compile-cache` raises, and `invert`
-exits non-zero naming its ROADMAP item.
+`--devices` takes only 1, and `serve --compile-cache` raises.  `invert`
+on the shipped problem document and on a bare sweepspec, with the flag
+overrides, writes the reference CLI's result document (the solve's floats
+within 1e-9 relative, parity <= 1e-12).
 
 The reference's engines import `jax.experimental.enable_x64`, which JAX
 0.9 no longer has; the `ref` fixture aliases it to `jax.enable_x64` when
@@ -21,6 +23,7 @@ from __future__ import annotations
 import csv
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -240,7 +243,7 @@ def test_answer_keeps_one_default_service_per_device():
 
 
 # ---------------------------------------------------------------------------
-# The port's decisions: the device, --devices, --compile-cache, invert
+# The port's decisions: the device, --devices, --compile-cache
 # ---------------------------------------------------------------------------
 
 NO_DEVICE = {
@@ -249,6 +252,8 @@ NO_DEVICE = {
     "serve": lambda: sweep_cli.main(["serve"]),
     "answer": lambda: sweep_cli.answer({"op": "ping"}),
     "serve_stdio": lambda: sweep_cli.serve(io.StringIO(""), io.StringIO()),
+    "invert": lambda: sweep_cli.main(["invert",
+                                      spec_path("inverse_isocap.json")]),
 }
 
 
@@ -280,12 +285,59 @@ def test_compile_cache_raises(tmp_path):
     assert not (tmp_path / "cc").exists()
 
 
-def test_invert_exits_nonzero_naming_its_roadmap_item():
-    with pytest.raises(SystemExit) as exc:
-        sweep_cli.main(["invert", spec_path("inverse_isocap.json"),
-                        "--objective", "edp", "--iso-area"])
-    assert exc.value.code != 0
-    assert "ROADMAP A10" in str(exc.value.code)
+# invert: the port's CLI against the reference's on the same document and
+# flags.  The solve's floats within 1e-9 relative (a few dozen Adam steps
+# carry the last ulps of two implementations), parity <= 1e-12 on both
+# sides, everything else equal.
+INVERT_CASES = {
+    "shipped-iso-area": ["inverse_isocap.json", "--objective", "edp",
+                         "--iso-area", "--starts", "2", "--iters", "20"],
+    "bare-spec-budget": ["isocap.json", "--budget", "4.0", "--starts", "2",
+                         "--iters", "15", "--lr", "0.1", "--seed", "3"],
+    "target-no-budget-dram": ["inverse_isocap.json", "--no-budget",
+                              "--target", "0.5", "--include-dram",
+                              "--starts", "1", "--iters", "10"],
+}
+
+
+def _assert_invert_close(got, want, where=""):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), where
+        for k in want:
+            if k == "parity_rel_err":
+                assert got[k] <= 1e-12 and want[k] <= 1e-12, where
+            else:
+                _assert_invert_close(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_invert_close(g, w, f"{where}[{i}]")
+    elif isinstance(want, float) and math.isnan(want):
+        assert math.isnan(got), where     # a start past the STT wall
+    elif isinstance(want, float):
+        assert abs(got - want) <= 1e-9 * abs(want), (where, got, want)
+    else:
+        assert got == want, where
+
+
+@pytest.mark.parametrize("case", sorted(INVERT_CASES))
+def test_cli_invert_matches_reference(ref, case, tmp_path, capsys):
+    spec, *flags = INVERT_CASES[case]
+    rout = tmp_path / "ref.json"
+    ref.cli.main(["invert", spec_path(spec), *flags, "--json", str(rout)])
+    want = json.loads(rout.read_text())
+    capsys.readouterr()
+    if case == "target-no-budget-dram":      # the default: stdout
+        sweep_cli.main(["invert", spec_path(spec), *flags, *CPU])
+        got = json.loads(capsys.readouterr().out)
+    else:
+        out = tmp_path / "port.json"
+        sweep_cli.main(["invert", spec_path(spec), *flags, "--json",
+                        str(out), *CPU])
+        got = json.loads(out.read_text())
+    _assert_invert_close(got, want)
+    assert got["schema"] == "deepnvm.inverse_result/1"
+    assert got["problem"]["iters"] == int(flags[flags.index("--iters") + 1])
 
 
 def test_module_entry_point_runs_and_raises_without_device(tmp_path):
