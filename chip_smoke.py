@@ -60,9 +60,13 @@ Phases, each fatal on failure:
      AdamW for all 28 need ~136 GB) at batch 2 x seq 2048: exactly 12
      flash forwards and 6 flash backwards (head dim 256) a step;
   4. per model: prefill logits through the kernel against those through
-     the plain twin (relative max error <= 2e-2; for RWKV6-3B each block on
-     the same input, and the logits within max(2e-2, 1.5 x the plain
-     twin's distance from a float64 recurrence)), the same model at reduced
+     the plain twin (relative max error <= 2e-2, and each layer's
+     attention on the same input; for RWKV6-3B each block on the same
+     input, and the logits within max(2e-2, 1.5 x the plain twin's
+     distance from a float64 recurrence); for DeepSeek-MoE, whose routing
+     turns bf16 rounding into other experts, the logits within max(2e-2,
+     1.5 x the plain twin's distance from the naive oracle), with the
+     tokens whose experts differ counted), the same model at reduced
      width on the GPU against the CPU, and timings: kernel and plain twin
      (and for flash attention `scaled_dot_product_attention`, a yardstick
      the port never calls, and the achieved TFLOP/s) at the main path's
@@ -80,6 +84,18 @@ Phases, each fatal on failure:
      trained model, as a share of the timings above, with the heaviest
      kernels (and the flash backward's and the wkv6 forward's and
      backward's shares of the step);
+  5b. after Gemma-7B's training, the card's memory released before each
+     model: one `blocks.moe` call at DeepSeek-MoE 16B's full width in fp32
+     on the 4 x 2048 tokens of its prefill, on the card and on the CPU from
+     the same numpy-seeded inputs (equal experts and kept (token, slot)
+     pairs, some dropped, the output within MOE_BLOCK_REL relative max,
+     the aux within MOE_AUX_ABS; timed in fp32 and bf16), the reduced
+     DeepSeek-MoE on the GPU against the CPU, then DeepSeek-MoE 16B and
+     Chameleon-34B served at every published width and full depth as in
+     phases 3-5 (exactly 28 / 48 flash forwards a serve and nothing else;
+     prefill logits within 2e-2 of the plain twin; prefill ms, decode
+     ms/token, busy shares, the weights' bytes and peak memory), printed
+     as a `{"served": ...}` line;
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -137,9 +153,9 @@ Phases, each fatal on failure:
      seconds, start-steps/s, ms and host ms a step, device kernels a
      step, peak memory and the profiler's device-busy share of the
      descent, printed as an `{"inverse": ...}` line.
-Prints one `{"kernels": [...]}` line, the `{"pipeline": ...}`,
-`{"service": ...}` and `{"inverse": ...}` lines, the card line, and last
-`{"ok": true, "device": {...}}`.  Exits non-zero,
+Prints one `{"kernels": [...]}` line, the `{"served": ...}`,
+`{"pipeline": ...}`, `{"service": ...}` and `{"inverse": ...}` lines, the
+card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
 """
 
@@ -245,7 +261,8 @@ BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
 # Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
 BWD_PARTS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
-DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b",
+         "chameleon-34b"]
 TRAIN_STEPS = 3
 # Gemma-7B trained at every published width, its depth cut to what one
 # 80 GB card holds: 2.45 B fp32 params with grads, m and v ~39 GB, and the
@@ -263,6 +280,17 @@ GRAD_BAR = 5e-2
 ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 4, 2048, 16
 GEMMA_ARCH = "gemma-7b"   # the head-dim-256 serving path
 RWKV_ARCH = "rwkv6-3b"
+# Served at every published width and full depth after Gemma-7B's
+# training: DeepSeek-MoE 16B (~16.4 B params, 32.8 GB of bf16 weights) and
+# Chameleon-34B (34.3 B, 68.6 GB); both through the flash forward at hd
+# 128, one launch per layer (28, 48).  The fp32 MoE block at the MoE
+# serve's prefill shape, card against CPU: the same experts and dropped
+# (token, slot) pairs, the output within MOE_BLOCK_REL (relative max) and
+# the load-balance loss within MOE_AUX_ABS
+MOE_ARCH = "deepseek-moe-16b"
+VLM_ARCH = "chameleon-34b"
+MOE_BLOCK_REL = 1e-4
+MOE_AUX_ABS = 1e-6
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -1052,15 +1080,18 @@ def reduced_dense(card, configs, lm, train, counters) -> None:
 
 
 def serve_numbers(card, cfg, lm, fa) -> None:
-    """Phases 4b and 5 for a dense model at full width: prefill logits
-    through the kernel against the plain twin (relative max <= 2e-2),
-    prefill ms through each, decode ms / token, and the profiler's
+    """Phases 4b and 5 for a dense or MoE model at full width: prefill
+    logits through the kernel against the plain twin (relative max <= 2e-2;
+    for a MoE model the bar of `check_prefill_layers`, which also holds
+    each layer's attention), prefill ms through each, decode ms / token, and the profiler's
     device-busy share of one prefill (with the flash forward's share) and
     of a decode step."""
     model = lm.build(cfg)
     plain = lm.build(cfg, force="plain")
     dev = torch.device("cuda")
     params = model.init(torch.Generator(dev).manual_seed(0))
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
     with torch.inference_mode():
@@ -1076,9 +1107,10 @@ def serve_numbers(card, cfg, lm, fa) -> None:
         rel = rel_err(got, want)
         print(f"{cfg.name} prefill logits kernel vs plain: rel max err "
               f"{rel:.3e}", flush=True)
-        if not (torch.isfinite(got).all().item() and rel <= 2e-2):
+        bar = check_prefill_layers(card, cfg, lm, params, prompts)
+        if not (torch.isfinite(got).all().item() and rel <= bar):
             fail(f"{cfg.name} prefill logits through the kernel differ from "
-                 f"plain: {rel}")
+                 f"plain: {rel} (bar {bar})")
 
         prefill_ms = time_ms(lambda: model.prefill(params, prompts, cache), 3,
                              warmup=1)
@@ -1099,8 +1131,8 @@ def serve_numbers(card, cfg, lm, fa) -> None:
         print(f"{cfg.name} prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms "
               f"through the kernel, {plain_prefill_ms:.3f} ms through the "
               f"plain twin; decode {decode_ms:.3f} ms/token, "
-              f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH} "
-              f"[{card}]", flush=True)
+              f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH}; "
+              f"weights {weights_gb:.3f} GB [{card}]", flush=True)
 
         # 5. where the time goes: profiled device time against the above
         rows = device_kernels(lambda: model.prefill(params, prompts, cache))
@@ -1121,6 +1153,68 @@ def serve_numbers(card, cfg, lm, fa) -> None:
     del params, cache, got, want
 
 
+def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
+    """Phase 4 for a dense or MoE model's prefill, kernel against plain
+    twin.  Layer by layer on the same input (the kernel's own effect):
+    each layer's attention through the kernel against the plain twin,
+    relative max error <= 2e-2.  Returns the bar of the logits: 2e-2 for
+    a dense model.  In a MoE model an attention output that rounds to
+    another bf16 value can move a router logit across a bf16 step, and a
+    token whose top k changes takes another expert's output from there
+    on; so its logits are held to max(2e-2, 1.5 x the plain twin's
+    distance from the naive oracle, which rounds the attention
+    probabilities to bf16 as the kernel does), and the tokens whose
+    chosen experts differ between the kernel's prefill and the plain
+    twin's are counted by layer."""
+    from repro_torch.models import blocks, layers
+    dev = prompts.device
+    pos = torch.arange(PROMPT, device=dev)[None]
+    x = layers.embed(params["embed"], prompts)
+    worst = 0.0
+    for i, seg in enumerate(lm.layer_plan(cfg)):
+        for lp in params[f"seg{i}"]:
+            h = layers.rmsnorm(lp["ln_attn"], x)
+            outs = [layers.attention(lp["attn"], lm.attn_dims(cfg), h, pos,
+                                     force=force)
+                    for force in (None, "plain")]
+            worst = max(worst, rel_err(*outs))
+            x, _ = lm._apply_block(lp, cfg, seg, x, pos)
+    del x, h, outs
+    print(f"{cfg.name} prefill: worst attention kernel vs plain on the same "
+          f"input, over {cfg.n_layers} layers, {worst:.3e} (bar 2e-2) "
+          f"[{card}]", flush=True)
+    if worst > 2e-2:
+        fail(f"{cfg.name}: an attention through the kernel differs from "
+             f"plain: {worst}")
+    if cfg.moe is None:
+        return 2e-2
+    picks, real_route = {}, blocks.route
+
+    def prefill(force):
+        def route(*args):
+            out = real_route(*args)
+            picks.setdefault(force, []).append(out[1].sort(dim=-1).values)
+            return out
+        model = lm.build(cfg, force=force)
+        blocks.route = route
+        try:
+            return model.prefill(params, prompts,
+                                 model.init_cache(BATCH, PROMPT, dev))
+        finally:
+            blocks.route = real_route
+    got, want, naive = (prefill(f) for f in (None, "plain", "naive"))
+    rel, floor = rel_err(got, want), rel_err(naive, want)
+    bar = max(2e-2, 1.5 * floor)
+    moved = [int((a != b).any(dim=-1).sum())
+             for a, b in zip(picks[None], picks["plain"])]
+    print(f"{cfg.name} prefill: logits kernel vs plain {rel:.3e} (bar "
+          f"{bar:.3e}); naive oracle vs plain {floor:.3e}; kernel vs naive "
+          f"{rel_err(got, naive):.3e}; tokens whose experts differ between "
+          f"the kernel's and the plain twin's prefill, by MoE layer (of "
+          f"{BATCH * PROMPT}): {moved} [{card}]", flush=True)
+    return bar
+
+
 def dense_serve(card, configs, serve, counters, arch) -> int:
     """Phase 3 for a dense model: `serve.main` at full width with every
     count set to 0 just before and read just after (one flash forward per
@@ -1137,6 +1231,109 @@ def dense_serve(card, configs, serve, counters, arch) -> int:
     check_tokens(toks, cfg.vocab, arch)
     del toks
     return counts["flash_attention"]
+
+
+def reduced_on_gpu(card, configs, lm, arch) -> None:
+    """Phase 4c: `arch`'s reduced config, 2 x 64 tokens (below the flash
+    threshold: its non-kernel layers), forward on the GPU against the CPU
+    from the same params (relative max <= 2e-2)."""
+    small = configs.get(arch, reduced=True)
+    sm = lm.build(small)
+    sp = sm.init(torch.Generator("cpu").manual_seed(0))
+    stoks = torch.randint(0, small.vocab, (2, 64),
+                          generator=torch.Generator("cpu").manual_seed(2))
+    cpu_logits = sm.forward(sp, stoks)
+    sp_gpu = tree_map(lambda t: t.to("cuda"), sp)
+    gpu_logits = sm.forward(sp_gpu, stoks.to("cuda")).cpu()
+    rel_small = ((gpu_logits - cpu_logits).abs().max()
+                 / cpu_logits.abs().max()).item()
+    print(f"reduced {small.name} forward, GPU vs CPU: rel max err "
+          f"{rel_small:.3e}", flush=True)
+    if rel_small > 2e-2:
+        fail(f"reduced {small.name} forward on the GPU differs from the CPU:"
+             f" {rel_small}")
+    del sp, sp_gpu, cpu_logits, gpu_logits
+    torch.cuda.empty_cache()
+
+
+def moe_block_check(card, configs, lm) -> int:
+    """Phase 5b: one `blocks.moe` call at DeepSeek-MoE 16B's full width (d
+    2048, 64 experts, top 6, 2 shared, groups of 512, capacity factor 1.25:
+    61 slots), fp32 activations, on the 4 x 2048 tokens of its prefill,
+    on the card and on the CPU from the same numpy-seeded inputs (params,
+    a router bias, x): the chosen experts and the kept (token, slot) pairs
+    equal, the output within MOE_BLOCK_REL, the aux within MOE_AUX_ABS;
+    the dropped slots counted (> 0: the drop path ran on the card).  Times
+    the card's call in fp32 and in bf16.  Returns the dropped count."""
+    import numpy as np
+    from repro_torch.models import blocks
+    dims = lm.moe_dims(configs.get(MOE_ARCH))
+    rng = np.random.default_rng(0)
+    params = blocks.init_moe(torch.Generator("cpu").manual_seed(0), dims,
+                             dtype=torch.float32)
+    params["router_bias"] = torch.from_numpy(
+        1e-3 * rng.standard_normal(dims.n_experts).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(
+        (BATCH, PROMPT, dims.d_model)).astype(np.float32))
+    gp = tree_map(lambda t: t.to("cuda"), params)
+    t = BATCH * PROMPT
+    xg, valid = blocks.group_tokens(x, dims.group_size)
+    want, want_aux = blocks.moe(params, dims, x)
+    w_route = blocks.route(params, dims, xg, valid)
+    with torch.no_grad():
+        got, aux = blocks.moe(gp, dims, x.cuda())
+        g_route = blocks.route(gp, dims, xg.cuda(), valid.cuda())
+    same_experts = torch.equal(g_route[1].cpu(), w_route[1])
+    same_kept = torch.equal(g_route[4].cpu(), w_route[4])
+    dropped = int((valid[..., None] & ~w_route[4]).sum())
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    aux_err = abs(aux.item() - want_aux.item())
+    xc = x.cuda()
+    with torch.no_grad():
+        f32_ms = time_ms(lambda: blocks.moe(gp, dims, xc), 3, warmup=1)
+        gb = tree_map(lambda t: t.to(torch.bfloat16)
+                      if t.dim() > 1 else t, gp)
+        xb = xc.bfloat16()
+        bf16_ms = time_ms(lambda: blocks.moe(gb, dims, xb), 3, warmup=1)
+    print(f"{MOE_ARCH} MoE block at full width (d {dims.d_model}, "
+          f"{dims.n_experts} experts, top {dims.top_k}, {dims.n_shared} "
+          f"shared, group {dims.group_size}, capacity {dims.capacity}), fp32, "
+          f"{t} tokens, card vs CPU: experts equal {same_experts}, kept "
+          f"slots equal {same_kept}, {dropped} of {t * dims.top_k} slots "
+          f"dropped; output rel max err {rel:.3e} (bar {MOE_BLOCK_REL}), aux "
+          f"{aux.item():.7f} vs {want_aux.item():.7f} (err {aux_err:.3e}, "
+          f"bar {MOE_AUX_ABS}); the card's call {f32_ms:.3f} ms fp32, "
+          f"{bf16_ms:.3f} ms bf16 [{card}]", flush=True)
+    if not (same_experts and same_kept and dropped > 0
+            and rel <= MOE_BLOCK_REL and aux_err <= MOE_AUX_ABS):
+        fail(f"the full-width MoE block on the card differs from the CPU: "
+             f"experts {same_experts}, kept {same_kept}, dropped {dropped}, "
+             f"rel {rel}, aux {aux_err}")
+    del params, gp, gb, x, xc, xb, got, want
+    torch.cuda.empty_cache()
+    return dropped
+
+
+def full_depth_serve(card, configs, lm, serve, fa, counters, arch) -> dict:
+    """Phases 3-5 for a model served at every published width and full
+    depth: with the card's memory released before it, `serve.main`
+    counted (one flash forward per layer, nothing else), then
+    `serve_numbers`; the peak memory of both
+    (`torch.cuda.max_memory_allocated` after a reset)."""
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"serve {arch}: {cfg.n_layers} layers (full depth), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}; {held_gb:.3f} GB allocated before it", flush=True)
+    launches = dense_serve(card, configs, serve, counters, arch)
+    serve_numbers(card, cfg, lm, fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve {arch}: peak memory {peak_gb:.3f} GB (the serve and the "
+          f"prefill / decode timings) [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak_gb": peak_gb}
 
 
 def misaligned(t, pad):
@@ -1280,7 +1477,7 @@ def check_rwkv_prefill(cfg, lm, wkv, plain, params, prompts, got, want):
     for lp in params["seg0"]:
         outs = [lm._apply_block(
             lp, cfg, seg, x, pos, force=force,
-            cache=lm._init_block_cache(cfg, seg, BATCH, 0, dev))
+            cache=lm._init_block_cache(cfg, seg, BATCH, 0, dev))[0]
             for force in (None, "plain")]
         worst = max(worst, rel_err(*outs))
         x = outs[0]
@@ -1346,6 +1543,8 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
     model, plain = lm.build(cfg), lm.build(cfg, force="plain")
     dev = torch.device("cuda")
     params = model.init(torch.Generator(dev).manual_seed(0))
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
     with torch.inference_mode():
@@ -2407,23 +2606,7 @@ def main() -> int:
     serve_numbers(card, configs.get(ARCH), lm, fa)
 
     # 4c. the reduced model on the GPU against the CPU (non-kernel layers)
-    dev = torch.device("cuda")
-    small = configs.get(ARCH, reduced=True)
-    sm = lm.build(small)
-    sp = sm.init(torch.Generator("cpu").manual_seed(0))
-    stoks = torch.randint(0, small.vocab, (2, 64),
-                          generator=torch.Generator("cpu").manual_seed(2))
-    cpu_logits = sm.forward(sp, stoks)
-    sp_gpu = tree_map(lambda t: t.to(dev), sp)
-    gpu_logits = sm.forward(sp_gpu, stoks.to(dev)).cpu()
-    rel_small = ((gpu_logits - cpu_logits).abs().max()
-                 / cpu_logits.abs().max()).item()
-    print(f"reduced {small.name} forward, GPU vs CPU: rel max err "
-          f"{rel_small:.3e}", flush=True)
-    if rel_small > 2e-2:
-        fail(f"reduced forward on the GPU differs from the CPU: {rel_small}")
-    del sp, sp_gpu, cpu_logits, gpu_logits
-    torch.cuda.empty_cache()
+    reduced_on_gpu(card, configs, lm, ARCH)
 
     # 3-4 for the training main path, and C1's reduced configs
     trained = train_path(card, configs.get(ARCH), BATCH, train, counters)
@@ -2461,7 +2644,16 @@ def main() -> int:
                                counters)
     train_vs_plain(card, gemma_cfg, GEMMA_TRAIN_BATCH, lm)
 
-    # 6. the float64 DeepNVM++ pipeline, on a card with Gemma's memory
+    # 5b. DeepSeek-MoE 16B and Chameleon-34B served at full width and
+    # depth, each on a card with the earlier models' memory released; the
+    # MoE block at full width card against CPU, the reduced MoE model too
+    moe_dropped = moe_block_check(card, configs, lm)
+    reduced_on_gpu(card, configs, lm, MOE_ARCH)
+    served = {arch: full_depth_serve(card, configs, lm, serve, fa, counters,
+                                     arch)
+              for arch in (MOE_ARCH, VLM_ARCH)}
+
+    # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
     # released
     torch.cuda.empty_cache()
     pipeline, mega_summary = pipeline_phase(card)
@@ -2498,6 +2690,7 @@ def main() -> int:
         "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
         "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
         wkv_entry, wkv_bwd_entry]}))
+    print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))
     print(json.dumps({"inverse": inverse}))

@@ -3,8 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --batch 4 --prompt-len 2048 --gen 16
 
-Runs on `cuda` unless `--device cpu` is given; without a GPU and without
-that flag it raises.  Weights and prompts are random, from fixed seeds.
+`--arch` takes every architecture `models.lm.build` accepts: the dense
+family (tinyllama-1.1b, qwen3-14b, gemma-7b, minicpm-2b, and
+chameleon-34b's backbone), deepseek-moe-16b and rwkv6-3b.  Runs on `cuda`
+unless `--device cpu` is given; without a GPU and without that flag it
+raises.  Weights and prompts are random, from fixed seeds.
 """
 
 from __future__ import annotations

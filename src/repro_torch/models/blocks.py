@@ -1,15 +1,20 @@
-"""RWKV6 (Finch) blocks, ported from `repro.models.blocks`: the time-mix
-with its data-dependent decay, and the channel-mix.
+"""Architecture blocks, ported from `repro.models.blocks`: the GShard
+mixture of experts (DeepSeek-MoE), and the RWKV6 (Finch) time-mix with its
+data-dependent decay and channel-mix.
 
-Storage follows `layers`: matmul weights and the `mu_*` token-shift mixes
-in bf16 for serving (the JAX package casts them to the activation dtype at
-every use) or in the init's `dtype` (fp32 masters for training), while the
-leaves that the JAX time-mix reads in fp32 stay fp32: the decay
-base `w0`, its LoRA `w_lora_a` / `w_lora_b` and the bonus `u`.
+Storage follows `layers`: matmul weights (the router and the experts too)
+and the `mu_*` token-shift mixes in bf16 for serving (the JAX package casts
+them to the activation dtype at every use) or in the init's `dtype` (fp32
+masters for training), while the leaves that the JAX blocks read in fp32
+stay fp32: the router bias, the decay base `w0`, its LoRA `w_lora_a` /
+`w_lora_b` and the bonus `u`.
 
-The WKV recurrence goes through `ops.rwkv_mix` (the CUDA kernel on the GPU)
-where the JAX block runs its own `lax.scan`.  As in the JAX package, the
-state handed back between calls (`last_x` and the WKV state `s`) is bf16.
+The MoE dispatches by index where the JAX block multiplies by one-hot
+tensors; the kept rows, the dropped (token, slot) pairs and the rounding
+points are the same.  The WKV recurrence goes through `ops.rwkv_mix` (the
+CUDA kernel on the GPU) where the JAX block runs its own `lax.scan`.  As in
+the JAX package, the state handed back between calls (`last_x` and the
+WKV state `s`) is bf16.
 """
 
 from __future__ import annotations
@@ -22,6 +27,140 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, _matmul
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: GShard groups, capacity drops, shared experts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0           # shared (always-on) experts
+    group_size: int = 512       # tokens per dispatch group
+    capacity_factor: float = 1.25
+    router_bias: bool = True    # aux-loss-free bias (DeepSeek-V3 style)
+
+    @property
+    def capacity(self) -> int:
+        """Slots per expert and group, as the JAX block computes them."""
+        return int(self.group_size * self.top_k / self.n_experts
+                   * self.capacity_factor) + 1
+
+
+def init_moe(generator: torch.Generator, dims: MoEDims,
+             dtype=torch.bfloat16) -> Params:
+    d, e, f = dims.d_model, dims.n_experts, dims.d_expert
+    s_in, s_out = d ** -0.5, f ** -0.5
+    tn = layers.truncated_normal
+    p = {"router": tn((d, e), s_in, generator, dtype),
+         "wi_gate": tn((e, d, f), s_in, generator, dtype),
+         "wi_up": tn((e, d, f), s_in, generator, dtype),
+         "wo": tn((e, f, d), s_out, generator, dtype)}
+    if dims.router_bias:
+        p["router_bias"] = torch.zeros(e, dtype=torch.float32,
+                                       device=generator.device)
+    if dims.n_shared:
+        p["shared"] = layers.init_mlp(generator, d, dims.n_shared * f, dtype)
+    return p
+
+
+def group_tokens(x: torch.Tensor, group_size: int):
+    """x (B,S,d) flattened row-major and cut into groups (G,group_size,d),
+    the last zero-padded; with valid (G,group_size) marking real tokens."""
+    b, s, d = x.shape
+    t = b * s
+    pad = (-t) % group_size
+    flat = x.reshape(t, d)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad, d)])
+    valid = (torch.arange(t + pad, device=x.device) < t).reshape(
+        -1, group_size)
+    return flat.reshape(-1, group_size, d), valid
+
+
+def route(p: Params, dims: MoEDims, xg: torch.Tensor, valid: torch.Tensor):
+    """Top-k routing of groups xg (G,S_g,d) with `valid` (G,S_g) marking
+    real tokens (`group_tokens`).  Returns (probs (G,S_g,E) fp32; expert (G,S_g,K); gates
+    (G,S_g,K) fp32, zero on padding; position (G,S_g,K) of each (token,
+    slot) in its expert's buffer; kept (G,S_g,K): valid and within
+    capacity; frac (G,E): the share of the group's (token, slot) pairs
+    that chose each expert, before the capacity cut).
+
+    The top k are taken by a stable descending sort of `probs +
+    router_bias`: on equal values the lower expert first, as
+    `jax.lax.top_k`.  The position counts the group's earlier (token,
+    slot) pairs that chose the same expert, token-major."""
+    logits = (xg @ p["router"].to(xg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    routed = probs + p["router_bias"] if "router_bias" in p else probs
+    expert = torch.sort(routed, dim=-1, descending=True,
+                        stable=True).indices[..., :dims.top_k]
+    gates = probs.gather(-1, expert)
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    gates = gates * valid[..., None]
+    n_g, s_g, k = expert.shape
+    # one-hot (G,E,S_g*K), (token, slot) pairs token-major on the last,
+    # contiguous axis: the count runs along it
+    flat = expert.reshape(n_g, 1, s_g * k)
+    onehot = (flat == torch.arange(dims.n_experts, device=xg.device)[:, None])
+    onehot = onehot & valid.repeat_interleave(k, dim=1)[:, None]
+    count = onehot.cumsum(dim=-1, dtype=torch.int32)
+    position = count.gather(1, flat).reshape(n_g, s_g, k) - 1
+    kept = valid[..., None] & (position < dims.capacity)
+    return probs, expert, gates, position, kept, onehot.float().mean(dim=-1)
+
+
+def moe(p: Params, dims: MoEDims, x: torch.Tensor):
+    """Returns (out, aux_loss).  x: (B,S,d); aux fp32.
+
+    (B,S) is flattened row-major and cut into groups of `group_size`
+    tokens, the last zero-padded.  Each kept (token, slot) row is gathered
+    into an (E, G*C, d) buffer (C = `dims.capacity`; empty slots zero), the
+    experts run as batched products over E, and each token sums its kept
+    slots' outputs times its gates (rounded to x's dtype) in fp32, rounded
+    once.  The load-balance loss is mean_G(sum_E(frac * mean_prob)) * E,
+    `frac` from the routing before the capacity cut; padding rows count in
+    both means, as in the JAX block."""
+    b, s, d = x.shape
+    e, cap = dims.n_experts, dims.capacity
+    xg, valid = group_tokens(x, dims.group_size)
+    n_g, g_size = valid.shape
+    n_rows = n_g * g_size
+    probs, expert, gates, position, kept, frac = route(p, dims, xg, valid)
+
+    # buffer slot of each (token, slot): expert-major, then group, position
+    group = torch.arange(n_g, device=x.device)[:, None, None]
+    slot = torch.where(kept, (expert * n_g + group) * cap + position, e * n_g
+                       * cap)
+    token = torch.arange(n_rows, device=x.device).reshape(n_g, g_size, 1)
+    source = torch.full((e * n_g * cap + 1,), n_rows, dtype=torch.long,
+                        device=x.device)
+    source[slot.reshape(-1)] = token.expand_as(slot).reshape(-1)
+    rows = torch.cat([xg.reshape(n_rows, d), xg.new_zeros(1, d)])  # + empty
+    exp_in = rows[source[:-1]].reshape(e, n_g * cap, d)
+
+    gate_h = F.silu(torch.bmm(exp_in, p["wi_gate"].to(x.dtype)))
+    up_h = torch.bmm(exp_in, p["wi_up"].to(x.dtype))
+    exp_out = torch.bmm(gate_h * up_h, p["wo"].to(x.dtype)).reshape(-1, d)
+
+    weight = torch.where(kept, gates, 0.0).to(x.dtype).float()
+    picked = exp_out[torch.where(kept, slot, 0)].float()    # (G,S_g,K,d)
+    out = (picked * weight[..., None]).sum(dim=2).to(x.dtype)
+
+    aux = (frac * probs.mean(dim=1)).sum(dim=-1).mean() * e
+    out = out.reshape(n_rows, d)[:b * s].reshape(b, s, d)
+    if "shared" in p:
+        out = out + layers.mlp(p["shared"], x)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,19 @@
-"""LM assembly, ported from `repro.models.lm` (the dense family and
-RWKV6).
+"""LM assembly, ported from `repro.models.lm`: the dense family (Chameleon's
+`vlm` backbone among it), DeepSeek-MoE (a leading dense segment, then MoE
+blocks with GQA attention) and RWKV6.
 
 The JAX package stacks each segment's layer params on a leading axis and
 `lax.scan`s over them; here a segment is a list of per-layer param dicts
 walked by a Python loop.  The JAX sharding constraints have no
 counterpart: with no mesh they are the identity.  `build` raises
-NotImplementedError for every other family.
+NotImplementedError for the families not ported: MLA attention and the
+MTP head (DeepSeek-V3), the Mamba hybrid (Hymba) and the encoder-decoder
+(Whisper).
 
-Training: `LM.loss` is the next-token cross-entropy (the dense and RWKV
-families have no MoE aux loss or MTP head), and `remat` recomputes each
-block in the backward as the JAX `jax.checkpoint` does.
+Training: `LM.loss` is the next-token cross-entropy, plus 0.01 x the MoE
+blocks' load-balance loss summed over the layers for a MoE config, and
+`remat` recomputes each block in the backward as the JAX `jax.checkpoint`
+does.
 """
 
 from __future__ import annotations
@@ -36,14 +40,30 @@ class Segment:
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[Segment, ...]:
-    """One segment of `n_layers` identical blocks (dense or rwkv)."""
-    return (Segment("rwkv" if cfg.rwkv else "dense", cfg.n_layers),)
+    """Segments of identical blocks: one of `n_layers` (dense or rwkv), or
+    for a MoE config its `first_dense_layers` ("dense_lead", an MLP of
+    `dense_d_ff`) and then the MoE blocks."""
+    if cfg.rwkv:
+        return (Segment("rwkv", cfg.n_layers),)
+    if cfg.moe is not None:
+        lead = cfg.moe.first_dense_layers
+        return ((Segment("dense_lead", lead),) if lead else ()) + (
+            Segment("moe", cfg.n_layers - lead),)
+    return (Segment("dense", cfg.n_layers),)
 
 
 def attn_dims(cfg: ArchConfig) -> AttnDims:
     return AttnDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
                     n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                     qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+
+
+def moe_dims(cfg: ArchConfig) -> blocks.MoEDims:
+    m = cfg.moe
+    return blocks.MoEDims(d_model=cfg.d_model, n_experts=m.n_experts,
+                          top_k=m.top_k, d_expert=m.d_expert,
+                          n_shared=m.n_shared, group_size=m.group_size,
+                          capacity_factor=m.capacity_factor)
 
 
 def rwkv_dims(cfg: ArchConfig) -> blocks.RWKVDims:
@@ -66,18 +86,24 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig,
                                               dtype),
                 "cmix": blocks.init_rwkv_cmix(generator, rwkv_dims(cfg),
                                               dtype)}
-    return {"ln_attn": layers.init_rmsnorm(d, dev),
-            "ln_mlp": layers.init_rmsnorm(d, dev),
-            "attn": layers.init_attention(generator, attn_dims(cfg), dtype),
-            "ffn": layers.init_mlp(generator, d, cfg.d_ff, dtype)}
+    p = {"ln_attn": layers.init_rmsnorm(d, dev),
+         "ln_mlp": layers.init_rmsnorm(d, dev),
+         "attn": layers.init_attention(generator, attn_dims(cfg), dtype)}
+    if seg.kind == "moe":
+        p["ffn"] = blocks.init_moe(generator, moe_dims(cfg), dtype)
+    else:
+        d_ff = cfg.moe.dense_d_ff if seg.kind == "dense_lead" else cfg.d_ff
+        p["ffn"] = layers.init_mlp(generator, d, d_ff, dtype)
+    return p
 
 
 def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor, *,
                  cache: Params | None = None, cache_index: int | None = None,
-                 force: str | None = None) -> torch.Tensor:
-    """One block; writes `cache` in place (the KV slots, or the rwkv
-    block's state entries replaced by the new bf16 state)."""
+                 force: str | None = None):
+    """One block: (x, aux), aux the MoE block's fp32 load-balance loss or
+    None.  Writes `cache` in place (the KV slots, or the rwkv block's
+    state entries replaced by the new bf16 state)."""
     if seg.kind == "rwkv":
         dims = rwkv_dims(cfg)
         t_out, t_state = blocks.rwkv_tmix(
@@ -89,7 +115,7 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
             state=None if cache is None else cache["cmix"])
         if cache is not None:
             cache["tmix"], cache["cmix"] = t_state, c_state
-        return x + c_out
+        return x + c_out, None
     rs = layers.scalar_as(cfg.residual_scale, x.dtype)
     h = layers.rmsnorm(lp["ln_attn"], x)
     attn_out = layers.attention(
@@ -98,7 +124,12 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
         cache_index=cache_index, force=force)
     x = x + attn_out * rs
     h2 = layers.rmsnorm(lp["ln_mlp"], x)
-    return x + layers.mlp(lp["ffn"], h2, cfg.activation) * rs
+    aux = None
+    if seg.kind == "moe":
+        ffn_out, aux = blocks.moe(lp["ffn"], moe_dims(cfg), h2)
+    else:
+        ffn_out = layers.mlp(lp["ffn"], h2, cfg.activation)
+    return x + ffn_out * rs, aux
 
 
 def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
@@ -126,7 +157,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class LM:
-    """Decoder LM, dense or RWKV6 family.  `force` is handed to the kernel
+    """Decoder LM: dense, MoE or RWKV6.  `force` is handed to the kernel
     dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` on every
     call (None: dispatch by length and device).
 
@@ -177,21 +208,26 @@ class LM:
                                force=self.force)
 
     def _hidden(self, params: Params, tokens: torch.Tensor, cache=None,
-                cache_index: int | None = None) -> torch.Tensor:
-        """Final-norm hidden states (B,S,d); writes `cache` in place."""
+                cache_index: int | None = None):
+        """(final-norm hidden states (B,S,d), the MoE blocks' load-balance
+        loss summed over the layers (fp32; None without MoE blocks));
+        writes `cache` in place."""
         cfg = self.cfg
         base = 0 if cache_index is None else cache_index
         positions = base + torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
         scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
         x = layers.embed(params["embed"], tokens, scale)
+        aux_total = None
         for i, seg in enumerate(self.plan):
             for j, lp in enumerate(params[f"seg{i}"]):
-                x = self._block(
+                x, aux = self._block(
                     lp, seg, x, positions,
                     None if cache is None else cache[f"seg{i}"][j],
                     cache_index)
-        return layers.rmsnorm(params["ln_f"], x)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+        return layers.rmsnorm(params["ln_f"], x), aux_total
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return layers.unembed(params["embed"], x,
@@ -199,13 +235,15 @@ class LM:
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """fp32 logits (B,S,V) of a full causal pass, no cache."""
-        return self._logits(params, self._hidden(params, tokens))
+        return self._logits(params, self._hidden(params, tokens)[0])
 
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy (z-loss 1e-4) of batch["tokens"]
-        against batch["labels"], both (B,S)."""
-        return layers.cross_entropy(self.forward(params, batch["tokens"]),
-                                    batch["labels"])
+        against batch["labels"], both (B,S), plus 0.01 x the load-balance
+        loss for a MoE config."""
+        x, aux = self._hidden(params, batch["tokens"])
+        loss = layers.cross_entropy(self._logits(params, x), batch["labels"])
+        return loss if aux is None else loss + 0.01 * aux
 
     def init_cache(self, batch: int, max_seq: int, device) -> Params:
         return {f"seg{i}": [_init_block_cache(self.cfg, seg, batch, max_seq,
@@ -218,20 +256,28 @@ class LM:
         """Fills cache positions [0, S) (or the rwkv state) in place;
         returns the last position's logits (B,1,V) (only that position is
         unembedded)."""
-        x = self._hidden(params, tokens, cache=cache, cache_index=0)
+        x, _ = self._hidden(params, tokens, cache=cache, cache_index=0)
         return self._logits(params, x[:, -1:])
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params, index: int) -> torch.Tensor:
         """tokens: (B, 1) at absolute position `index`; writes the cache
         in place and returns logits (B,1,V)."""
-        return self._logits(params, self._hidden(params, tokens, cache=cache,
-                                                 cache_index=index))
+        x, _ = self._hidden(params, tokens, cache=cache, cache_index=index)
+        return self._logits(params, x)
 
 
 def build(cfg: ArchConfig, force: str | None = None,
           remat: str = "full") -> LM:
-    if cfg.family != "dense" and not cfg.rwkv:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
-                                  "not ported (dense and rwkv only)")
+    """The LM for `cfg`; raises NotImplementedError, naming what is
+    missing, for a block not ported."""
+    missing = [what for absent, what in (
+        (cfg.mla is not None, "MLA attention"),
+        (cfg.mtp, "the MTP head"),
+        (cfg.ssm is not None, "the Mamba hybrid block"),
+        (cfg.encdec is not None, "the encoder-decoder")) if absent]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported (ported: dense, "
+            "vlm (Chameleon), moe without MLA / MTP, and rwkv)")
     return LM(cfg, force=force, remat=remat)

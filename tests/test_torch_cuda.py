@@ -608,6 +608,84 @@ def test_rwkv_model_launches_one_kernel_per_layer_per_step(dev):
 
 
 # ---------------------------------------------------------------------------
+# The mixture of experts (DeepSeek-MoE): plain PyTorch, the flash forward
+# in its attention
+# ---------------------------------------------------------------------------
+
+
+def test_moe_block_fp32_cuda_matches_cpu_with_drops(dev):
+    """fp32 `blocks.moe` at a width that drops slots (16 experts, top 4,
+    capacity 1.0): the card's chosen experts and kept (token, slot) pairs
+    equal the CPU's, the output within 1e-4 relative max, the aux within
+    1e-6."""
+    from repro_torch.models import blocks
+    dims = blocks.MoEDims(d_model=256, n_experts=16, top_k=4, d_expert=128,
+                          n_shared=1, group_size=256, capacity_factor=1.0)
+    params = blocks.init_moe(torch.Generator("cpu").manual_seed(0), dims,
+                             dtype=torch.float32)
+    params["router_bias"] = torch.linspace(-0.02, 0.02, 16)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 600, 256)).astype(np.float32))
+    gp = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(dev)) for k, v in params.items()}
+    want, want_aux = blocks.moe(params, dims, x)
+    got, aux = blocks.moe(gp, dims, x.to(dev))
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+    assert abs(aux.item() - want_aux.item()) <= 1e-6
+    xg, valid = blocks.group_tokens(x, dims.group_size)
+    _, w_expert, _, _, w_kept, _ = blocks.route(params, dims, xg, valid)
+    _, g_expert, _, _, g_kept, _ = blocks.route(gp, dims, xg.to(dev),
+                                                valid.to(dev))
+    assert torch.equal(g_expert.cpu(), w_expert)
+    assert torch.equal(g_kept.cpu(), w_kept)
+    assert int((valid[..., None] & ~w_kept).sum()) > 0
+
+
+def _moe_reduced():
+    import repro_torch.configs as configs
+    return configs.get("deepseek-moe-16b", reduced=True)
+
+
+def test_moe_model_cuda_matches_cpu(dev):
+    """The reduced deepseek-moe-16b forward (below the flash threshold:
+    plain PyTorch throughout) on the card against the CPU, 2e-2."""
+    cfg = _moe_reduced()
+    model = lm.build(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator("cpu").manual_seed(2))
+    want = model.forward(params, tokens)
+    gp = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    got = model.forward(gp, tokens.to(dev)).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+def test_moe_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
+    """A 2048-token prefill of the reduced deepseek-moe-16b launches the
+    flash forward once per layer (its dense lead and its MoE layer) and
+    matches the plain twin (2e-2); decode steps launch none."""
+    cfg = _moe_reduced()
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD),
+                           device=dev)
+    cache = model.init_cache(2, ops.FLASH_THRESHOLD + 2, dev)
+    before = fa.flash_attention.launches
+    got = model.prefill(params, tokens, cache)
+    assert fa.flash_attention.launches - before == cfg.n_layers == 2
+    want = plain.prefill(params, tokens,
+                         plain.init_cache(2, ops.FLASH_THRESHOLD + 2, dev))
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    before = fa.flash_attention.launches
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    for i in range(2):
+        tok = model.decode_step(params, tok, cache, ops.FLASH_THRESHOLD + i)[
+            :, -1].argmax(-1, keepdim=True)
+    assert fa.flash_attention.launches == before
+    assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+
+# ---------------------------------------------------------------------------
 # The float64 pipeline: cuda against cpu
 # ---------------------------------------------------------------------------
 

@@ -25,7 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import lm as tlm
 
-DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b",
+         "chameleon-34b"]
 
 
 # Gemma-7B's block at head dim 256, narrow and shallow: GeGLU, tied
@@ -136,8 +137,15 @@ def test_serve_main_defaults_to_cuda():
         serve.main(["--reduced", "--gen", "2"])
 
 
-def test_build_is_dense_only():
-    """Only the dense and rwkv families are ported; the others raise."""
-    for arch in ("hymba-1.5b", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError):
-            tlm.build(tconfigs.get(arch, reduced=True))
+@pytest.mark.parametrize("arch,missing", [
+    ("deepseek-v3-671b", "MLA attention, the MTP head"),
+    ("hymba-1.5b", "the Mamba hybrid block"),
+    ("whisper-small", "the encoder-decoder")])
+def test_build_refuses_the_families_not_ported(arch, missing):
+    """MLA + MTP, the Hymba hybrid and Whisper are not ported: `build`
+    raises and names what is missing; the ported families build."""
+    for reduced in (False, True):
+        with pytest.raises(NotImplementedError, match=missing):
+            tlm.build(tconfigs.get(arch, reduced=reduced))
+    for ported in ("chameleon-34b", "deepseek-moe-16b", "rwkv6-3b"):
+        tlm.build(tconfigs.get(ported))

@@ -47,7 +47,8 @@ from repro_torch.models import layers
 from repro_torch.models import lm as tlm
 from repro_torch.optim import schedules as tsched
 
-DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b"]
+DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b",
+         "chameleon-34b"]
 # Gemma-7B's block at head dim 256, narrow and shallow, as
 # tests/test_torch_serve.py builds it: GeGLU, tied embeddings, sqrt(d)
 # embedding scale and logit cap 30 from its reduced config, two heads of 256
