@@ -94,8 +94,25 @@ Phases, each fatal on failure:
      Chameleon-34B served at every published width and full depth as in
      phases 3-5 (exactly 28 / 48 flash forwards a serve and nothing else;
      prefill logits within 2e-2 of the plain twin; prefill ms, decode
-     ms/token, busy shares, the weights' bytes and peak memory), printed
-     as a `{"served": ...}` line;
+     ms/token, busy shares, the weights' bytes and peak memory), with the
+     flash forward timed at their prefill shapes (4, 2048, 16 | 64, 128)
+     beside SDPA, and one `build_trainer` step of the reduced DeepSeek-MoE
+     on the card (a finite loss, its router bias unchanged);
+  5c. last of the models, Hymba-1.5B: one `blocks.ssm` call at its full
+     width (d_inner 1600, state 16) in fp32 on the 4 x 2048 tokens of its
+     prefill, card against CPU from the same numpy-seeded inputs (output
+     within SSM_BLOCK_REL, the bf16 state within one bf16 ulp plus that,
+     and one decode step likewise; timed in fp32 and bf16, its launches
+     counted),
+     the reduced Hymba on the GPU against the CPU, the flash forward at its
+     windowed (1024) and global prefill shapes at 25 heads beside SDPA
+     (given the window as a boolean mask), then Hymba-1.5B served at every
+     published width and full depth as in phases 3-5 (exactly 32 flash
+     forwards a serve, 29 of them windowed, and nothing else; each layer's
+     attention within 2e-2 of the plain twin, the prefill logits as
+     `hybrid_logits_bar` holds them; its
+     prefill profiled on a HYMBA_PROFILE_LAYERS-layer depth cut), all
+     printed with 5b's as a `{"served": ...}` line;
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -184,6 +201,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# Hymba-1.5B's prefill shapes (25 GQA-expanded heads of 64): its 29
+# sliding-window layers (window 1024) and its 3 global ones
+HYMBA_WINDOW = (4, 2048, 2048, 25, 64, True, 1024, 0, None)
+HYMBA_GLOBAL = (4, 2048, 2048, 25, 64, True, None, 0, None)
 # (B, Sq, Skv, H, hd, causal, window, q_offset, scale)
 CASES = [
     (2, 512, 512, 4, 64, True, None, 0, None),
@@ -227,6 +248,8 @@ CASES = [
     (2, 1, 65, 3, 256, True, None, 64, None),        # one query, cache end
     (2, 129, 129, 3, 256, True, 40, 0, None),        # window ends in a tile
     (2, 127, 63, 3, 256, True, 30, 0, None),         # rows past 92 see none
+    HYMBA_WINDOW,
+    HYMBA_GLOBAL,
     (2, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's heads
     (4, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's prefill
     (4, 2048, 2048, 32, 64, True, None, 0, None),   # the main path's shape
@@ -260,6 +283,10 @@ BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
                  (129, 257, False, None, 0, None)]]  # five key tiles and one
 # Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
+# the hd-128 shapes the DeepSeek-MoE 16B and Chameleon-34B prefills give
+# the kernel (16 and 64 heads), timed beside SDPA
+MOE_SHAPE = (4, 2048, 2048, 16, 128, True, None, 0, None)
+VLM_SHAPE = (4, 2048, 2048, 64, 128, True, None, 0, None)
 BWD_PARTS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 DENSE = ["tinyllama-1.1b", "qwen3-14b", "gemma-7b", "minicpm-2b",
          "chameleon-34b"]
@@ -291,6 +318,18 @@ MOE_ARCH = "deepseek-moe-16b"
 VLM_ARCH = "chameleon-34b"
 MOE_BLOCK_REL = 1e-4
 MOE_AUX_ABS = 1e-6
+# Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
+# weights) at every published width and full depth, through the flash
+# forward at hd 64 and 25 heads, one launch per layer (32, 29 of them with
+# its 1024-key window), its selective scan a Python loop over tokens.  The
+# fp32 SSM block at the serve's prefill shape, card against CPU: the
+# output within SSM_BLOCK_REL (relative max), the new bf16 state within
+# one bf16 ulp plus that (`bf16_state_close`).  Its prefill logits are
+# held as `hybrid_logits_bar` says.  Its prefill is profiled on a depth cut of
+# HYMBA_PROFILE_LAYERS layers: a full prefill is ~200 k launches.
+HYMBA_ARCH = "hymba-1.5b"
+SSM_BLOCK_REL = 1e-4
+HYMBA_PROFILE_LAYERS = 4
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -782,8 +821,8 @@ def check_forward(fa, ref, case, dtype, q, k, v, seen) -> float:
 def check_kernels(fa, ref) -> dict:
     """Phase 2 for flash attention, forward (output and lse) and backward;
     returns {case: (forward max abs error, backward max abs error)} for
-    bf16 at the main path's shape and at Gemma-7B's serve and training
-    shapes."""
+    bf16 at the main path's shape, at Gemma-7B's serve and training
+    shapes and at Hymba-1.5B's windowed prefill shape."""
     errs = {}
     for case in CASES:
         seen = seen_rows(case)
@@ -791,7 +830,8 @@ def check_kernels(fa, ref) -> dict:
             q, k, v = qkv(case, dtype)
             err = check_forward(fa, ref, case, dtype, q, k, v, seen)
             _, bwd_err = check_backward(fa, case, dtype, q, k, v, seen)
-            if case in (MAIN, GEMMA, GEMMA_B2) and dtype == torch.bfloat16:
+            if (case in (MAIN, GEMMA, GEMMA_B2, HYMBA_WINDOW)
+                    and dtype == torch.bfloat16):
                 errs[case] = (err, bwd_err)
             del q, k, v
     # strided k and v: every other head of wider tensors, token slices of
@@ -845,19 +885,47 @@ def time_flash(fa, case, card) -> tuple:
     """Phase 4a for one causal bf16 shape: the kernel, its plain twin and
     `scaled_dot_product_attention` (a yardstick the port never calls) on the
     same inputs, with the bound and the achieved TFLOP/s on the visible
-    pairs.  Returns (ms, plain_ms, sdpa_ms, bound_ms, bound_by)."""
+    pairs.  SDPA has no window: a windowed case gives it the mask as a
+    boolean `attn_mask`, its output is held to the kernel's within 0.1 (a
+    check of the mask, not of either rounding) and the kernel it ran is
+    named (the backend: flash, memory-efficient,
+    cuDNN or math).  Returns (ms, plain_ms, sdpa_ms, bound_ms,
+    bound_by)."""
     q, k, v = qkv(case, torch.bfloat16)
     kw = attn_kwargs(case)
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
+    window = kw["window"]
+    if window is None:
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+        how = ""
+    else:
+        q_pos = torch.arange(case[1], device="cuda")[:, None]
+        k_pos = torch.arange(case[2], device="cuda")[None, :]
+        mask = (q_pos >= k_pos) & (q_pos - k_pos < window)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+        err = (sdpa().transpose(1, 2).float()
+               - fa.flash_attention(q, k, v, **kw).float()).abs().max().item()
+        rows = device_kernels(sdpa)
+        ran = (max(rows, key=lambda e: e.self_device_time_total).key[:80]
+               if rows else "not measured")
+        how = (f" (window {window} as a boolean attn_mask; the SDPA kernel "
+               f"that ran: {ran}; SDPA vs kernel max abs err {err:.3e})")
+        if err > 0.1:   # a mask that is not the window's moves rows by O(1)
+            fail(f"SDPA with the window mask differs from the kernel at "
+                 f"{case}: {err}")
+    lib_ms = time_ms(sdpa, 20)
     bound_ms, bound_by = bound(case, torch.bfloat16)
     tflops = attn_flops(case) / 1e9
     print(f"flash_attention {case[:5]} bf16 causal: kernel {ms:.4f} ms "
           f"({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms ({tflops / lib_ms:.1f} TFLOP/s), bound "
+          f"{lib_ms:.4f} ms ({tflops / lib_ms:.1f} TFLOP/s){how}, bound "
           f"{bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
           flush=True)
     return ms, plain_ms, lib_ms, bound_ms, bound_by
@@ -1079,13 +1147,35 @@ def reduced_dense(card, configs, lm, train, counters) -> None:
         del model, state, step, logits, want
 
 
-def serve_numbers(card, cfg, lm, fa) -> None:
-    """Phases 4b and 5 for a dense or MoE model at full width: prefill
-    logits through the kernel against the plain twin (relative max <= 2e-2;
-    for a MoE model the bar of `check_prefill_layers`, which also holds
-    each layer's attention), prefill ms through each, decode ms / token, and the profiler's
-    device-busy share of one prefill (with the flash forward's share) and
-    of a decode step."""
+def depth_cut(cfg, lm, params, n: int):
+    """(model, params) of `cfg`'s first n layers at every width: the
+    layers' params taken from `params` in order, for a hybrid config the
+    global-attention layers below n kept."""
+    cut = dataclasses.replace(cfg, n_layers=n)
+    if cfg.ssm is not None:
+        cut = dataclasses.replace(cut, ssm=dataclasses.replace(
+            cfg.ssm, global_attn_layers=tuple(
+                i for i in cfg.ssm.global_attn_layers if i < n)))
+    model = lm.build(cut)
+    layers_ = [lp for i in range(len(lm.layer_plan(cfg)))
+               for lp in params[f"seg{i}"]]
+    out, at = {"embed": params["embed"], "ln_f": params["ln_f"]}, 0
+    for i, seg in enumerate(model.plan):
+        out[f"seg{i}"] = layers_[at:at + seg.count]
+        at += seg.count
+    return model, out
+
+
+def serve_numbers(card, cfg, lm, fa) -> dict:
+    """Phases 4b and 5 for a dense, MoE or hybrid model at full width:
+    prefill logits through the kernel against the plain twin (relative max
+    <= 2e-2; for a MoE or hybrid model the bar of `check_prefill_layers`,
+    which also holds each layer's attention), prefill ms through each,
+    decode ms /
+    token, and the profiler's device-busy share of one prefill (with the
+    flash forward's share; for a hybrid model of a depth cut of
+    HYMBA_PROFILE_LAYERS layers, timed on its own) and of a decode step.
+    Returns the prefill ms and decode ms / token."""
     model = lm.build(cfg)
     plain = lm.build(cfg, force="plain")
     dev = torch.device("cuda")
@@ -1135,31 +1225,57 @@ def serve_numbers(card, cfg, lm, fa) -> None:
               f"weights {weights_gb:.3f} GB [{card}]", flush=True)
 
         # 5. where the time goes: profiled device time against the above
-        rows = device_kernels(lambda: model.prefill(params, prompts, cache))
-        report_busy(f"{cfg.name} prefill", rows, prefill_ms, 1)
+        label, prof_model, prof_params, prof_cache, prof_ms = (
+            f"{cfg.name} prefill", model, params, cache, prefill_ms)
+        if cfg.ssm is not None:   # ~200 k launches: profile a depth cut
+            n = HYMBA_PROFILE_LAYERS
+            prof_model, prof_params = depth_cut(cfg, lm, params, n)
+            prof_cache = prof_model.init_cache(BATCH, PROMPT + GEN, dev)
+            prof_ms = time_ms(lambda: prof_model.prefill(
+                prof_params, prompts, prof_cache), 3, warmup=1)
+            label = (f"{cfg.name} prefill of a {n}-layer depth cut ("
+                     f"{[(g.kind, g.count, g.window) for g in prof_model.plan]}"
+                     f"; {prof_ms:.3f} ms unprofiled, the full {cfg.n_layers}"
+                     f" layers {prefill_ms:.3f} ms)")
+        rows = device_kernels(lambda: prof_model.prefill(
+            prof_params, prompts, prof_cache))
+        report_busy(label, rows, prof_ms, 1)
         flash = [e for e in rows if "flash_fwd" in e.key]
         if flash:
             flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
-            print(f"{cfg.name} prefill: the flash forward {flash_ms:.3f} ms "
+            print(f"{label}: the flash forward {flash_ms:.3f} ms "
                   f"of device time x{sum(e.count for e in flash)}, "
-                  f"{100 * flash_ms / prefill_ms:.1f} % of the "
-                  f"{prefill_ms:.3f} ms prefill [{card}]", flush=True)
+                  f"{100 * flash_ms / prof_ms:.1f} % of the "
+                  f"{prof_ms:.3f} ms prefill [{card}]", flush=True)
+        if cfg.ssm is not None:   # the scan: kernels launched every token
+            loop = [e for e in rows
+                    if e.count >= PROMPT * prof_model.cfg.n_layers]
+            loop_ms = sum(e.self_device_time_total for e in loop) / 1e3
+            n_loop, n_all = (sum(e.count for e in r) for r in (loop, rows))
+            if rows:
+                print(f"{label}: the scan's rows (kernels launched at least "
+                      f"once a token a layer) {loop_ms:.3f} ms of device "
+                      f"time, {n_loop} of {n_all} launches "
+                      f"({100 * n_loop / n_all:.1f} %) [{card}]", flush=True)
 
         def three_steps():
             for i in range(3):
                 model.decode_step(params, tok, cache, PROMPT + i)
         report_busy(f"{cfg.name} decode step", device_kernels(three_steps),
                     decode_ms, 3)
-    del params, cache, got, want
+    del params, cache, got, want, prof_params, prof_cache
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
-    """Phase 4 for a dense or MoE model's prefill, kernel against plain
-    twin.  Layer by layer on the same input (the kernel's own effect):
-    each layer's attention through the kernel against the plain twin,
-    relative max error <= 2e-2.  Returns the bar of the logits: 2e-2 for
-    a dense model.  In a MoE model an attention output that rounds to
-    another bf16 value can move a router logit across a bf16 step, and a
+    """Phase 4 for a dense, MoE or hybrid model's prefill, kernel against
+    plain twin.  Layer by layer on the same input (the kernel's own
+    effect): each layer's attention (with its segment's window) through
+    the kernel against the plain twin, relative max error <= 2e-2.
+    Returns the bar of the logits: 2e-2 for a dense model; for a hybrid
+    model that of `hybrid_logits_bar`.  In a MoE model an attention output
+    that rounds to another bf16 value can move a router logit across a
+    bf16 step, and a
     token whose top k changes takes another expert's output from there
     on; so its logits are held to max(2e-2, 1.5 x the plain twin's
     distance from the naive oracle, which rounds the attention
@@ -1174,7 +1290,8 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
     for i, seg in enumerate(lm.layer_plan(cfg)):
         for lp in params[f"seg{i}"]:
             h = layers.rmsnorm(lp["ln_attn"], x)
-            outs = [layers.attention(lp["attn"], lm.attn_dims(cfg), h, pos,
+            outs = [layers.attention(lp["attn"],
+                                     lm.attn_dims(cfg, seg.window), h, pos,
                                      force=force)
                     for force in (None, "plain")]
             worst = max(worst, rel_err(*outs))
@@ -1186,6 +1303,8 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
     if worst > 2e-2:
         fail(f"{cfg.name}: an attention through the kernel differs from "
              f"plain: {worst}")
+    if cfg.ssm is not None:
+        return hybrid_logits_bar(card, cfg, lm, params, prompts)
     if cfg.moe is None:
         return 2e-2
     picks, real_route = {}, blocks.route
@@ -1212,6 +1331,51 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
           f"{rel_err(got, naive):.3e}; tokens whose experts differ between "
           f"the kernel's and the plain twin's prefill, by MoE layer (of "
           f"{BATCH * PROMPT}): {moved} [{card}]", flush=True)
+    return bar
+
+
+def hybrid_logits_bar(card, cfg, lm, params, prompts) -> float:
+    """The bar of a hybrid (Hymba) model's prefill logits, kernel against
+    plain twin.  Each block adds rmsnorm(attention) + rmsnorm(SSM): the
+    norm scales a layer's bf16 rounding of a small attention output up to
+    unit RMS, so the residual streams of any two bf16 paths drift ~5e-2
+    apart within a few layers (measured on the H100 at Hymba-1.5B's full
+    width: the plain twin's own logits 4.7e-2 from fp32 activations, the
+    kernel's 2.8e-2).  So the logits are held, as a MoE model's, to
+    max(2e-2, 1.5 x the naive oracle's distance from the plain twin), and
+    the kernel's to max(2e-2, 1.5 x the plain twin's distance) from a
+    prefill in fp32 activations (the plain twins, the same weights and
+    embedding): the kernel's path no farther from it than the twin's."""
+    from repro_torch.models import layers
+    dev = prompts.device
+
+    def prefill(force):
+        model = lm.build(cfg, force=force)
+        return model.prefill(params, prompts,
+                             model.init_cache(BATCH, PROMPT, dev))
+    got, want, naive = (prefill(f) for f in (None, "plain", "naive"))
+    pos = torch.arange(PROMPT, device=dev)[None]
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
+    x = layers.embed(params["embed"], prompts, scale).float()
+    for i, seg in enumerate(lm.layer_plan(cfg)):
+        for lp in params[f"seg{i}"]:
+            x, _ = lm._apply_block(lp, cfg, seg, x, pos, force="plain")
+    fp32 = layers.unembed(params["embed"],
+                          layers.rmsnorm(params["ln_f"], x[:, -1:]),
+                          cap=cfg.logit_cap or None)
+    del x
+    rel, floor = rel_err(got, want), rel_err(naive, want)
+    bar = max(2e-2, 1.5 * floor)
+    to_fp32, plain_fp32 = rel_err(got, fp32), rel_err(want, fp32)
+    fp32_bar = max(2e-2, 1.5 * plain_fp32)
+    print(f"{cfg.name} prefill: logits kernel vs plain {rel:.3e} (bar "
+          f"{bar:.3e}); naive oracle vs plain {floor:.3e}; from fp32 "
+          f"activations: kernel {to_fp32:.3e} (bar {fp32_bar:.3e}), plain "
+          f"{plain_fp32:.3e}, naive {rel_err(naive, fp32):.3e} [{card}]",
+          flush=True)
+    if not to_fp32 <= fp32_bar:
+        fail(f"{cfg.name}: the kernel's prefill logits are {to_fp32} from "
+             f"fp32 activations, the plain twin's {plain_fp32}")
     return bar
 
 
@@ -1328,12 +1492,132 @@ def full_depth_serve(card, configs, lm, serve, fa, counters, arch) -> dict:
           f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads x "
           f"{cfg.head_dim}; {held_gb:.3f} GB allocated before it", flush=True)
     launches = dense_serve(card, configs, serve, counters, arch)
-    serve_numbers(card, cfg, lm, fa)
+    times = serve_numbers(card, cfg, lm, fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"serve {arch}: peak memory {peak_gb:.3f} GB (the serve and the "
           f"prefill / decode timings) [{card}]", flush=True)
     torch.cuda.empty_cache()
-    return {"launches": launches, "peak_gb": peak_gb}
+    return {"launches": launches, "peak_gb": peak_gb, **times}
+
+
+def moe_train_step(card, configs, train) -> None:
+    """Phase 5b: one `build_trainer` step of the reduced DeepSeek-MoE on
+    the card (batch 2 x 64): a finite loss, and every router bias bitwise
+    where it was (it enters only the top-k sort, so its gradient is zero,
+    as under `jax.value_and_grad`)."""
+    cfg = configs.get(MOE_ARCH, reduced=True)
+    _, state, step, _ = train.build_trainer(cfg, device="cuda")
+
+    def biases():
+        return [lp["ffn"]["router_bias"] for name, sub in state.params.items()
+                if name.startswith("seg") for lp in sub
+                if "router_bias" in lp.get("ffn", {})]
+    before = [b.detach().clone() for b in biases()]
+    state, m = step(state, train_batches(cfg, 1, 2, 64)[0])
+    loss = float(m["loss"])
+    same = [torch.equal(a, b) for a, b in zip(biases(), before)]
+    print(f"train reduced {MOE_ARCH} one step on the card: loss {loss:.4f}, "
+          f"router biases unchanged {same} [{card}]", flush=True)
+    if not (before and all(same) and math.isfinite(loss)):
+        fail(f"reduced {MOE_ARCH} train step: loss {loss}, router biases "
+             f"unchanged {same}")
+    del state, step
+
+
+def bf16_state_close(got, want) -> tuple:
+    """A bf16 state from fp32 work on two devices: (share of elements
+    equal, max |got - want| in bf16 ulps at |want|, max |got - want| /
+    max |want|, ok).  ok: every element within one bf16 ulp of its value
+    plus SSM_BLOCK_REL x max |want|, the fp32 parity the block's output is
+    held to (a value near 0 from cancellation carries the fp32 work's
+    error, which one ulp at that value does not cover)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                         - 7)
+    diff = (got - want).abs()
+    top = want.abs().max()
+    ok = bool((diff <= spacing + SSM_BLOCK_REL * top).all())
+    return ((diff == 0).float().mean().item(), (diff / spacing).max().item(),
+            (diff.max() / top.clamp_min(1e-30)).item(), ok)
+
+
+def ssm_block_check(card, configs, lm) -> dict:
+    """Phase 5c: one `blocks.ssm` call at Hymba-1.5B's full width (d_model
+    = d_inner 1600, state 16, conv 4, dt rank 100), fp32 activations, on
+    the 4 x 2048 tokens of its prefill, on the card and on the CPU from the
+    same numpy-seeded params and input: the output within SSM_BLOCK_REL
+    (relative max), the new bf16 state (conv tail and h) within one bf16
+    ulp plus that parity (`bf16_state_close`); then one decode step from
+    the CPU's state, card against CPU, likewise.  Times the card's call in fp32 and in bf16 (bf16 weights, as
+    served) and counts its device launches (profiler).  Returns the
+    numbers for the report."""
+    import numpy as np
+    from repro_torch.models import blocks
+    dims = lm.ssm_dims(configs.get(HYMBA_ARCH))
+    rng = np.random.default_rng(0)
+    params = blocks.init_ssm(torch.Generator("cpu").manual_seed(0), dims,
+                             dtype=torch.float32)
+    x = torch.from_numpy(rng.standard_normal(
+        (BATCH, PROMPT + 1, dims.d_model)).astype(np.float32))
+    gp = tree_map(lambda t: t.to("cuda"), params)
+    xc = x[:, :PROMPT].cuda()
+    with torch.no_grad():
+        want, w_state = blocks.ssm(params, dims, x[:, :PROMPT])
+        got, g_state = blocks.ssm(gp, dims, xc)
+        want1, w_state1 = blocks.ssm(params, dims, x[:, PROMPT:],
+                                     state=w_state)
+        got1, g_state1 = blocks.ssm(gp, dims, x[:, PROMPT:].cuda(),
+                                    state=tree_map(lambda t: t.cuda(),
+                                                   w_state))
+    rel = (rel_err(got.cpu(), want), rel_err(got1.cpu(), want1))
+    states = {f"{k}{after}": bf16_state_close(g[k], w[k])
+              for after, g, w in (("", g_state, w_state),
+                                  (" after the step", g_state1, w_state1))
+              for k in ("conv", "h")}
+    with torch.no_grad():
+        f32_ms = time_ms(lambda: blocks.ssm(gp, dims, xc), 3, warmup=1)
+        gb = {k: t if k == "a_log" else t.bfloat16() for k, t in gp.items()}
+        xb = xc.bfloat16()
+        bf16_ms = time_ms(lambda: blocks.ssm(gb, dims, xb), 3, warmup=1)
+        rows = device_kernels(lambda: blocks.ssm(gb, dims, xb))
+    launches = sum(e.count for e in rows)
+    print(f"{HYMBA_ARCH} SSM block at full width (d_inner {dims.d_inner}, "
+          f"state {dims.state_dim}, conv {dims.conv_k}, dt rank {dims.dtr}), "
+          f"fp32, {BATCH} x {PROMPT} tokens, card vs CPU: output rel max err "
+          f"{rel[0]:.3e}, one decode step {rel[1]:.3e} (bar {SSM_BLOCK_REL});"
+          f" the bf16 state (share equal, max bf16 ulps at the value, rel "
+          f"max err, within one ulp + {SSM_BLOCK_REL} x max): " + "; ".join(
+              f"{k} {e:.4f}, {u:.0f}, {r:.3e}, {ok}"
+              for k, (e, u, r, ok) in states.items()) + f"; the card's call "
+          f"{f32_ms:.3f} ms fp32, {bf16_ms:.3f} ms bf16, {launches} device "
+          f"launches a bf16 call [{card}]", flush=True)
+    report_busy(f"{HYMBA_ARCH} SSM block bf16", rows, bf16_ms, 1)
+    if max(rel) > SSM_BLOCK_REL or not all(v[3] for v in states.values()):
+        fail(f"the full-width SSM block on the card differs from the CPU: "
+             f"rel {rel}, states {states}")
+    del params, gp, gb, x, xc, xb, got, want
+    torch.cuda.empty_cache()
+    return {"rel_max_err": rel[0], "f32_ms": f32_ms, "bf16_ms": bf16_ms,
+            "launches": launches}
+
+
+def hymba_phase(card, configs, lm, serve, fa, counters) -> tuple:
+    """Phases 3-5 for Hymba-1.5B, after every other model (5c): the SSM
+    block at full width card against CPU, the reduced model on the GPU
+    against the CPU (2 x 64 tokens cross its 16-token window), the flash
+    forward timed at its windowed and global prefill shapes, then the
+    model served at every published width and full depth
+    (`full_depth_serve`: exactly 32 flash forwards a serve, 29 of them
+    windowed).  Returns (the serve's numbers, the windowed shape's
+    timings, the SSM block's numbers)."""
+    torch.cuda.empty_cache()
+    ssm = ssm_block_check(card, configs, lm)
+    reduced_on_gpu(card, configs, lm, HYMBA_ARCH)
+    windowed = time_flash(fa, HYMBA_WINDOW, card)
+    time_flash(fa, HYMBA_GLOBAL, card)
+    served = full_depth_serve(card, configs, lm, serve, fa, counters,
+                              HYMBA_ARCH)
+    return served, windowed, ssm
 
 
 def misaligned(t, pad):
@@ -2649,9 +2933,19 @@ def main() -> int:
     # MoE block at full width card against CPU, the reduced MoE model too
     moe_dropped = moe_block_check(card, configs, lm)
     reduced_on_gpu(card, configs, lm, MOE_ARCH)
+    # 4a at the hd-128 shapes their prefills give the kernel
+    time_flash(fa, MOE_SHAPE, card)
+    time_flash(fa, VLM_SHAPE, card)
     served = {arch: full_depth_serve(card, configs, lm, serve, fa, counters,
                                      arch)
               for arch in (MOE_ARCH, VLM_ARCH)}
+    # C3: a MoE training step on the card leaves the router bias alone
+    moe_train_step(card, configs, train)
+
+    # 5c. Hymba-1.5B, last of the models: the SSM block, the windowed
+    # flash forward at 25 heads, the serve at full width and depth
+    served[HYMBA_ARCH], hymba_t, hymba_ssm = hymba_phase(
+        card, configs, lm, serve, fa, counters)
 
     # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
     # released
@@ -2679,6 +2973,14 @@ def main() -> int:
         "launches": gemma_launches, "max_abs_err": errs[GEMMA][0],
         "ms": gemma_t[0], "plain_ms": gemma_t[1], "bound_ms": gemma_t[3],
         "bound_by": gemma_t[4], "library_ms": gemma_t[2]}, {
+        # the same wrapper and source with a 1024-key window at 25 heads:
+        # Hymba-1.5B's serve (its launches: 29 windowed, 3 global); the
+        # library time is SDPA given the window as a boolean mask
+        "name": "flash_attention_window", **fwd_src,
+        "launches": served[HYMBA_ARCH]["launches"],
+        "max_abs_err": errs[HYMBA_WINDOW][0], "ms": hymba_t[0],
+        "plain_ms": hymba_t[1], "bound_ms": hymba_t[3],
+        "bound_by": hymba_t[4], "library_ms": hymba_t[2]}, {
         "name": "flash_attention_bwd", **bwd_src,
         "launches": trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[MAIN][1], "ms": bwd[0], "plain_ms": bwd[1],
@@ -2690,7 +2992,8 @@ def main() -> int:
         "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
         "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
         wkv_entry, wkv_bwd_entry]}))
-    print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped}))
+    print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped,
+                      "hymba_ssm_block": hymba_ssm}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))
     print(json.dumps({"inverse": inverse}))

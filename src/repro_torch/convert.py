@@ -6,7 +6,8 @@ the port's params: each segment's leading layer axis unstacked into a list
 of per-layer dicts, matmul weights in bf16 (the JAX path casts them to bf16
 at every use, so this is bit-identical), and in fp32 the norm scales
 (`scale` leaves) and the leaves that the JAX blocks read in fp32
-(FP32_LEAVES: the MoE router bias, the RWKV time-mix's decay and bonus).  With `dtype=torch.float32` every leaf is fp32: the JAX
+(FP32_LEAVES: the MoE router bias, the SSM's `a_log`, the RWKV time-mix's
+decay and bonus).  With `dtype=torch.float32` every leaf is fp32: the JAX
 package's own fp32 masters, for training.
 """
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 
-FP32_LEAVES = frozenset({"scale", "router_bias", "w0", "w_lora_a",
+FP32_LEAVES = frozenset({"scale", "router_bias", "a_log", "w0", "w_lora_a",
                          "w_lora_b", "bonus"})
 
 

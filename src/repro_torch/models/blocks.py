@@ -1,20 +1,23 @@
 """Architecture blocks, ported from `repro.models.blocks`: the GShard
-mixture of experts (DeepSeek-MoE), and the RWKV6 (Finch) time-mix with its
-data-dependent decay and channel-mix.
+mixture of experts (DeepSeek-MoE), the Mamba-style selective SSM of the
+Hymba hybrid block, and the RWKV6 (Finch) time-mix with its data-dependent
+decay and channel-mix.
 
 Storage follows `layers`: matmul weights (the router and the experts too)
 and the `mu_*` token-shift mixes in bf16 for serving (the JAX package casts
 them to the activation dtype at every use) or in the init's `dtype` (fp32
 masters for training), while the leaves that the JAX blocks read in fp32
-stay fp32: the router bias, the decay base `w0`, its LoRA `w_lora_a` /
-`w_lora_b` and the bonus `u`.
+stay fp32: the router bias, the SSM's `a_log`, the decay base `w0`, its
+LoRA `w_lora_a` / `w_lora_b` and the bonus `u`.
 
 The MoE dispatches by index where the JAX block multiplies by one-hot
 tensors; the kept rows, the dropped (token, slot) pairs and the rounding
 points are the same.  The WKV recurrence goes through `ops.rwkv_mix` (the
-CUDA kernel on the GPU) where the JAX block runs its own `lax.scan`.  As in
-the JAX package, the state handed back between calls (`last_x` and the
-WKV state `s`) is bf16.
+CUDA kernel on the GPU) where the JAX block runs its own `lax.scan`.  The
+SSM's selective scan is a `lax.scan` with no Pallas kernel in the JAX
+package, and a Python loop over tokens here.  As in the JAX package, the
+state handed back between calls (RWKV's `last_x` and WKV state `s`, the
+SSM's conv tail and `h`) is bf16.
 """
 
 from __future__ import annotations
@@ -156,6 +159,104 @@ def moe(p: Params, dims: MoEDims, x: torch.Tensor):
     if "shared" in p:
         out = out + layers.mlp(p["shared"], x)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Selective SSM (Mamba-style), the SSM half of Hymba's hybrid block
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMDims:
+    d_model: int
+    d_inner: int
+    state_dim: int = 16
+    conv_k: int = 4
+    dt_rank: int = 0  # 0 -> d_model // 16
+
+    @property
+    def dtr(self) -> int:
+        return self.dt_rank or max(1, self.d_model // 16)
+
+
+def init_ssm(generator: torch.Generator, dims: SSMDims,
+             dtype=torch.bfloat16) -> Params:
+    d, di, n, dev = dims.d_model, dims.d_inner, dims.state_dim, \
+        generator.device
+    tn = layers.truncated_normal
+    return {
+        "in_proj": tn((d, 2 * di), d ** -0.5, generator, dtype),
+        "conv": tn((dims.conv_k, di), 0.5, generator, dtype),
+        "x_proj": tn((di, dims.dtr + 2 * n), di ** -0.5, generator, dtype),
+        "dt_proj": tn((dims.dtr, di), dims.dtr ** -0.5, generator, dtype),
+        "a_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                        device=dev)).repeat(di, 1),
+        "d_skip": torch.ones(di, dtype=dtype, device=dev),
+        "out_proj": tn((di, d), di ** -0.5, generator, dtype),
+    }
+
+
+def depthwise_conv(conv_in: torch.Tensor, kern: torch.Tensor):
+    """The causal depthwise conv as the JAX block writes it: conv_in
+    (B,S+K-1,di) and kern (K,di) of one dtype, out[:, t] = sum_i
+    conv_in[:, t + i] * kern[i], each product and partial sum rounded to
+    that dtype, in the order i = 0..K-1."""
+    kw = kern.shape[0]
+    s = conv_in.shape[1] - kw + 1
+    u = conv_in[:, :s] * kern[0]
+    for i in range(1, kw):
+        u = u + conv_in[:, i:i + s] * kern[i]
+    return u
+
+
+def ssm(p: Params, dims: SSMDims, x: torch.Tensor, *,
+        state: Params | None = None):
+    """Selective scan.  x: (B,S,d); state: {"conv": (B,K-1,di), "h":
+    (B,di,N)} or None (zeros).  Returns (out, new_state), the state bf16.
+
+    The rounding follows the JAX block: the depthwise conv is a sum of K
+    products in x's dtype, each product and partial sum rounded, in the
+    order i = 0..K-1 (not a conv1d, which accumulates in fp32); dt, B, C,
+    the decay and the drive are fp32, and so is the scan; y is rounded to
+    x's dtype before the skip and the gate.  The scan walks the tokens one
+    by one (three launches a token on the GPU); the (B,S,di,N) fp32 decay
+    and drive are freed when the call returns."""
+    b, s, _ = x.shape
+    di, n, kw = dims.d_inner, dims.state_dim, dims.conv_k
+    ux, z = _matmul(x, p["in_proj"]).chunk(2, dim=-1)
+    head = (ux.new_zeros(b, kw - 1, di) if state is None
+            else state["conv"].to(ux.dtype))
+    conv_in = torch.cat([head, ux], dim=1)
+    u = F.silu(depthwise_conv(conv_in, p["conv"].to(ux.dtype)))
+
+    proj = _matmul(u, p["x_proj"])
+    dt = F.softplus(_matmul(proj[..., :dims.dtr], p["dt_proj"]).float())
+    bmat = proj[..., dims.dtr:dims.dtr + n].float()          # (B,S,N)
+    cmat = proj[..., dims.dtr + n:].float()                  # (B,S,N)
+    a = -torch.exp(p["a_log"].float())                       # (di,N)
+    decay = torch.exp(dt[..., None] * a)                     # (B,S,di,N)
+    drive = (dt * u.float())[..., None] * bmat[:, :, None, :]
+
+    h = (torch.zeros(b, di, n, dtype=torch.float32, device=x.device)
+         if state is None else state["h"].float())
+    ys = []   # y_t = einsum("bdn,bn->bd", h, c_t), as the bmm it lowers to
+    for dec, drv, c in zip(decay.unbind(1), drive.unbind(1),
+                           cmat[..., None].unbind(1)):
+        h = dec * h + drv
+        ys.append(torch.bmm(h, c))
+    del decay, drive, dec, drv
+    y = torch.cat(ys, dim=2).transpose(1, 2).to(u.dtype)    # (B,S,di)
+    y = y + u * p["d_skip"].to(u.dtype)
+    out = _matmul(y * F.silu(z), p["out_proj"])
+    return out, {"conv": conv_in[:, s:].to(torch.bfloat16),
+                 "h": h.to(torch.bfloat16)}
+
+
+def init_ssm_state(batch: int, dims: SSMDims, device) -> Params:
+    return {"conv": torch.zeros(batch, dims.conv_k - 1, dims.d_inner,
+                                dtype=torch.bfloat16, device=device),
+            "h": torch.zeros(batch, dims.d_inner, dims.state_dim,
+                             dtype=torch.bfloat16, device=device)}
 
 
 # ---------------------------------------------------------------------------

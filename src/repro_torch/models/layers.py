@@ -12,7 +12,9 @@ Conventions:
     logits are computed in fp32 (the JAX `preferred_element_type=f32`
     sites upcast their bf16 operands rather than round a bf16 product).
   * the KV cache is updated in place (slice assignment), unlike the JAX
-    package's functional updates.
+    package's functional updates.  A sliding window shorter than the
+    cache is a ring buffer of `window` slots with each slot's absolute
+    position (-1: unwritten), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Params = dict
 
@@ -125,21 +127,32 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def _grouped_decode_attention(q, ck, cv, *, cache_index: int,
-                              window: int | None, scale=None):
+                              window: int | None, k_positions=None,
+                              scale=None):
     """Single-token GQA decode without expanding kv to query heads.
 
-    q: (B,1,H,hd); ck/cv: (B,S,KV,hd).  Attends to cache slots
-    [max(0, cache_index - window + 1), cache_index]: the slice holds
-    exactly the keys the JAX version leaves unmasked.  Logits in fp32."""
+    q: (B,1,H,hd); ck/cv: (B,S,KV,hd).  Without `k_positions` slot i holds
+    position i, and the decode attends to slots [max(0, cache_index -
+    window + 1), cache_index]: the slice holds exactly the keys the JAX
+    version leaves unmasked.  With `k_positions` (S,) int32, the ring
+    buffer's absolute position of each slot (-1: unwritten), every slot is
+    read and masked on the device as the JAX `attention_scores` masks it.
+    Logits in fp32."""
     b, _, h, hd = q.shape
     g = ck.shape[2]
     rep = h // g
     scale = hd ** -0.5 if scale is None else scale
-    lo = 0 if window is None else max(0, cache_index - window + 1)
-    ck = ck[:, lo:cache_index + 1]
-    cv = cv[:, lo:cache_index + 1]
+    if k_positions is None:
+        lo = 0 if window is None else max(0, cache_index - window + 1)
+        ck = ck[:, lo:cache_index + 1]
+        cv = cv[:, lo:cache_index + 1]
     qg = q.reshape(b, 1, g, rep, hd)
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck.float()) * scale
+    if k_positions is not None:
+        seen = (k_positions >= 0) & (k_positions <= cache_index)
+        if window is not None:
+            seen &= k_positions > cache_index - window
+        logits = logits.masked_fill(~seen, ref.NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cv.to(q.dtype))
     return out.reshape(b, 1, h, hd)
@@ -150,8 +163,10 @@ def attention(p: Params, dims: AttnDims, x: torch.Tensor,
               kv_cache: Params | None = None, cache_index: int | None = None,
               force: str | None = None) -> torch.Tensor:
     """Full attention op.  Training/prefill when x holds several positions;
-    decode when x is (B,1,d) and a cache {"k","v"} with the fill index is
-    given.  The cache is written in place.  `force` goes to
+    decode when x is (B,1,d) and a cache {"k","v"} (a ring buffer also
+    holds "pos") with the fill index is given.  The cache is written in
+    place: a prefill stores its keys from `cache_index` on, a ring buffer
+    its last `span` keys at their positions mod `span`.  `force` goes to
     `ops.attention` on the prefill path."""
     s = x.shape[1]
     q = _matmul(x, p["wq"])
@@ -164,11 +179,15 @@ def attention(p: Params, dims: AttnDims, x: torch.Tensor,
     k = apply_rope(k, positions, dims.rope_theta)
 
     if kv_cache is not None and s == 1:
-        kv_cache["k"][:, cache_index:cache_index + 1] = k
-        kv_cache["v"][:, cache_index:cache_index + 1] = v
+        pos = kv_cache.get("pos")
+        slot = cache_index if pos is None else cache_index % pos.shape[0]
+        kv_cache["k"][:, slot:slot + 1] = k
+        kv_cache["v"][:, slot:slot + 1] = v
+        if pos is not None:
+            pos[slot] = cache_index
         out = _grouped_decode_attention(
             q, kv_cache["k"], kv_cache["v"], cache_index=cache_index,
-            window=dims.window, scale=dims.softmax_scale)
+            window=dims.window, k_positions=pos, scale=dims.softmax_scale)
     else:
         out = ops.attention(
             q, _expand_kv(k, dims.n_heads), _expand_kv(v, dims.n_heads),
@@ -176,20 +195,34 @@ def attention(p: Params, dims: AttnDims, x: torch.Tensor,
             scale=dims.softmax_scale, force=force)
         if kv_cache is not None:
             base = cache_index or 0
-            kv_cache["k"][:, base:base + s] = k
-            kv_cache["v"][:, base:base + s] = v
+            pos = kv_cache.get("pos")
+            if pos is None:
+                kv_cache["k"][:, base:base + s] = k
+                kv_cache["v"][:, base:base + s] = v
+            else:   # ring buffer: keep the last `span` keys
+                keep = min(s, pos.shape[0])
+                kept = base + s - keep + torch.arange(
+                    keep, dtype=torch.int32, device=x.device)
+                idx = kept.long() % pos.shape[0]
+                kv_cache["k"][:, idx] = k[:, s - keep:]
+                kv_cache["v"][:, idx] = v[:, s - keep:]
+                pos[idx] = kept
     return _matmul(out, p["wo"], n_in=2)
 
 
 def init_kv_cache(batch: int, max_seq: int, dims: AttnDims,
                   device) -> Params:
-    """bf16 KV cache of `max_seq` slots per layer.  The JAX package's ring
-    buffer for sliding windows shorter than `max_seq` is not ported."""
-    if dims.window is not None and dims.window < max_seq:
-        raise NotImplementedError("ring-buffer KV cache (window < max_seq)")
-    shape = (batch, max_seq, dims.n_kv_heads, dims.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    """bf16 KV cache of min(max_seq, window) slots per layer; a window
+    shorter than `max_seq` makes it a ring buffer, with "pos" the int32
+    absolute position held in each slot (-1: unwritten)."""
+    span = max_seq if dims.window is None else min(max_seq, dims.window)
+    shape = (batch, span, dims.n_kv_heads, dims.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    if span < max_seq:
+        cache["pos"] = torch.full((span,), -1, dtype=torch.int32,
+                                  device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """LM assembly, ported from `repro.models.lm`: the dense family (Chameleon's
 `vlm` backbone among it), DeepSeek-MoE (a leading dense segment, then MoE
-blocks with GQA attention) and RWKV6.
+blocks with GQA attention), Hymba (hybrid blocks: attention and the
+selective SSM side by side, global attention in a few layers and a
+sliding window, with a ring-buffer KV cache, in the others) and RWKV6.
 
 The JAX package stacks each segment's layer params on a leading axis and
 `lax.scan`s over them; here a segment is a list of per-layer param dicts
 walked by a Python loop.  The JAX sharding constraints have no
 counterpart: with no mesh they are the identity.  `build` raises
 NotImplementedError for the families not ported: MLA attention and the
-MTP head (DeepSeek-V3), the Mamba hybrid (Hymba) and the encoder-decoder
-(Whisper).
+MTP head (DeepSeek-V3) and the encoder-decoder (Whisper).
 
 Training: `LM.loss` is the next-token cross-entropy, plus 0.01 x the MoE
 blocks' load-balance loss summed over the layers for a MoE config, and
@@ -37,14 +38,29 @@ from repro_torch.models.layers import AttnDims, Params
 class Segment:
     kind: str
     count: int
+    window: int | None = None   # sliding window for hybrid SWA segments
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[Segment, ...]:
-    """Segments of identical blocks: one of `n_layers` (dense or rwkv), or
-    for a MoE config its `first_dense_layers` ("dense_lead", an MLP of
-    `dense_d_ff`) and then the MoE blocks."""
+    """Segments of identical blocks: one of `n_layers` (dense or rwkv); for
+    a hybrid (SSM) config one "hybrid" segment per global-attention layer
+    and one per run of sliding-window layers between them; for a MoE
+    config its `first_dense_layers` ("dense_lead", an MLP of `dense_d_ff`)
+    and then the MoE blocks."""
     if cfg.rwkv:
         return (Segment("rwkv", cfg.n_layers),)
+    if cfg.ssm is not None:
+        glb = set(cfg.ssm.global_attn_layers)
+        segs, i = [], 0
+        while i < cfg.n_layers:
+            j = i + 1
+            if i not in glb:
+                while j < cfg.n_layers and j not in glb:
+                    j += 1
+            segs.append(Segment("hybrid", j - i, None if i in glb
+                                else cfg.ssm.sliding_window))
+            i = j
+        return tuple(segs)
     if cfg.moe is not None:
         lead = cfg.moe.first_dense_layers
         return ((Segment("dense_lead", lead),) if lead else ()) + (
@@ -52,10 +68,11 @@ def layer_plan(cfg: ArchConfig) -> tuple[Segment, ...]:
     return (Segment("dense", cfg.n_layers),)
 
 
-def attn_dims(cfg: ArchConfig) -> AttnDims:
+def attn_dims(cfg: ArchConfig, window: int | None = None) -> AttnDims:
     return AttnDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
                     n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                    qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+                    qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+                    window=window)
 
 
 def moe_dims(cfg: ArchConfig) -> blocks.MoEDims:
@@ -64,6 +81,11 @@ def moe_dims(cfg: ArchConfig) -> blocks.MoEDims:
                           top_k=m.top_k, d_expert=m.d_expert,
                           n_shared=m.n_shared, group_size=m.group_size,
                           capacity_factor=m.capacity_factor)
+
+
+def ssm_dims(cfg: ArchConfig) -> blocks.SSMDims:
+    return blocks.SSMDims(d_model=cfg.d_model, d_inner=cfg.d_model,
+                          state_dim=cfg.ssm.state_dim, conv_k=cfg.ssm.conv_k)
 
 
 def rwkv_dims(cfg: ArchConfig) -> blocks.RWKVDims:
@@ -88,12 +110,17 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig,
                                               dtype)}
     p = {"ln_attn": layers.init_rmsnorm(d, dev),
          "ln_mlp": layers.init_rmsnorm(d, dev),
-         "attn": layers.init_attention(generator, attn_dims(cfg), dtype)}
+         "attn": layers.init_attention(generator,
+                                       attn_dims(cfg, seg.window), dtype)}
     if seg.kind == "moe":
         p["ffn"] = blocks.init_moe(generator, moe_dims(cfg), dtype)
     else:
         d_ff = cfg.moe.dense_d_ff if seg.kind == "dense_lead" else cfg.d_ff
         p["ffn"] = layers.init_mlp(generator, d, d_ff, dtype)
+    if seg.kind == "hybrid":
+        p["ssm"] = blocks.init_ssm(generator, ssm_dims(cfg), dtype)
+        p["ln_attn_out"] = layers.init_rmsnorm(d, dev)
+        p["ln_ssm_out"] = layers.init_rmsnorm(d, dev)
     return p
 
 
@@ -102,8 +129,10 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
                  cache: Params | None = None, cache_index: int | None = None,
                  force: str | None = None):
     """One block: (x, aux), aux the MoE block's fp32 load-balance loss or
-    None.  Writes `cache` in place (the KV slots, or the rwkv block's
-    state entries replaced by the new bf16 state)."""
+    None.  Writes `cache` in place (the KV slots, and the rwkv or SSM
+    state entries replaced by the new bf16 state).  A hybrid block adds
+    0.5 x (rmsnorm(attention) + rmsnorm(SSM)) of the same normed input,
+    then the MLP."""
     if seg.kind == "rwkv":
         dims = rwkv_dims(cfg)
         t_out, t_state = blocks.rwkv_tmix(
@@ -119,9 +148,17 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
     rs = layers.scalar_as(cfg.residual_scale, x.dtype)
     h = layers.rmsnorm(lp["ln_attn"], x)
     attn_out = layers.attention(
-        lp["attn"], attn_dims(cfg), h, positions,
+        lp["attn"], attn_dims(cfg, seg.window), h, positions,
         kv_cache=None if cache is None else cache["kv"],
         cache_index=cache_index, force=force)
+    if seg.kind == "hybrid":
+        ssm_out, ssm_state = blocks.ssm(
+            lp["ssm"], ssm_dims(cfg), h,
+            state=None if cache is None else cache["ssm"])
+        if cache is not None:
+            cache["ssm"] = ssm_state
+        attn_out = 0.5 * (layers.rmsnorm(lp["ln_attn_out"], attn_out)
+                          + layers.rmsnorm(lp["ln_ssm_out"], ssm_out))
     x = x + attn_out * rs
     h2 = layers.rmsnorm(lp["ln_mlp"], x)
     aux = None
@@ -136,8 +173,11 @@ def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
                       max_seq: int, device) -> Params:
     if seg.kind == "rwkv":   # fixed-size state: max_seq plays no part
         return blocks.init_rwkv_state(batch, rwkv_dims(cfg), device)
-    return {"kv": layers.init_kv_cache(batch, max_seq, attn_dims(cfg),
-                                       device)}
+    cache = {"kv": layers.init_kv_cache(batch, max_seq,
+                                        attn_dims(cfg, seg.window), device)}
+    if seg.kind == "hybrid":
+        cache["ssm"] = blocks.init_ssm_state(batch, ssm_dims(cfg), device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +197,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class LM:
-    """Decoder LM: dense, MoE or RWKV6.  `force` is handed to the kernel
+    """Decoder LM: dense, MoE, hybrid or RWKV6.  `force` is handed to the kernel
     dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` on every
     call (None: dispatch by length and device).
 
@@ -274,10 +314,10 @@ def build(cfg: ArchConfig, force: str | None = None,
     missing = [what for absent, what in (
         (cfg.mla is not None, "MLA attention"),
         (cfg.mtp, "the MTP head"),
-        (cfg.ssm is not None, "the Mamba hybrid block"),
         (cfg.encdec is not None, "the encoder-decoder")) if absent]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported (ported: dense, "
-            "vlm (Chameleon), moe without MLA / MTP, and rwkv)")
+            "vlm (Chameleon), moe without MLA / MTP, hybrid (Hymba) and "
+            "rwkv)")
     return LM(cfg, force=force, remat=remat)

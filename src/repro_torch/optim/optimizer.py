@@ -130,7 +130,10 @@ def make_train_step(loss_fn: Callable, cfg: AdamWConfig,
         loss, gsum = 0.0, None
         for mb in micro:
             value = loss_fn(state.params, mb)
-            grads = torch.autograd.grad(value, leaves)
+            # a leaf with no path to the loss (the MoE router bias enters
+            # only the top-k sort) gets a zero gradient, as under
+            # jax.value_and_grad; AdamW then leaves it where it is
+            grads = torch.autograd.grad(value, leaves, materialize_grads=True)
             loss = loss + value.detach()
             gsum = ([g.float() for g in grads] if gsum is None
                     else [a + g for a, g in zip(gsum, grads)])

@@ -686,6 +686,85 @@ def test_moe_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
 
 
 # ---------------------------------------------------------------------------
+# Hymba: the flash forward at 25 heads with a 1024-key window, the selective
+# SSM and the ring-buffer cache in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [1024, None])
+def test_kernel_at_hymba_heads_matches_plain(dev, window):
+    """bf16 hd 64 at Hymba's 25 (GQA-expanded) heads, with its 1024-key
+    window and without (its global layers), 2048 positions: the kernel
+    against the plain twin (2e-2), its lse within 1e-4 relative."""
+    q, k, v = _qkv(dev, 2, 2048, 25, 64, torch.bfloat16)
+    kw = dict(causal=True, window=window)
+    got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    want, want_lse = ref.flash_fwd(q, k, v, 512, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert ((lse - want_lse).abs().max() / want_lse.abs().max()).item() \
+        <= 1e-4
+
+
+def _hymba_reduced():
+    import repro_torch.configs as configs
+    return configs.get("hymba-1.5b", reduced=True)
+
+
+def test_hymba_model_cuda_matches_cpu(dev):
+    """The reduced hymba-1.5b (below the flash threshold: plain PyTorch
+    throughout) on the card against the CPU: the forward at 2 x 64 and a
+    prefill of 8 tokens then 40 decode steps, through 2.5 wraps of the
+    16-slot ring (2e-2 and 3e-2), the rings' pos equal."""
+    cfg = _hymba_reduced()
+    model = lm.build(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    gp = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator("cpu").manual_seed(2))
+    want = model.forward(params, tokens)
+    got = model.forward(gp, tokens.to(dev)).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    runs = []
+    for p, d in ((params, "cpu"), (gp, dev)):
+        cache, toks = model.init_cache(2, 48, d), tokens.to(d)
+        outs = [model.prefill(p, toks[:, :8], cache)]
+        outs += [model.decode_step(p, toks[:, i:i + 1], cache, i)
+                 for i in range(8, 48)]
+        runs.append(([o.cpu() for o in outs],
+                     cache["seg1"][0]["kv"]["pos"].cpu()))
+    (want, want_pos), (got, got_pos) = runs
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 3e-2
+    assert torch.equal(got_pos, want_pos)
+
+
+def test_hymba_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
+    """A 2048-token prefill of the reduced hymba-1.5b launches the flash
+    forward once per layer (its window of 16 in the middle one) and
+    matches the plain twin (2e-2); decode steps launch none."""
+    cfg = _hymba_reduced()
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD),
+                           device=dev)
+    cache = model.init_cache(2, ops.FLASH_THRESHOLD + 2, dev)
+    before = fa.flash_attention.launches
+    got = model.prefill(params, tokens, cache)
+    assert fa.flash_attention.launches - before == cfg.n_layers == 3
+    want = plain.prefill(params, tokens,
+                         plain.init_cache(2, ops.FLASH_THRESHOLD + 2, dev))
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    before = fa.flash_attention.launches
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    for i in range(2):
+        tok = model.decode_step(params, tok, cache, ops.FLASH_THRESHOLD + i)[
+            :, -1].argmax(-1, keepdim=True)
+    assert fa.flash_attention.launches == before
+    assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+
+# ---------------------------------------------------------------------------
 # The float64 pipeline: cuda against cpu
 # ---------------------------------------------------------------------------
 

@@ -161,8 +161,22 @@ def test_attention_decode_step():
 
 
 def test_ring_buffer_cache_not_ported():
+    """The sliding-window cache's layout against `init_kv_cache` of the JAX
+    package: a window shorter than the cache gives a ring of `window`
+    slots with an int32 pos of -1 (unwritten); a window as long as the
+    cache gives a plain cache of max_seq slots and no pos."""
     dims = tl.AttnDims(d_model=32, n_heads=4, n_kv_heads=2, head_dim=16,
                        window=8)
-    with pytest.raises(NotImplementedError):
-        tl.init_kv_cache(1, 16, dims, "cpu")
+    for max_seq in (16, 8):
+        got = tl.init_kv_cache(1, max_seq, dims, "cpu")
+        want = jl.init_kv_cache(1, max_seq, jl.AttnDims(
+            d_model=32, n_heads=4, n_kv_heads=2, head_dim=16, window=8))
+        assert got.keys() == want.keys()
+        for key in got:
+            assert got[key].shape == want[key].shape, key
+            assert np.array_equal(got[key].float().numpy(),
+                                  np.asarray(want[key], np.float32)), key
+    ring = tl.init_kv_cache(1, 16, dims, "cpu")
+    assert ring["k"].shape == (1, 8, 2, 16)
+    assert ring["pos"].dtype == torch.int32 and (ring["pos"] == -1).all()
     assert tl.init_kv_cache(1, 8, dims, "cpu")["k"].shape == (1, 8, 2, 16)

@@ -14,7 +14,12 @@ Inputs come from a numpy seed; params from the JAX init, carried over by
     bf16 input the two routers' logits are bitwise equal; through the LM
     the bf16 activations round differently upstream, and on the loss's
     batch two tokens pick another expert at a near tie: the aux differs by
-    5.6e-4 there, 4e-6 on the forward's batch.
+    5.6e-4 there, 4e-6 on the forward's batch;
+  * training: the reduced deepseek-moe-16b's loss and gradients against
+    `jax.value_and_grad(model.loss)` with tests/test_torch_train.py's
+    bars (loss 1e-3 relative, each leaf 5e-2 relative L2), the router
+    bias's gradient zero on both sides (it enters only the top-k sort);
+    one `build_trainer` step leaves the router bias bitwise where it was.
 """
 
 import functools
@@ -31,9 +36,12 @@ from repro.models import blocks as jblocks
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch.convert import params_from_jax
+from repro_torch.launch import train
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import layers
 from repro_torch.models import lm as tlm
+from repro_torch.optim import AdamWConfig, adamw_init, make_train_step
+from test_torch_train import _batch, _check_grads
 
 ARCH = "deepseek-moe-16b"
 # the reduced config's MoE: 4 experts, top 2, one shared, group 32
@@ -261,3 +269,59 @@ def test_serve_main_moe_on_cpu():
                        "--batch", "2", "--prompt-len", "8", "--gen", "4"])
     assert toks.shape == (2, 4) and toks.device.type == "cpu"
     assert int(toks.min()) >= 0 and int(toks.max()) < 256
+
+
+# ---------------------------------------------------------------------------
+# Training: the router bias has no path to the loss
+# ---------------------------------------------------------------------------
+
+
+def test_loss_and_grads_match_jax():
+    """`LM.loss` and its gradients (batch 2 x 32, naive attention) against
+    `jax.value_and_grad(model.loss)`; the router bias's gradient is zero
+    on both sides."""
+    got, want = _check_grads(ARCH, None, (2, 32))
+    bias = [name for name in want if name.endswith("/router_bias")]
+    assert bias
+    for name in bias:
+        assert not np.asarray(want[name]).any()
+        assert not got[name].any()
+
+
+def test_build_trainer_step_leaves_router_bias():
+    """One `build_trainer` step on the CPU: a finite loss, the router bias
+    bitwise unchanged (a zero gradient; it starts at zero, so the decay
+    the R9 rule gives a segment's leaves keeps it there), the other
+    params moved."""
+    cfg = tconfigs.get(ARCH, reduced=True)
+    _, state, step, _ = train.build_trainer(cfg, device="cpu")
+    ffn = state.params["seg1"][0]["ffn"]
+    bias = ffn["router_bias"].detach().clone()
+    router = ffn["router"].detach().clone()
+    _, tb = _batch(cfg.vocab, (2, 32))
+    state, metrics = step(state, tb)
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert torch.equal(state.params["seg1"][0]["ffn"]["router_bias"], bias)
+    assert not torch.equal(state.params["seg1"][0]["ffn"]["router"], router)
+
+
+def test_dense_step_sees_a_gradient_in_every_leaf():
+    """The train step's zeros for unused leaves must not hide a leaf that
+    reaches the loss: on a dense config every gradient the optimizer gets
+    is nonzero."""
+    cfg = tconfigs.get("tinyllama-1.1b", reduced=True)
+    model = tlm.build(cfg)
+    seen = []
+
+    def capture(grads):
+        seen.append(grads)
+        return grads
+    step = make_train_step(model.loss, AdamWConfig(), grad_transform=capture)
+    state = adamw_init(model.init(torch.Generator("cpu").manual_seed(0),
+                                  dtype=torch.float32))
+    _, tb = _batch(cfg.vocab, (2, 32))
+    step(state, tb)
+    leaves = jax.tree.leaves_with_path(seen[0])
+    assert len(leaves) == len(jax.tree.leaves(state.params))
+    for path, g in leaves:
+        assert g is not None and g.abs().sum() > 0, path

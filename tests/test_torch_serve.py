@@ -139,13 +139,13 @@ def test_serve_main_defaults_to_cuda():
 
 @pytest.mark.parametrize("arch,missing", [
     ("deepseek-v3-671b", "MLA attention, the MTP head"),
-    ("hymba-1.5b", "the Mamba hybrid block"),
     ("whisper-small", "the encoder-decoder")])
 def test_build_refuses_the_families_not_ported(arch, missing):
-    """MLA + MTP, the Hymba hybrid and Whisper are not ported: `build`
-    raises and names what is missing; the ported families build."""
+    """MLA + MTP and Whisper are not ported: `build` raises and names what
+    is missing; the ported families build, the Hymba hybrid among them."""
     for reduced in (False, True):
         with pytest.raises(NotImplementedError, match=missing):
             tlm.build(tconfigs.get(arch, reduced=reduced))
-    for ported in ("chameleon-34b", "deepseek-moe-16b", "rwkv6-3b"):
+    for ported in ("chameleon-34b", "deepseek-moe-16b", "hymba-1.5b",
+                   "rwkv6-3b"):
         tlm.build(tconfigs.get(ported))

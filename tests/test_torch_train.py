@@ -130,11 +130,14 @@ def _port(arch, jp, n_layers=None, remat="none"):
 
 
 def _port_grads(tm, tp, tb):
+    """(loss, grads) as the train step takes them: a leaf with no path to
+    the loss (the MoE router bias) gets zeros, as under
+    `jax.value_and_grad`."""
     leaves, spec = pytree.tree_flatten(tp)
     for p in leaves:
         p.requires_grad_(True)
     loss = tm.loss(tp, tb)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss, pytree.tree_unflatten(list(grads), spec)
 
 
@@ -274,6 +277,9 @@ def test_cpu_paths_carry_gradients():
 
 
 def _check_grads(arch, n_layers, shape):
+    """The port's loss within 1e-3 and each gradient leaf within 5e-2
+    relative L2 of `jax.value_and_grad(model.loss)`; returns the two
+    gradients as {"/path": leaf} (the port's torch, JAX's numpy)."""
     jm, jp = _jax_model(arch, n_layers)
     jb, tb = _batch(jm.cfg.vocab, shape)
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(jp, jb)
@@ -285,6 +291,7 @@ def _check_grads(arch, n_layers, shape):
     assert got.keys() == want.keys()
     for name in want:
         assert _rel_l2(got[name], want[name]) <= 5e-2, name
+    return got, want
 
 
 @pytest.mark.parametrize("arch", DENSE)
