@@ -8,7 +8,8 @@ Phases, each fatal on failure:
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
      and print ptxas's registers and spills per kernel and its warning and
      C75xx lines (fatal for a tensor-core kernel that spills or has its
-     wgmma serialized);
+     wgmma serialized, and for the wkv6 pair walk or a selective-scan
+     kernel that spills);
   2. each kernel against its plain PyTorch twin on the card, over the
      masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
      CASES (with the tile edges of the bf16 hd-256 kernel) and on strided
@@ -31,7 +32,13 @@ Phases, each fatal on failure:
      backward's reverse-pass checkpoints (the gradient after every span)
      against `ref.wkv6_grad_checkpoints`, and two backward calls at (4,
      2048, 40, 64) bitwise equal; the wkv6 backward's span walk must not
-     spill (phase 1);
+     spill (phase 1); the selective scan over SCAN_CASES (N 4 and 16; D
+     64, 77, 1600; S 1 to 2048; with and without h0; strong decay): y,
+     h_last and the checkpoints within 1e-5 (relative max) of the plain
+     loop and `ref.ssm_checkpoints`, y and h_last with checkpoints
+     bitwise equal to serving's, the backward's ddt, du, dB, dC, da and
+     dh0 against `ref.ssm_scan_bwd_plain` within 1e-4 x max(max |want|,
+     1), two backward calls at (4, 2048, 1600, 16) bitwise equal;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: `repro_torch.launch.serve.main` serving
      TinyLlama-1.1B, RWKV6-3B and, last, Gemma-7B (head dim 256: exactly
@@ -100,19 +107,31 @@ Phases, each fatal on failure:
      on the card (a finite loss, its router bias unchanged);
   5c. last of the models, Hymba-1.5B: one `blocks.ssm` call at its full
      width (d_inner 1600, state 16) in fp32 on the 4 x 2048 tokens of its
-     prefill, card against CPU from the same numpy-seeded inputs (output
-     within SSM_BLOCK_REL, the bf16 state within one bf16 ulp plus that,
-     and one decode step likewise; timed in fp32 and bf16, its launches
-     counted),
+     prefill, card (the scan kernel) against CPU (the loop) from the same
+     numpy-seeded inputs (output within SSM_BLOCK_REL, the bf16 state
+     within one bf16 ulp plus that, and one decode step likewise; timed
+     in fp32 and bf16, its launches counted),
      the reduced Hymba on the GPU against the CPU, the flash forward at its
      windowed (1024) and global prefill shapes at 25 heads beside SDPA
      (given the window as a boolean mask), then Hymba-1.5B served at every
      published width and full depth as in phases 3-5 (exactly 32 flash
-     forwards a serve, 29 of them windowed, and nothing else; each layer's
-     attention within 2e-2 of the plain twin, the prefill logits as
-     `hybrid_logits_bar` holds them; its
-     prefill profiled on a HYMBA_PROFILE_LAYERS-layer depth cut), all
-     printed with 5b's as a `{"served": ...}` line;
+     forwards a serve, 29 of them windowed, and 512 scan forwards, one a
+     layer for the prefill and for each of the 15 decode steps; each
+     layer's attention within 2e-2 of the plain twin, the prefill logits
+     as `hybrid_logits_bar` holds them; the scan's and the flash
+     forward's shares of the profiled prefill), all printed with 5b's as
+     a `{"served": ...}` line; then Hymba-1.5B trained at every published
+     width and full depth (`hymba_train`: batch 4 x 2048, fp32 masters,
+     remat full, exactly 64 flash forwards, 32 flash backwards, 64 scan
+     forwards with checkpoints and 32 scan backwards a step; step ms,
+     tokens/s, peak memory, finite losses, the flash backward's and the
+     scan kernels' shares of the step), its step through the kernels
+     against the plain twins at HYMBA_CHECK_LAYERS layers (the dense
+     bars; both steps' distances from a step in fp32 activations
+     printed beside them), the flash backward at (4, 2048, 25, 64) with
+     the 1024-key window beside SDPA's backward given the boolean mask,
+     and the scan kernels timed at (4, 2048, 1600, 16) beside the loop and
+     its backward's plain twin, with their bounds;
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -321,15 +340,47 @@ MOE_AUX_ABS = 1e-6
 # Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
 # weights) at every published width and full depth, through the flash
 # forward at hd 64 and 25 heads, one launch per layer (32, 29 of them with
-# its 1024-key window), its selective scan a Python loop over tokens.  The
-# fp32 SSM block at the serve's prefill shape, card against CPU: the
-# output within SSM_BLOCK_REL (relative max), the new bf16 state within
-# one bf16 ulp plus that (`bf16_state_close`).  Its prefill logits are
-# held as `hybrid_logits_bar` says.  Its prefill is profiled on a depth cut of
-# HYMBA_PROFILE_LAYERS layers: a full prefill is ~200 k launches.
+# its 1024-key window), and the selective-scan kernel, one launch per layer
+# and call (32 a prefill, 32 a decode step).  The fp32 SSM block at the
+# serve's prefill shape, card against CPU: the output within SSM_BLOCK_REL
+# (relative max), the new bf16 state within one bf16 ulp plus that
+# (`bf16_state_close`).  Its prefill logits are held as `hybrid_logits_bar`
+# says.  Then it trains at every published width and full depth (1.40 B
+# fp32 params with grads, m and v ~22.5 GB, the fp32 logits of 4 x 2048
+# tokens over 32001 entries 1.05 GB a copy), its step against the plain
+# twins at HYMBA_CHECK_LAYERS layers (layer 0 global, 1-2 windowed): the
+# plain loop's autograd graph saves h for every token, ~0.84 GB a layer.
 HYMBA_ARCH = "hymba-1.5b"
 SSM_BLOCK_REL = 1e-4
-HYMBA_PROFILE_LAYERS = 4
+HYMBA_CHECK_LAYERS = 3
+# The selective scan's kernels against their plain twins (phase 2):
+# (B, S, D, N, with_h0, strong).  S = 1 (a decode step), spans around
+# CKPT_EVERY = 32 (31, 32, 33, 65, 100) and 2048; D = 64 (the reduced
+# Hymba), 1600 (Hymba-1.5B) and 77 (a block of 32 channels part empty); N
+# = 4 (reduced) and 16 (published).  `strong` draws dt in [6, 10], so
+# exp(dt a) underflows to 0 in the upper states (a = -1 .. -N).  y and
+# h_last within SCAN_FWD_BAR (relative max) of the loop; every gradient as
+# SCAN_BWD_BAR says, against `ref.ssm_scan_bwd_plain`.
+SCAN_CASES = [
+    (4, 1, 1600, 16, True, False),
+    (2, 31, 64, 4, False, False),
+    (2, 32, 64, 4, True, False),
+    (2, 33, 1600, 16, True, False),
+    (2, 65, 77, 4, True, False),
+    (3, 100, 77, 16, False, True),
+    (4, 2048, 64, 4, True, False),
+    (4, 2048, 1600, 16, False, False),
+]
+SCAN_MAIN = SCAN_CASES[-1]   # Hymba-1.5B's prefill and training shape
+SCAN_FWD_BAR = 1e-5          # tests/test_torch_hymba.py's fp32 bar
+SCAN_BWD_BAR = "|got - want| <= 1e-4 x max(max |want|, 1), each gradient"
+# The H100's rate of MUFU.EX2 (each expf issues one): 16 results a clock an
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), 132 SMs at the SXM part's 1.98 GHz boost clock
+PEAK_MUFU = 16 * 132 * 1.98e9
+# Every launch counter, in the order the script reports them
+COUNTERS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
+            "selective_scan", "selective_scan_bwd")
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -583,11 +634,13 @@ def ptxas_report(log: str) -> list:
         if m:
             mangled = m.group(1)
             name = re.search(
-                r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)I", mangled)
+                r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)I"
+                r"|(?<=\d)(ssm_scan_[a-z_]*kernel)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
                   if re.search(r"ILi\d+EfE", mangled) else "")
-            cur = {"kernel": f"{name.group(1) if name else mangled}<"
+            label = name.group(name.lastindex) if name else mangled
+            cur = {"kernel": f"{label}<"
                              f"{', '.join(args + ([dt] if dt else []))}>",
                    "mangled": mangled, "registers": None, "spill": None,
                    "c75": []}
@@ -881,6 +934,14 @@ def check_deterministic(fa, case) -> None:
         fail(f"flash_attention_bwd {case}: two calls differ ({same})")
 
 
+def window_mask(case):
+    """(Sq, Skv) bool on the card: causal within the case's window, the
+    mask SDPA is given for a windowed case."""
+    q_pos = torch.arange(case[1], device="cuda")[:, None]
+    k_pos = torch.arange(case[2], device="cuda")[None, :]
+    return (q_pos >= k_pos) & (q_pos - k_pos < case[6])
+
+
 def time_flash(fa, case, card) -> tuple:
     """Phase 4a for one causal bf16 shape: the kernel, its plain twin and
     `scaled_dot_product_attention` (a yardstick the port never calls) on the
@@ -903,9 +964,7 @@ def time_flash(fa, case, card) -> tuple:
                 qt, kt, vt, is_causal=True)
         how = ""
     else:
-        q_pos = torch.arange(case[1], device="cuda")[:, None]
-        k_pos = torch.arange(case[2], device="cuda")[None, :]
-        mask = (q_pos >= k_pos) & (q_pos - k_pos < window)
+        mask = window_mask(case)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
@@ -946,8 +1005,9 @@ def bwd_bound(case, dtype) -> tuple[float, str]:
 def time_flash_bwd(fa, ref, case, card) -> tuple:
     """Phase 4a for the backward at one causal bf16 shape: the kernel (its
     three launches), its plain twin and SDPA's backward (SDPA forward and
-    backward less its forward; a yardstick the port never calls) on the
-    same inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms,
+    backward less its forward; a yardstick the port never calls; a
+    windowed case gives it the window as a boolean mask) on the same
+    inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms,
     bound_by)."""
     args, kw = bwd_inputs(fa, case)
     q, k, v, out, do, lse = args
@@ -957,17 +1017,20 @@ def time_flash_bwd(fa, ref, case, card) -> tuple:
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    mask = None if kw["window"] is None else window_mask(case)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None)
     both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
                       20)
     lib_ms = both_ms - time_ms(sdpa, 20)
     bound_ms, bound_by = bwd_bound(case, torch.bfloat16)
     tflops = 2.5 * attn_flops(case) / 1e9
-    print(f"flash_attention_bwd {case[:5]} bf16 causal: kernel {ms:.4f} ms "
-          f"({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+    label = "" if mask is None else f", window {kw['window']} (SDPA: mask)"
+    print(f"flash_attention_bwd {case[:5]} bf16 causal{label}: kernel "
+          f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          "sdpa "
           f"backward {lib_ms:.4f} ms (forward + backward {both_ms:.4f}), "
           f"bound {bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
           flush=True)
@@ -998,6 +1061,11 @@ def train_batches(cfg, n: int, batch: int = BATCH, seq: int = PROMPT) -> list:
                                       global_batch=batch))
     return [{k: torch.from_numpy(a).to("cuda", torch.long)
              for k, a in data.batch(i).items()} for i in range(n)]
+
+
+def counts(**launches) -> dict:
+    """A run's wanted launch counts: those given, every other counter 0."""
+    return {name: launches.get(name, 0) for name in COUNTERS}
 
 
 def set_counts(counters) -> None:
@@ -1039,10 +1107,10 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
           f"tokens/s); peak memory {peak_gb:.3f} GB; losses {losses}; "
           f"launches per step {per_step} [{card}]", flush=True)
     n = cfg.n_layers
-    want = ({"flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 2 * n,
-             "wkv6_bwd": n} if cfg.rwkv else
-            {"flash_attention": 2 * n, "flash_attention_bwd": n, "wkv6": 0,
-             "wkv6_bwd": 0})
+    want = (counts(wkv6=2 * n, wkv6_bwd=n) if cfg.rwkv else counts(
+        flash_attention=2 * n, flash_attention_bwd=n,
+        **({"selective_scan": 2 * n, "selective_scan_bwd": n}
+           if cfg.ssm is not None else {})))
     if any(c != want for c in per_step):
         fail(f"train {cfg.name} launched {per_step}; want {want} a step (a "
              "forward per layer, its recompute, and a backward per layer)")
@@ -1059,6 +1127,15 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
                   f"{re.search(r'flash_bwd_[a-z_0-9]+(<[^>]*>)?', e.key)[0]} "
                   f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                   for e in bwd_rows) + f") [{card}]", flush=True)
+    scan_rows = [e for e in rows if "ssm_scan" in e.key]
+    if scan_rows:   # the selective scan's share of the step, by kernel
+        scan_ms = sum(e.self_device_time_total for e in scan_rows) / 1e3
+        print(f"{cfg.name} train step: the selective scan {scan_ms:.3f} ms "
+              f"of device time, {100 * scan_ms / step_ms:.1f} % of the "
+              f"{step_ms:.3f} ms step (" + ", ".join(
+                  f"{re.search(r'ssm_scan_[a-z]+_kernel', e.key)[0]} "
+                  f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                  for e in scan_rows) + f") [{card}]", flush=True)
     for label, part in wkv6_parts(rows).items():
         if part:   # the wkv6 kernels' share of the step
             part_ms = sum(e.self_device_time_total for e in part) / 1e3
@@ -1073,12 +1150,71 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
     return {"step_ms": step_ms, "launches": per_step[0]}
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """"/a/0/b" for every leaf of nested dicts and lists, in
+    `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def fp32_loss(cfg, lm, params, batch):
+    """`LM.loss` in fp32 activations through the plain twins, no remat:
+    the embedding gathered in fp32, every block at force="plain"."""
+    from repro_torch.models import layers
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
+    x = layers.embed(params["embed"], batch["tokens"], scale,
+                     dtype=torch.float32)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    for i, seg in enumerate(lm.layer_plan(cfg)):
+        for lp in params[f"seg{i}"]:
+            x, _ = lm._apply_block(lp, cfg, seg, x, pos, force="plain")
+    logits = layers.unembed(params["embed"],
+                            layers.rmsnorm(params["ln_f"], x),
+                            cap=cfg.logit_cap or None)
+    return layers.cross_entropy(logits, batch["labels"])
+
+
+def fp32_distances(card, cfg, lm, params, batch, kernel, plain) -> None:
+    """Beside a hybrid model's training-step bar: from the same params and
+    batch, a step in fp32 activations through the plain twins
+    (`fp32_loss`), and how far the kernels' and the plain twins' loss and
+    gradient leaves (relative L2) lie from it: the twins' own bf16
+    drift, against which the bar's margin reads."""
+    leaves = tree_leaves(params)
+    loss = fp32_loss(cfg, lm, params, batch)
+    loss_f, gf = loss.item(), torch.autograd.grad(loss, leaves)
+    del loss
+    names = leaf_names(params)
+    parts = []
+    for label, (loss_x, gx) in (("kernel", kernel), ("plain", plain)):
+        dist = [rel_l2(a, b) for a, b in zip(gx, gf)]
+        worst = max(range(len(dist)), key=dist.__getitem__)
+        parts.append(f"{label}: loss {abs(loss_x - loss_f) / abs(loss_f):.3e}"
+                     f", leaves worst {dist[worst]:.3e} ({names[worst]}), "
+                     f"median {sorted(dist)[len(dist) // 2]:.3e}")
+    print(f"{cfg.name} train step from fp32 activations (plain twins, loss "
+          f"{loss_f:.6f}), relative: {'; '.join(parts)} [{card}]",
+          flush=True)
+
+
 def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     """Phase 4 for training: from the same fp32 params and batch, the loss
     and every gradient leaf of one step of `cfg` through the kernels
     against the same through the plain twins (autograd of
-    `ref.flash_attention_ref`).  The loss within 2e-2 relative; each
-    leaf's relative L2 error within GRAD_BAR (see there)."""
+    `ref.flash_attention_ref`, the wkv6 and scan loops).  The loss within
+    2e-2 relative; each leaf's relative L2 error within GRAD_BAR (see
+    there).  For a hybrid model, whose normed mixing carries bf16
+    rounding from layer to layer, both steps' distances from fp32
+    activations are printed beside it (`fp32_distances`)."""
     params = lm.build(cfg).init(torch.Generator("cuda").manual_seed(0),
                                 dtype=torch.float32)
     leaves = tree_leaves(params)
@@ -1091,16 +1227,18 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
         got[force] = (loss.item(), torch.autograd.grad(loss, leaves))
     (loss_k, gk), (loss_p, gp) = got[None], got["plain"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    l2 = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-          for a, b in zip(gk, gp)]
+    l2 = [rel_l2(a, b) for a, b in zip(gk, gp)]
     worst = max(range(len(l2)), key=l2.__getitem__)
     print(f"{cfg.name} train step kernels vs plain: loss {loss_k:.6f} vs "
           f"{loss_p:.6f} "
           f"(rel {loss_rel:.3e}, bar 2e-2); gradient leaves: worst relative "
-          f"L2 error {l2[worst]:.3e} (leaf {worst} of {len(l2)}, bar "
+          f"L2 error {l2[worst]:.3e} (leaf {worst} of {len(l2)}, "
+          f"{leaf_names(params)[worst]}, bar "
           f"{GRAD_BAR}), median {sorted(l2)[len(l2) // 2]:.3e}, worst "
           f"relative max error {max(rel_err(a, b) for a, b in zip(gk, gp)):.3e} "
           f"[{card}]", flush=True)
+    if cfg.ssm is not None:
+        fp32_distances(card, cfg, lm, params, batch, got[None], got["plain"])
     if loss_rel > 2e-2 or l2[worst] > GRAD_BAR:
         fail(f"a {cfg.name} training step through the kernels differs from "
              f"the plain twins: loss {loss_rel}, gradient leaf {worst} "
@@ -1137,33 +1275,23 @@ def reduced_dense(card, configs, lm, train, counters) -> None:
               f"{fwd}; train step loss {loss:.4f}, launches {trained} [{card}]",
               flush=True)
         if (rel > 2e-2 or not math.isfinite(loss)
-                or fwd != {"flash_attention": n, "flash_attention_bwd": 0,
-                           "wkv6": 0, "wkv6_bwd": 0}
-                or trained != {"flash_attention": 2 * n,
-                               "flash_attention_bwd": n, "wkv6": 0,
-                               "wkv6_bwd": 0}):
+                or fwd != counts(flash_attention=n)
+                or trained != counts(flash_attention=2 * n,
+                                     flash_attention_bwd=n)):
             fail(f"reduced {cfg.name} through the kernels: rel {rel}, loss "
                  f"{loss}, launches {fwd} / {trained}")
         del model, state, step, logits, want
 
 
-def depth_cut(cfg, lm, params, n: int):
-    """(model, params) of `cfg`'s first n layers at every width: the
-    layers' params taken from `params` in order, for a hybrid config the
-    global-attention layers below n kept."""
+def cut_config(cfg, n: int):
+    """`cfg` cut to its first n layers at every width; a hybrid config
+    keeps its global-attention layers below n."""
     cut = dataclasses.replace(cfg, n_layers=n)
     if cfg.ssm is not None:
         cut = dataclasses.replace(cut, ssm=dataclasses.replace(
             cfg.ssm, global_attn_layers=tuple(
                 i for i in cfg.ssm.global_attn_layers if i < n)))
-    model = lm.build(cut)
-    layers_ = [lp for i in range(len(lm.layer_plan(cfg)))
-               for lp in params[f"seg{i}"]]
-    out, at = {"embed": params["embed"], "ln_f": params["ln_f"]}, 0
-    for i, seg in enumerate(model.plan):
-        out[f"seg{i}"] = layers_[at:at + seg.count]
-        at += seg.count
-    return model, out
+    return cut
 
 
 def serve_numbers(card, cfg, lm, fa) -> dict:
@@ -1173,8 +1301,7 @@ def serve_numbers(card, cfg, lm, fa) -> dict:
     which also holds each layer's attention), prefill ms through each,
     decode ms /
     token, and the profiler's device-busy share of one prefill (with the
-    flash forward's share; for a hybrid model of a depth cut of
-    HYMBA_PROFILE_LAYERS layers, timed on its own) and of a decode step.
+    flash forward's share, and a hybrid's scan's) and of a decode step.
     Returns the prefill ms and decode ms / token."""
     model = lm.build(cfg)
     plain = lm.build(cfg, force="plain")
@@ -1225,45 +1352,26 @@ def serve_numbers(card, cfg, lm, fa) -> dict:
               f"weights {weights_gb:.3f} GB [{card}]", flush=True)
 
         # 5. where the time goes: profiled device time against the above
-        label, prof_model, prof_params, prof_cache, prof_ms = (
-            f"{cfg.name} prefill", model, params, cache, prefill_ms)
-        if cfg.ssm is not None:   # ~200 k launches: profile a depth cut
-            n = HYMBA_PROFILE_LAYERS
-            prof_model, prof_params = depth_cut(cfg, lm, params, n)
-            prof_cache = prof_model.init_cache(BATCH, PROMPT + GEN, dev)
-            prof_ms = time_ms(lambda: prof_model.prefill(
-                prof_params, prompts, prof_cache), 3, warmup=1)
-            label = (f"{cfg.name} prefill of a {n}-layer depth cut ("
-                     f"{[(g.kind, g.count, g.window) for g in prof_model.plan]}"
-                     f"; {prof_ms:.3f} ms unprofiled, the full {cfg.n_layers}"
-                     f" layers {prefill_ms:.3f} ms)")
-        rows = device_kernels(lambda: prof_model.prefill(
-            prof_params, prompts, prof_cache))
-        report_busy(label, rows, prof_ms, 1)
-        flash = [e for e in rows if "flash_fwd" in e.key]
-        if flash:
-            flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
-            print(f"{label}: the flash forward {flash_ms:.3f} ms "
-                  f"of device time x{sum(e.count for e in flash)}, "
-                  f"{100 * flash_ms / prof_ms:.1f} % of the "
-                  f"{prof_ms:.3f} ms prefill [{card}]", flush=True)
-        if cfg.ssm is not None:   # the scan: kernels launched every token
-            loop = [e for e in rows
-                    if e.count >= PROMPT * prof_model.cfg.n_layers]
-            loop_ms = sum(e.self_device_time_total for e in loop) / 1e3
-            n_loop, n_all = (sum(e.count for e in r) for r in (loop, rows))
-            if rows:
-                print(f"{label}: the scan's rows (kernels launched at least "
-                      f"once a token a layer) {loop_ms:.3f} ms of device "
-                      f"time, {n_loop} of {n_all} launches "
-                      f"({100 * n_loop / n_all:.1f} %) [{card}]", flush=True)
+        label = f"{cfg.name} prefill"
+        rows = device_kernels(
+            lambda: model.prefill(params, prompts, cache))
+        report_busy(label, rows, prefill_ms, 1)
+        for what, key in (("the flash forward", "flash_fwd"),
+                          ("the selective-scan forward", "ssm_scan_fwd")):
+            hit = [e for e in rows if key in e.key]
+            if hit:
+                hit_ms = sum(e.self_device_time_total for e in hit) / 1e3
+                print(f"{label}: {what} {hit_ms:.3f} ms of device time "
+                      f"x{sum(e.count for e in hit)}, "
+                      f"{100 * hit_ms / prefill_ms:.1f} % of the "
+                      f"{prefill_ms:.3f} ms prefill [{card}]", flush=True)
 
         def three_steps():
             for i in range(3):
                 model.decode_step(params, tok, cache, PROMPT + i)
         report_busy(f"{cfg.name} decode step", device_kernels(three_steps),
                     decode_ms, 3)
-    del params, cache, got, want, prof_params, prof_cache
+    del params, cache, got, want
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
@@ -1379,22 +1487,27 @@ def hybrid_logits_bar(card, cfg, lm, params, prompts) -> float:
     return bar
 
 
-def dense_serve(card, configs, serve, counters, arch) -> int:
-    """Phase 3 for a dense model: `serve.main` at full width with every
-    count set to 0 just before and read just after (one flash forward per
-    layer, nothing else; tokens in range).  Returns the serve's flash
-    launches."""
+def dense_serve(card, configs, serve, counters, arch) -> dict:
+    """Phase 3 for a dense, MoE or hybrid model: `serve.main` at full width
+    with every count set to 0 just before and read just after (one flash
+    forward per layer; a hybrid's scan once per layer and call; nothing
+    else; tokens in range).  Returns the serve's launches."""
     cfg = configs.get(arch)
-    toks, counts, serve_s = serve_counted(serve, arch, counters)
+    toks, launched, serve_s = serve_counted(serve, arch, counters)
     print(f"serve {arch}: {serve_s:.3f}s end to end (weights init included), "
-          f"launches {counts} [{card}]", flush=True)
-    if counts != {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
-                  "wkv6": 0, "wkv6_bwd": 0}:
-        fail(f"serve {arch} launched {counts}; want flash_attention once "
-             f"per layer ({cfg.n_layers}) and nothing else")
+          f"launches {launched} [{card}]", flush=True)
+    # a hybrid also runs the scan once per layer and call: the prefill and
+    # each of the GEN - 1 decode steps
+    want = counts(flash_attention=cfg.n_layers, **(
+        {"selective_scan": cfg.n_layers * GEN} if cfg.ssm is not None
+        else {}))
+    if launched != want:
+        fail(f"serve {arch} launched {launched}; want {want} "
+             f"(flash_attention once per layer ({cfg.n_layers}), a hybrid's "
+             "scan once per layer and call, nothing else)")
     check_tokens(toks, cfg.vocab, arch)
     del toks
-    return counts["flash_attention"]
+    return launched
 
 
 def reduced_on_gpu(card, configs, lm, arch) -> None:
@@ -1491,13 +1604,16 @@ def full_depth_serve(card, configs, lm, serve, fa, counters, arch) -> dict:
     print(f"serve {arch}: {cfg.n_layers} layers (full depth), d_model "
           f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads x "
           f"{cfg.head_dim}; {held_gb:.3f} GB allocated before it", flush=True)
-    launches = dense_serve(card, configs, serve, counters, arch)
+    launched = dense_serve(card, configs, serve, counters, arch)
     times = serve_numbers(card, cfg, lm, fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"serve {arch}: peak memory {peak_gb:.3f} GB (the serve and the "
           f"prefill / decode timings) [{card}]", flush=True)
     torch.cuda.empty_cache()
-    return {"launches": launches, "peak_gb": peak_gb, **times}
+    scan = ({"scan_launches": launched["selective_scan"]}
+            if cfg.ssm is not None else {})
+    return {"launches": launched["flash_attention"], **scan,
+            "peak_gb": peak_gb, **times}
 
 
 def moe_train_step(card, configs, train) -> None:
@@ -1618,6 +1734,179 @@ def hymba_phase(card, configs, lm, serve, fa, counters) -> tuple:
     served = full_depth_serve(card, configs, lm, serve, fa, counters,
                               HYMBA_ARCH)
     return served, windowed, ssm
+
+
+def hymba_train(card, configs, lm, train, fa, ss, ref, counters) -> tuple:
+    """Phases 3-5 for Hymba-1.5B training (5c, after its serve):
+    `train_path` at every published width and full depth (batch 4 x 2048,
+    fp32 masters, remat full: exactly 2 flash forwards, 1 flash backward,
+    2 scan forwards and 1 scan backward a layer a step), the step through
+    the kernels against the plain twins at HYMBA_CHECK_LAYERS layers, the
+    flash backward at the windowed shape beside SDPA's, and the scan
+    kernels timed at SCAN_MAIN.  Returns (the step's launches, the window
+    backward's timings, the scan's timings)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = configs.get(HYMBA_ARCH)
+    trained = train_path(card, cfg, BATCH, train, counters)
+    cut = cut_config(cfg, HYMBA_CHECK_LAYERS)
+    print(f"train {HYMBA_ARCH} kernels vs plain: every published width, "
+          f"depth cut to {HYMBA_CHECK_LAYERS} of {cfg.n_layers} layers "
+          f"({[(g.kind, g.count, g.window) for g in lm.layer_plan(cut)]}; "
+          "the plain scan's autograd graph saves h for every token, ~0.84 "
+          "GB a layer)", flush=True)
+    train_vs_plain(card, cut, BATCH, lm)
+    window_bwd = time_flash_bwd(fa, ref, HYMBA_WINDOW, card)
+    scan = time_scan(ss, ref, card)
+    torch.cuda.empty_cache()
+    print(f"hymba training phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return trained["launches"], window_bwd, scan
+
+
+def scan_inputs(case, seed: int = 0) -> tuple:
+    """The scan's float32 arguments at one SCAN_CASES case, on the card:
+    (dt, u, b, c, a, h0) with dt = softplus(N(0, 1)) (strong: U[6, 10]),
+    u, B, C ~ N(0, 1), a = -(1 .. N) x e^(0.1 N(0, 1)), h0 ~ 0.3 N or
+    None; then the gradients dy ~ N(0, 1) and dh_last ~ 0.1 N."""
+    bsz, s, di, n, with_h0, strong = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    dt = (6 + 4 * torch.rand((bsz, s, di), generator=g, device="cuda")
+          if strong else torch.nn.functional.softplus(randn(bsz, s, di)))
+    u, b, c = randn(bsz, s, di), randn(bsz, s, n), randn(bsz, s, n)
+    a = -torch.arange(1, n + 1, device="cuda") * torch.exp(
+        0.1 * randn(di, n))
+    h0 = 0.3 * randn(bsz, di, n) if with_h0 else None
+    return (dt, u, b, c, a, h0), randn(bsz, s, di), 0.1 * randn(bsz, di, n)
+
+
+def check_scan(ss, ref) -> tuple:
+    """Phase 2 for the selective scan over SCAN_CASES: the forward's y and
+    h_last against the plain loop and its checkpoints against
+    `ref.ssm_checkpoints` within SCAN_FWD_BAR, y and h_last with
+    checkpoints bitwise equal to serving's (without); the backward's ddt,
+    du, dB, dC, da and dh0 with a random dh_last (and at SCAN_MAIN also
+    without, as training calls it) against `ref.ssm_scan_bwd_plain` as
+    SCAN_BWD_BAR says, all finite; two backward calls at SCAN_MAIN
+    bitwise equal.  Returns the max abs errors (forward y, backward) at
+    SCAN_MAIN without dh_last."""
+    main = None
+    for case in SCAN_CASES:
+        args, dy, dhl = scan_inputs(case)
+        y, hl, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+        y_serve, hl_serve = ss.selective_scan(*args)
+        want_y, want_h = ss.ssm_scan_plain(*args)
+        want_ck = ref.ssm_checkpoints(args[0], args[1], args[2], args[4],
+                                      args[5], ss.CKPT_EVERY)
+        fwd = {"y": rel_err(y, want_y), "h_last": rel_err(hl, want_h),
+               "ckpt": rel_err(ck, want_ck)}
+        y_abs = (y - want_y).abs().max().item()
+        same = torch.equal(y, y_serve) and torch.equal(hl, hl_serve)
+        fwd_ok = (same and max(fwd.values()) <= SCAN_FWD_BAR
+                  and all(torch.isfinite(t).all().item() for t in (y, hl)))
+        for dh_last in ((dhl, None) if case is SCAN_MAIN else (dhl,)):
+            got = ss.selective_scan_bwd(*args, dy, dh_last, ck)
+            want = ref.ssm_scan_bwd_plain(*args, dy, dh_last,
+                                          ckpt_every=ss.CKPT_EVERY)
+            torch.cuda.synchronize()
+            errs, ok = {}, fwd_ok
+            for name, a, b in zip(("ddt", "du", "db", "dc", "da", "dh0"),
+                                  got, want):
+                errs[name] = (a - b).abs().max().item()
+                bar = 1e-4 * max(b.abs().max().item(), 1)
+                ok = (ok and errs[name] <= bar
+                      and torch.isfinite(a).all().item())
+            print(json.dumps({"scan_case": list(case),
+                              "dh_last": dh_last is not None,
+                              "fwd_rel_max_err": fwd,
+                              "fwd_bar": SCAN_FWD_BAR,
+                              "y_with_ckpt_equal": same,
+                              "bwd_max_abs_err": errs,
+                              "bwd_bar": SCAN_BWD_BAR, "ok": ok}),
+                  flush=True)
+            if not ok:
+                fail(f"selective_scan {case}: forward {fwd} (y equal "
+                     f"{same}), backward {errs}")
+            if case is SCAN_MAIN and dh_last is None:
+                main = (y_abs, max(errs.values()))
+        del args, dy, dhl, y, hl, ck, want_y, want_h, want_ck, got, want
+    args, dy, _ = scan_inputs(SCAN_MAIN)
+    _, _, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+    first = ss.selective_scan_bwd(*args, dy, None, ck)
+    second = ss.selective_scan_bwd(*args, dy, None, ck)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(json.dumps({"scan_bwd_deterministic": list(SCAN_MAIN),
+                      "bitwise_equal_ddt_du_db_dc_da_dh0": same}), flush=True)
+    if not all(same):
+        fail(f"selective_scan_bwd {SCAN_MAIN}: two calls differ ({same})")
+    return main
+
+
+def scan_bound(case, backward: bool = False,
+               ckpt: bool = False) -> tuple[float, str]:
+    """Least time (ms) for the scan at one case.  Bytes, each read and
+    written once: the forward reads dt, u, B, C, a (and h0) and writes y
+    and h_last (and, with `ckpt`, h every CKPT_EVERY tokens); the backward
+    reads dt, u, dy, B, C, a and the checkpoints (dh_last as training
+    calls it: none) and writes ddt, du, dB, dC, da and dh0.  Operations:
+    one expf per (b, t, d, n) at PEAK_MUFU, or its fp32 operations (7 a
+    forward, 16 a backward) at PEAK_F32_FLOPS, the larger."""
+    bsz, s, di, n, with_h0 = case[:5]
+    el, bsn, state = bsz * s * di, bsz * s * n, bsz * di * n
+    nck = -(-s // 32)
+    if backward:
+        nbytes = 4 * (5 * el + 4 * bsn + 2 * di * n + state
+                      + bsz * nck * di * n)
+    else:
+        nbytes = 4 * (3 * el + 2 * bsn + di * n + (2 if with_h0 else 1) * state
+                      + (bsz * nck * di * n if ckpt else 0))
+    t_ops = max(el * n / PEAK_MUFU,
+                (16 if backward else 7) * el * n / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_scan(ss, ref, card) -> dict:
+    """Phase 4a for the scan at SCAN_MAIN (Hymba-1.5B's prefill and
+    training shape, no h0): the forward without checkpoints (serving's)
+    and with, beside the plain loop; the backward beside its plain twin,
+    with its two launches by profiler; each with its bound.  Returns
+    {"forward" | "backward": (ms, plain_ms, bound_ms, bound_by)}."""
+    args, dy, _ = scan_inputs(SCAN_MAIN)
+    fwd_ms = time_ms(lambda: ss.selective_scan(*args), 20)
+    ck_ms = time_ms(lambda: ss.selective_scan_fwd(*args, want_ckpt=True), 20)
+    plain_ms = time_ms(lambda: ss.ssm_scan_plain(*args), 2, warmup=1)
+    _, _, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+
+    def bwd():
+        ss.selective_scan_bwd(*args, dy, None, ck)
+    bwd_ms = time_ms(bwd, 20)
+    bwd_plain_ms = time_ms(lambda: ref.ssm_scan_bwd_plain(
+        *args, dy, None, ckpt_every=ss.CKPT_EVERY), 1, warmup=1)
+    rows = device_kernels(lambda: [bwd() for _ in range(10)])
+    parts = ", ".join(f"{re.search(r'ssm_scan_[a-z]+_kernel', e.key)[0]} "
+                      f"{e.self_device_time_total / 1e3 / e.count:.4f} ms "
+                      f"x{e.count}" for e in rows
+                      if "ssm_scan" in e.key) or "not measured"
+    fwd_dev = kernel_device_ms(lambda: ss.selective_scan(*args), "ssm_scan")
+    fwd_b, bwd_b = scan_bound(SCAN_MAIN), scan_bound(SCAN_MAIN, backward=True)
+    ck_b = scan_bound(SCAN_MAIN, ckpt=True)
+    expf_ms = math.prod(SCAN_MAIN[:4]) / PEAK_MUFU * 1e3
+    print(f"selective_scan {SCAN_MAIN[:4]} fp32 without h0: forward "
+          f"{fwd_ms:.4f} ms by CUDA events ("
+          + ("device time not measured" if fwd_dev is None else
+             f"{fwd_dev:.4f} ms device time a launch, profiler")
+          + f"), bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); with checkpoints "
+          f"{ck_ms:.4f} ms (bound {ck_b[0]:.4f} ms, {ck_b[1]}); the plain "
+          f"loop {plain_ms:.4f} ms; backward {bwd_ms:.4f} ms (per launch, "
+          f"profiler: {parts}), bound {bwd_b[0]:.4f} ms ({bwd_b[1]}), plain "
+          f"{bwd_plain_ms:.4f} ms; the expf alone at the MUFU rate "
+          f"{expf_ms:.4f} ms [{card}]", flush=True)
+    return {"forward": (fwd_ms, plain_ms, *fwd_b),
+            "backward": (bwd_ms, bwd_plain_ms, *bwd_b)}
 
 
 def misaligned(t, pad):
@@ -1790,8 +2079,7 @@ def rwkv_path(card, configs, lm, serve, wkv, counters) -> dict:
     toks, launches, serve_s = serve_counted(serve, RWKV_ARCH, counters)
     print(f"serve {RWKV_ARCH}: {serve_s:.3f}s end to end (weights init "
           f"included), launches {launches} [{card}]", flush=True)
-    want = {"wkv6": cfg.n_layers * GEN, "flash_attention": 0,
-            "flash_attention_bwd": 0, "wkv6_bwd": 0}
+    want = counts(wkv6=cfg.n_layers * GEN)
     if launches != want:
         fail(f"serve {RWKV_ARCH} launched {launches}; want {want} (one "
              "wkv6 per layer for the prefill and each of the "
@@ -2838,6 +3126,7 @@ def main() -> int:
     import repro_torch.configs as configs
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import wkv6 as wkv
     from repro_torch.launch import serve, train
     from repro_torch.models import lm
@@ -2860,23 +3149,28 @@ def main() -> int:
             print(f"  {name}: {row['kernel']}: {row['registers']} registers,"
                   f" {row['spill']} bytes spill stores", flush=True)
             # the tensor-core kernels: no spills, no serialized wgmma; the
-            # wkv6 backward's span walk: no spills
+            # wkv6 backward's span walk and the scan kernels: no spills
             if "_bf16<" in row["kernel"] and (row["spill"] or row["c75"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled, "
                      f"{row['c75']}")
-            if "wkv6_pair_kernel" in row["kernel"] and row["spill"]:
+            if (("wkv6_pair_kernel" in row["kernel"]
+                 or "ssm_scan" in row["kernel"]) and row["spill"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled")
 
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)
     wkv_main_err = check_wkv6(wkv)
     wkv_bwd_err = check_wkv6_bwd(wkv, ref)
+    scan_errs = check_scan(ss, ref)
 
     # 3-5 for the dense main paths, TinyLlama-1.1B and Gemma-7B (hd 256)
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd,
-                "wkv6": wkv.wkv6, "wkv6_bwd": wkv.wkv6_bwd}
-    launches = dense_serve(card, configs, serve, counters, ARCH)
+                "wkv6": wkv.wkv6, "wkv6_bwd": wkv.wkv6_bwd,
+                "selective_scan": ss.selective_scan,
+                "selective_scan_bwd": ss.selective_scan_bwd}
+    launches = dense_serve(card, configs, serve, counters,
+                           ARCH)["flash_attention"]
 
     # 4a. kernel timings at the main path's shape, at hd 128 and hd 256
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(fa, MAIN, card)
@@ -2912,7 +3206,8 @@ def main() -> int:
     # backward at the shape its training gives the kernel.  Then Gemma-7B
     # trains at full width and GEMMA_TRAIN_LAYERS deep, through the hd-256
     # forward (with lse) and backward.
-    gemma_launches = dense_serve(card, configs, serve, counters, GEMMA_ARCH)
+    gemma_launches = dense_serve(card, configs, serve, counters,
+                                 GEMMA_ARCH)["flash_attention"]
     gemma_t = time_flash(fa, GEMMA, card)
     gemma_bwd = time_flash_bwd(fa, ref, GEMMA_B2, card)
     bwd_parts(fa, GEMMA_B2, card)
@@ -2943,9 +3238,13 @@ def main() -> int:
     moe_train_step(card, configs, train)
 
     # 5c. Hymba-1.5B, last of the models: the SSM block, the windowed
-    # flash forward at 25 heads, the serve at full width and depth
+    # flash forward at 25 heads, the serve at full width and depth, then
+    # its training at full width and depth (the flash backward with the
+    # window, the scan's forward with checkpoints and its backward)
     served[HYMBA_ARCH], hymba_t, hymba_ssm = hymba_phase(
         card, configs, lm, serve, fa, counters)
+    hymba_step, hymba_bwd, scan_t = hymba_train(card, configs, lm, train, fa,
+                                                ss, ref, counters)
 
     # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
     # released
@@ -2963,6 +3262,11 @@ def main() -> int:
     bwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "replaces": "src/repro/kernels/ref.py:106"}
+    # no TPU kernel: the scan replaces the lax.scan of the SSM block and,
+    # backward, its VJP; no PyTorch call computes either (library_ms null)
+    scan_src = {"route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+                "replaces": "src/repro/models/blocks.py:286"}
     print(json.dumps({"kernels": [{
         "name": "flash_attention", **fwd_src,
         "launches": launches, "max_abs_err": errs[MAIN][0], "ms": ms,
@@ -2990,8 +3294,25 @@ def main() -> int:
         "launches": gemma_trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[GEMMA_B2][1], "ms": gemma_bwd[0],
         "plain_ms": gemma_bwd[1], "bound_ms": gemma_bwd[3],
-        "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]},
-        wkv_entry, wkv_bwd_entry]}))
+        "bound_by": gemma_bwd[4], "library_ms": gemma_bwd[2]}, {
+        # the same wrapper and source with the 1024-key window: Hymba-1.5B's
+        # training (its launches: 29 windowed, 3 global)
+        "name": "flash_attention_bwd_window", **bwd_src,
+        "launches": hymba_step["flash_attention_bwd"],
+        "max_abs_err": errs[HYMBA_WINDOW][1], "ms": hymba_bwd[0],
+        "plain_ms": hymba_bwd[1], "bound_ms": hymba_bwd[3],
+        "bound_by": hymba_bwd[4], "library_ms": hymba_bwd[2]},
+        wkv_entry, wkv_bwd_entry, {
+        "name": "selective_scan", **scan_src,
+        "launches": served[HYMBA_ARCH]["scan_launches"],
+        "max_abs_err": scan_errs[0], "ms": scan_t["forward"][0],
+        "plain_ms": scan_t["forward"][1], "bound_ms": scan_t["forward"][2],
+        "bound_by": scan_t["forward"][3], "library_ms": None}, {
+        "name": "selective_scan_bwd", **scan_src,
+        "launches": hymba_step["selective_scan_bwd"],
+        "max_abs_err": scan_errs[1], "ms": scan_t["backward"][0],
+        "plain_ms": scan_t["backward"][1], "bound_ms": scan_t["backward"][2],
+        "bound_by": scan_t["backward"][3], "library_ms": None}]}))
     print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped,
                       "hymba_ssm_block": hymba_ssm}))
     print(json.dumps({"pipeline": pipeline}))

@@ -15,6 +15,10 @@ gradient can reach the call its forward writes no checkpoints and saves
 nothing), and its plain twin, which autograd differentiates, for CPU
 tensors.  Both return the final state (the JAX dispatcher's Pallas path
 returns None there).
+
+`ssm_scan(...)` runs the selective scan of the SSM: the CUDA kernels for
+CUDA tensors, through `SelectiveScan` (likewise), and the plain loop over
+tokens, which autograd differentiates, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import wkv6 as wkv
 
 # below this q-length, naive SDPA is used (cheapest at small S)
@@ -70,3 +75,23 @@ def rwkv_mix(r, k, v, w, u, *, s0=None, force: str | None = None):
     if impl == "plain":
         return wkv.wkv6_plain(r, k, v, w, u, s0)
     raise ValueError(f"rwkv_mix: force={impl!r} not in ('kernel', 'plain')")
+
+
+def ssm_scan(dt, u, b, c, a, h0=None, force: str | None = None):
+    """The selective scan.  dt, u: (B,S,D); b, c: (B,S,N); a: (D,N); h0:
+    (B,D,N) or None (zeros); all float32 for the kernel.  `force` is
+    "kernel" (needs CUDA tensors) or "plain" (the loop, on any device;
+    "naive", the attention oracle's name, takes it too, so a model built
+    with force="naive" runs every oracle); both are differentiable.
+    Returns (y (B,S,D), h_last (B,D,N)), both in dt's dtype."""
+    impl = force or ("kernel" if dt.is_cuda else "plain")
+    if impl == "kernel":
+        if not dt.is_cuda:
+            raise ValueError("ssm_scan(force='kernel') needs CUDA tensors; "
+                             f"got {dt.device}")
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (dt, u, b, c, a, h0))
+        return ss.SelectiveScan.apply(dt, u, b, c, a, h0, grad)
+    if impl in ("plain", "naive"):
+        return ss.ssm_scan_plain(dt, u, b, c, a, h0)
+    raise ValueError(f"ssm_scan: force={impl!r} not in IMPLS {IMPLS}")

@@ -11,7 +11,9 @@ forward's `skv // block_k`, R5) or raising (its VJP's reshape, R8).
 `wkv6_ref` is the sequential WKV6 recurrence, the plain twin of the CUDA
 forward kernel in `wkv6.py`; autograd differentiates it as it stands.
 `wkv6_bwd_plain` is its reverse walk, the plain twin of the CUDA backward,
-checkpoints and all.
+checkpoints and all.  `ssm_scan_bwd_plain` is the selective scan's
+reverse walk (the plain twin of the CUDA backward in `selective_scan.py`),
+from the states `ssm_checkpoints` gives.
 """
 
 from __future__ import annotations
@@ -313,3 +315,67 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final, *, ckpt_every: int = 32):
             du = du + rt * kt * c_t
             g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
     return dr, dk, dv, dw, du.sum(0), g
+
+
+def ssm_checkpoints(dt, u, b, a, h0, every: int):
+    """h before tokens 0, every, 2 every, ... of the selective scan
+    (`selective_scan.ssm_scan_plain`'s recurrence), in dt's dtype:
+    (B,ceil(S/every),D,N), what the CUDA forward writes as its
+    checkpoints."""
+    bsz, s, di = dt.shape
+    u = u.to(dt.dtype)
+    h = (torch.zeros((bsz, di, a.shape[-1]), dtype=dt.dtype,
+                     device=dt.device) if h0 is None else h0.to(dt.dtype))
+    out = []
+    for t in range(s):
+        if t % every == 0:
+            out.append(h)
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * b[:, t, None, :])
+    return torch.stack(out, 1)
+
+
+def ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last, *,
+                       ckpt_every: int = 32):
+    """The VJP of the selective scan as the CUDA backward computes it, in
+    dt's dtype.  dy: (B,S,D) or None, dh_last: (B,D,N) or None (zeros).
+    With G_t = dL/dh_t and R = dh_last, walking t from S - 1 down to 0:
+        G_t = R + dy_t C_t,   R <- decay_t G_t   (dh0 = R at the end)
+        dC_t = sum_d dy_t h_t,   dB_t = sum_d G_t dt_t u_t
+        du_t = dt_t sum_n G_t B_t
+        ddt_t = u_t sum_n G_t B_t + sum_n G_t h_{t-1} decay_t a
+        da = sum_{b,t} G_t h_{t-1} decay_t dt_t
+    with decay_t = exp(dt_t a).  h_{t-1} is recomputed forwards inside
+    each `ckpt_every`-token span from the state at the span's start
+    (`ssm_checkpoints`, as the kernel's), never by dividing by the decay,
+    which underflows to 0.  Returns (ddt, du (B,S,D), db, dc (B,S,N), da
+    (D,N), dh0 (B,D,N))."""
+    bsz, s, di = dt.shape
+    f = dt.dtype
+    u, b, c, a = (t.to(f) for t in (u, b, c, a))
+    dy = torch.zeros_like(dt) if dy is None else dy.to(f)
+    ckpts = ssm_checkpoints(dt, u, b, a, h0, ckpt_every)
+    g = (torch.zeros((bsz, di, a.shape[-1]), dtype=f, device=dt.device)
+         if dh_last is None else dh_last.to(f).clone())
+    ddt, du = torch.empty_like(dt), torch.empty_like(dt)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(a)
+    for ck in reversed(range(ckpts.shape[1])):
+        start, stop = ck * ckpt_every, min(s, (ck + 1) * ckpt_every)
+        hist = [ckpts[:, ck]]
+        for t in range(start, stop):
+            hist.append(torch.exp(dt[:, t, :, None] * a) * hist[-1]
+                        + (dt[:, t] * u[:, t])[..., None] * b[:, t, None, :])
+        for t in reversed(range(start, stop)):
+            dtt, ut, dyt = dt[:, t], u[:, t], dy[:, t]
+            dec = torch.exp(dtt[..., None] * a)
+            gt = g + dyt[..., None] * c[:, t, None, :]
+            dc[:, t] = (dyt[..., None] * hist[t - start + 1]).sum(1)
+            db[:, t] = (gt * (dtt * ut)[..., None]).sum(1)
+            gb = (gt * b[:, t, None, :]).sum(-1)
+            ghd = gt * hist[t - start] * dec
+            du[:, t] = dtt * gb
+            ddt[:, t] = ut * gb + (ghd * a).sum(-1)
+            da = da + (ghd * dtt[..., None]).sum(0)
+            g = dec * gt
+    return ddt, du, db, dc, da, g

@@ -8,10 +8,10 @@ Wires config -> model (fp32 master params) -> data pipeline -> AdamW
 checkpoint / restart, optional fault injection).  One device, no mesh: it
 runs on `cuda` unless `--device cpu` is given, and without a GPU and
 without that flag it raises.  On the GPU every attention call at
-Sq >= 2048 runs the flash forward and backward kernels, and every RWKV6
-time-mix the wkv6 forward and backward kernels; the dense family and
-RWKV6 train there, as on the CPU.  `build_trainer` refuses the hybrid
-(Hymba) family, which serves but does not train yet.
+Sq >= 2048 runs the flash forward and backward kernels, every RWKV6
+time-mix the wkv6 forward and backward kernels, and every SSM of the
+hybrid (Hymba) the selective-scan forward and backward kernels; the
+dense family, the hybrid and RWKV6 train there, as on the CPU.
 """
 
 from __future__ import annotations
@@ -39,9 +39,6 @@ def build_trainer(cfg, *, device, compression: str = "none",
     and the gradient compressor.  As in the JAX driver, the compressor is
     built and not applied: on one device no gradient crosses a link."""
     dev = torch.device(device)
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training the Mamba hybrid block is not ported yet")
     model = lm_mod.build(cfg, remat=remat)
     step = make_train_step(model.loss, AdamWConfig(schedule=schedule_for(cfg)))
     params = model.init(torch.Generator(dev).manual_seed(0),

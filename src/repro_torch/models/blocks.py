@@ -13,9 +13,9 @@ LoRA `w_lora_a` / `w_lora_b` and the bonus `u`.
 The MoE dispatches by index where the JAX block multiplies by one-hot
 tensors; the kept rows, the dropped (token, slot) pairs and the rounding
 points are the same.  The WKV recurrence goes through `ops.rwkv_mix` (the
-CUDA kernel on the GPU) where the JAX block runs its own `lax.scan`.  The
-SSM's selective scan is a `lax.scan` with no Pallas kernel in the JAX
-package, and a Python loop over tokens here.  As in the JAX package, the
+CUDA kernel on the GPU) where the JAX block runs its own `lax.scan`, and
+so does the SSM's selective scan, through `ops.ssm_scan` (a `lax.scan`
+with no Pallas kernel in the JAX package).  As in the JAX package, the
 state handed back between calls (RWKV's `last_x` and WKV state `s`, the
 SSM's conv tail and `h`) is bf16.
 """
@@ -210,17 +210,18 @@ def depthwise_conv(conv_in: torch.Tensor, kern: torch.Tensor):
 
 
 def ssm(p: Params, dims: SSMDims, x: torch.Tensor, *,
-        state: Params | None = None):
+        state: Params | None = None, force: str | None = None):
     """Selective scan.  x: (B,S,d); state: {"conv": (B,K-1,di), "h":
-    (B,di,N)} or None (zeros).  Returns (out, new_state), the state bf16.
+    (B,di,N)} or None (zeros).  `force` goes to `ops.ssm_scan`.  Returns
+    (out, new_state), the state bf16.
 
     The rounding follows the JAX block: the depthwise conv is a sum of K
     products in x's dtype, each product and partial sum rounded, in the
     order i = 0..K-1 (not a conv1d, which accumulates in fp32); dt, B, C,
     the decay and the drive are fp32, and so is the scan; y is rounded to
-    x's dtype before the skip and the gate.  The scan walks the tokens one
-    by one (three launches a token on the GPU); the (B,S,di,N) fp32 decay
-    and drive are freed when the call returns."""
+    x's dtype before the skip and the gate.  The scan is one kernel launch
+    on CUDA tensors (decay and drive formed in registers) and the plain
+    loop over tokens on the CPU."""
     b, s, _ = x.shape
     di, n, kw = dims.d_inner, dims.state_dim, dims.conv_k
     ux, z = _matmul(x, p["in_proj"]).chunk(2, dim=-1)
@@ -234,19 +235,10 @@ def ssm(p: Params, dims: SSMDims, x: torch.Tensor, *,
     bmat = proj[..., dims.dtr:dims.dtr + n].float()          # (B,S,N)
     cmat = proj[..., dims.dtr + n:].float()                  # (B,S,N)
     a = -torch.exp(p["a_log"].float())                       # (di,N)
-    decay = torch.exp(dt[..., None] * a)                     # (B,S,di,N)
-    drive = (dt * u.float())[..., None] * bmat[:, :, None, :]
-
-    h = (torch.zeros(b, di, n, dtype=torch.float32, device=x.device)
-         if state is None else state["h"].float())
-    ys = []   # y_t = einsum("bdn,bn->bd", h, c_t), as the bmm it lowers to
-    for dec, drv, c in zip(decay.unbind(1), drive.unbind(1),
-                           cmat[..., None].unbind(1)):
-        h = dec * h + drv
-        ys.append(torch.bmm(h, c))
-    del decay, drive, dec, drv
-    y = torch.cat(ys, dim=2).transpose(1, 2).to(u.dtype)    # (B,S,di)
-    y = y + u * p["d_skip"].to(u.dtype)
+    y, h = ops.ssm_scan(dt, u.float(), bmat, cmat, a,
+                        None if state is None else state["h"].float(),
+                        force=force)
+    y = y.to(u.dtype) + u * p["d_skip"].to(u.dtype)          # (B,S,di)
     out = _matmul(y * F.silu(z), p["out_proj"])
     return out, {"conv": conv_in[:, s:].to(torch.bfloat16),
                  "h": h.to(torch.bfloat16)}

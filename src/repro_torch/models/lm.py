@@ -154,7 +154,7 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
     if seg.kind == "hybrid":
         ssm_out, ssm_state = blocks.ssm(
             lp["ssm"], ssm_dims(cfg), h,
-            state=None if cache is None else cache["ssm"])
+            state=None if cache is None else cache["ssm"], force=force)
         if cache is not None:
             cache["ssm"] = ssm_state
         attn_out = 0.5 * (layers.rmsnorm(lp["ln_attn_out"], attn_out)
@@ -198,8 +198,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 class LM:
     """Decoder LM: dense, MoE, hybrid or RWKV6.  `force` is handed to the kernel
-    dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` on every
-    call (None: dispatch by length and device).
+    dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` and
+    `ops.ssm_scan` on every call (None: dispatch by length and device).
 
     `remat` sets what a block keeps for its backward when autograd records
     it (training; serving never recomputes): "full" keeps only the block's

@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention forward and backward, WKV6 forward and
-backward) against their plain twins, and the float64 DeepNVM++ pipeline
+backward, the selective scan forward and backward) against their plain
+twins, and the float64 DeepNVM++ pipeline
 (the engines, the golden specs, the DTCO analyses, the sweep service and
 the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
 relative, equal tuned organizations; the inverse designer's gradients
@@ -22,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine, sweep, tech, workload_engine, workloads
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import wkv6 as wkv
 from repro_torch.models import lm
 
@@ -762,6 +764,115 @@ def test_hymba_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
             :, -1].argmax(-1, keepdim=True)
     assert fa.flash_attention.launches == before
     assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+
+# ---------------------------------------------------------------------------
+# The selective scan (Hymba's SSM): the kernels against the plain twins
+# ---------------------------------------------------------------------------
+
+
+def _scan_args(dev, b, s, d, n, with_h0=True, strong=False, seed=0):
+    """(dt, u, B, C, a, h0), dy, dh_last on the card; `strong` draws dt in
+    [6, 10], so exp(dt a) underflows to 0 in the upper states."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    dt = (6 + 4 * torch.rand((b, s, d), generator=g, device=dev) if strong
+          else torch.nn.functional.softplus(randn(b, s, d)))
+    a = -torch.arange(1, n + 1, device=dev) * torch.exp(0.1 * randn(d, n))
+    args = (dt, randn(b, s, d), randn(b, s, n), randn(b, s, n), a,
+            0.3 * randn(b, d, n) if with_h0 else None)
+    return args, randn(b, s, d), 0.1 * randn(b, d, n)
+
+
+@pytest.mark.parametrize("shape,with_h0,strong", [
+    ((2, 1, 1600, 16), True, False),
+    ((2, 33, 64, 4), False, False),
+    ((2, 65, 77, 4), True, False),
+    ((3, 100, 77, 16), False, True),
+    ((2, 300, 1600, 16), True, False),
+])
+def test_scan_kernels_match_plain(dev, shape, with_h0, strong):
+    """The forward's y and h_last within 1e-5 (relative max) of the plain
+    loop, its checkpoints of `ref.ssm_checkpoints`; the backward's six
+    gradients within 1e-4 x max(max |want|, 1) of `ref.ssm_scan_bwd_plain`,
+    finite."""
+    args, dy, dh = _scan_args(dev, *shape, with_h0, strong)
+    y, h, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+    want_y, want_h = ss.ssm_scan_plain(*args)
+    want_ck = ref.ssm_checkpoints(args[0], args[1], args[2], args[4],
+                                  args[5], ss.CKPT_EVERY)
+    for got, want in ((y, want_y), (h, want_h), (ck, want_ck)):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    got = ss.selective_scan_bwd(*args, dy, dh, ck)
+    want = ref.ssm_scan_bwd_plain(*args, dy, dh)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(),
+                                                        1.0)
+
+
+def test_scan_backward_is_deterministic(dev):
+    """Two backward calls at Hymba-1.5B's training shape (4, 2048, 1600,
+    16) give bitwise-equal gradients: no atomics."""
+    args, dy, _ = _scan_args(dev, 4, 2048, 1600, 16, with_h0=False)
+    _, _, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+    first = ss.selective_scan_bwd(*args, dy, None, ck)
+    second = ss.selective_scan_bwd(*args, dy, None, ck)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_scan_function_under_checkpoint(dev):
+    """`ops.ssm_scan` through `SelectiveScan` under
+    `torch.utils.checkpoint(use_reentrant=False)` gives the gradients it
+    gives without (bitwise: the recompute runs the same kernel), with two
+    forward launches and one backward; and the raw wrapper raises for an
+    input that requires grad."""
+    args, dy, dh = _scan_args(dev, 2, 100, 64, 16)
+    ins = [t.requires_grad_(True) for t in args]
+
+    def run(*xs):
+        y, h = ops.ssm_scan(*xs)
+        return (y * dy).sum() + (h * dh).sum()
+    want = torch.autograd.grad(run(*ins), ins)
+    before = (ss.selective_scan.launches, ss.selective_scan_bwd.launches)
+    got = torch.autograd.grad(
+        torch.utils.checkpoint.checkpoint(run, *ins, use_reentrant=False),
+        ins)
+    assert (ss.selective_scan.launches - before[0],
+            ss.selective_scan_bwd.launches - before[1]) == (2, 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ss.selective_scan(*ins)
+
+
+def test_hymba_model_train_step_launches_scan_and_flash(dev):
+    """One loss + backward of the reduced hymba-1.5b at 2 x 2048 with remat
+    full: per layer two flash forwards and one backward, two scan forwards
+    (one writing checkpoints, its recompute) and one scan backward; every
+    gradient finite and the loss within 2e-2 of the plain twins'."""
+    cfg = _hymba_reduced()
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                dtype=torch.float32)
+    leaves = torch.utils._pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD + 1),
+                           device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    counters = (fa.flash_attention, fa.flash_attention_bwd,
+                ss.selective_scan, ss.selective_scan_bwd)
+    before = [c.launches for c in counters]
+    loss = lm.build(cfg).loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    n = cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        2 * n, n, 2 * n, n]
+    assert all(torch.isfinite(g).all() for g in grads)
+    want = lm.build(cfg, force="plain").loss(params, batch)
+    assert abs(loss.item() - want.item()) <= 2e-2 * abs(want.item())
 
 
 # ---------------------------------------------------------------------------

@@ -275,20 +275,17 @@ def test_train_main_needs_a_gpu_without_device_cpu(tmp_path):
 
 
 def test_build_trainer_refuses_non_dense_on_cuda():
-    """A family the port does not build (MLA + MTP) is refused on cuda,
-    and so is one it serves but does not train (the Hymba hybrid); RWKV6
-    is not, since it trains through the wkv6 kernels: on a machine
-    without CUDA it gets as far as the device, and there it raises
-    RuntimeError, not NotImplementedError."""
+    """A family the port does not build (MLA + MTP) is refused on cuda;
+    RWKV6 and the Hymba hybrid are not, since they train through the wkv6
+    and selective-scan kernels: on a machine without CUDA each gets as far
+    as the device, and there it raises RuntimeError, not
+    NotImplementedError."""
     with pytest.raises(NotImplementedError, match="not ported"):
         train.build_trainer(configs.get("deepseek-v3-671b", reduced=True),
                             device="cuda")
-    with pytest.raises(NotImplementedError,
-                       match="training the Mamba hybrid block is not ported"):
-        train.build_trainer(configs.get("hymba-1.5b", reduced=True),
-                            device="cuda")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError) as err:
-            train.build_trainer(configs.get("rwkv6-3b", reduced=True),
-                                device="cuda")
-        assert not isinstance(err.value, NotImplementedError)
+        for arch in ("rwkv6-3b", "hymba-1.5b"):
+            with pytest.raises(RuntimeError) as err:
+                train.build_trainer(configs.get(arch, reduced=True),
+                                    device="cuda")
+            assert not isinstance(err.value, NotImplementedError)

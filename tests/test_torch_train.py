@@ -338,6 +338,43 @@ def test_build_trainer_steps_a_depth_cut_config():
     assert not torch.equal(state.params["embed"]["table"], table)
 
 
+def test_hymba_loss_and_grads_match_jax():
+    """The reduced hybrid (hymba-1.5b: layers 0 and 2 global, layer 1 with
+    its 16-token window; the SSM's scan the plain loop here, the JAX
+    block's `lax.scan` there) against `jax.value_and_grad(model.loss)` at
+    batch 2 x 32, with the bars above."""
+    _check_grads("hymba-1.5b", None, (2, 32))
+
+
+def test_hymba_two_layers_at_seq_2048_match_jax():
+    """Two reduced hybrid layers at 2048 positions, layer 0 global and
+    layer 1 windowed (16 keys), so both sides differentiate their chunked
+    flash attention, global and windowed, beside the scan inside the LM."""
+    _check_grads("hymba-1.5b", 2, (1, 2048))
+
+
+def test_hymba_trains_on_the_cpu(tmp_path):
+    """`build_trainer` on the reduced hybrid: every leaf's gradient (the
+    SSM's a_log, d_skip and conv among them) finite and nonzero, one step
+    with a finite loss that moves the params; then the train CLI at
+    `--reduced --device cpu --steps 2`: two finite losses."""
+    cfg = tconfigs.get("hymba-1.5b", reduced=True)
+    model, state, step, _ = ttrain.build_trainer(cfg, device="cpu")
+    _, tb = _batch(cfg.vocab, (2, 32))
+    tp = pytree.tree_map(lambda t: t.detach().clone(), state.params)
+    _, grads = _port_grads(model, tp, tb)
+    for name, g in _flat(_stacked(grads)).items():
+        assert torch.isfinite(g).all() and torch.count_nonzero(g) > 0, name
+    a_log = state.params["seg0"][0]["ssm"]["a_log"].detach().clone()
+    state, metrics = step(state, tb)
+    assert state.step == 1 and np.isfinite(metrics["loss"].item())
+    assert not torch.equal(state.params["seg0"][0]["ssm"]["a_log"], a_log)
+    losses = ttrain.main(["--arch", "hymba-1.5b", "--reduced", "--device",
+                          "cpu", "--steps", "2", "--batch", "2", "--seq",
+                          "32", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert len(losses) == 2 and all(np.isfinite(x) for x in losses)
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_grads_equal_no_remat(remat):
     jm, jp = _jax_model("tinyllama-1.1b")

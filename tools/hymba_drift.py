@@ -5,14 +5,15 @@ on the GPU machine:
     python3 tools/hymba_drift.py
 
 Builds the kernels, initialises Hymba-1.5B at full width and depth (seed
-0), and runs one 4 x 2048 prompt through four residual streams: the flash
-kernel, its plain twin, the naive oracle and fp32 activations through the
-plain twins, printing after every layer each stream's relative max
+0), and runs one 4 x 2048 prompt through four residual streams: the
+kernels (flash attention, the selective scan), their plain twins, the
+naive oracle and fp32 activations through the plain twins, printing
+after every layer each stream's relative max
 distance from the plain twin's (and the kernel's from fp32), and the
 block's own kernel-vs-plain distance on the plain twin's input; then the
 last position's logits of each, the prefills' logits, and one full-depth
-prefill under torch.profiler with the time it took to aggregate (~200 k
-launches: why chip_smoke profiles a depth cut).  Imports no JAX."""
+prefill under torch.profiler with the time it took to aggregate.  Imports
+no JAX."""
 import sys
 import time
 from pathlib import Path
