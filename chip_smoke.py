@@ -33,7 +33,8 @@ Phases, each fatal on failure:
      against `ref.wkv6_grad_checkpoints`, and two backward calls at (4,
      2048, 40, 64) bitwise equal; the wkv6 backward's span walk must not
      spill (phase 1); the selective scan over SCAN_CASES (N 4 and 16; D
-     64, 77, 1600; S 1 to 2048; with and without h0; strong decay): y,
+     64, 77, 1600; S 1 to 2048, at the kernels' chunk boundaries among
+     them; with and without h0; strong decay): y,
      h_last and the checkpoints within 1e-5 (relative max) of the plain
      loop and `ref.ssm_checkpoints`, y and h_last with checkpoints
      bitwise equal to serving's, the backward's ddt, du, dB, dC, da and
@@ -131,7 +132,8 @@ Phases, each fatal on failure:
      printed beside them), the flash backward at (4, 2048, 25, 64) with
      the 1024-key window beside SDPA's backward given the boolean mask,
      and the scan kernels timed at (4, 2048, 1600, 16) beside the loop and
-     its backward's plain twin, with their bounds;
+     its backward's plain twin, with their bounds, each call's launches
+     by profiler device time;
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -354,13 +356,16 @@ HYMBA_ARCH = "hymba-1.5b"
 SSM_BLOCK_REL = 1e-4
 HYMBA_CHECK_LAYERS = 3
 # The selective scan's kernels against their plain twins (phase 2):
-# (B, S, D, N, with_h0, strong).  S = 1 (a decode step), spans around
-# CKPT_EVERY = 32 (31, 32, 33, 65, 100) and 2048; D = 64 (the reduced
-# Hymba), 1600 (Hymba-1.5B) and 77 (a block of 32 channels part empty); N
-# = 4 (reduced) and 16 (published).  `strong` draws dt in [6, 10], so
-# exp(dt a) underflows to 0 in the upper states (a = -1 .. -N).  y and
-# h_last within SCAN_FWD_BAR (relative max) of the loop; every gradient as
-# SCAN_BWD_BAR says, against `ref.ssm_scan_bwd_plain`.
+# (B, S, D, N, with_h0, strong).  S = 1 (a decode step), spans around the
+# checkpoints (31, 32, 33, 65: CKPT_EVERY is 16), the chunks of CHUNK =
+# 96 tokens that run in parallel (95, 96, 97 and 2048; 100, 186 and 236
+# end in a ragged chunk); D = 64 (the reduced Hymba), 1600
+# (Hymba-1.5B) and 77 (a block of 64 channels part empty, and rows that
+# break 16-byte copies); N = 4 (reduced) and 16 (published).  `strong`
+# draws dt in [6, 10], so exp(dt a) underflows to 0 in the upper states
+# (a = -1 .. -N), and so does each chunk's carry.  y and h_last within
+# SCAN_FWD_BAR (relative max) of the loop; every gradient as SCAN_BWD_BAR
+# says, against `ref.ssm_scan_bwd_plain`.
 SCAN_CASES = [
     (4, 1, 1600, 16, True, False),
     (2, 31, 64, 4, False, False),
@@ -368,6 +373,11 @@ SCAN_CASES = [
     (2, 33, 1600, 16, True, False),
     (2, 65, 77, 4, True, False),
     (3, 100, 77, 16, False, True),
+    (2, 95, 64, 4, True, False),
+    (2, 96, 1600, 16, False, False),
+    (2, 97, 64, 16, True, False),
+    (2, 186, 77, 16, True, False),
+    (2, 236, 77, 4, False, True),
     (4, 2048, 64, 4, True, False),
     (4, 2048, 1600, 16, False, False),
 ]
@@ -1357,12 +1367,16 @@ def serve_numbers(card, cfg, lm, fa) -> dict:
             lambda: model.prefill(params, prompts, cache))
         report_busy(label, rows, prefill_ms, 1)
         for what, key in (("the flash forward", "flash_fwd"),
-                          ("the selective-scan forward", "ssm_scan_fwd")):
+                          ("the selective-scan forward", "ssm_scan")):
             hit = [e for e in rows if key in e.key]
             if hit:
                 hit_ms = sum(e.self_device_time_total for e in hit) / 1e3
+                parts = "" if key != "ssm_scan" else " (" + ", ".join(
+                    f"{re.search(r'ssm_scan_[a-z]+_kernel', e.key)[0]} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                    for e in hit) + ")"
                 print(f"{label}: {what} {hit_ms:.3f} ms of device time "
-                      f"x{sum(e.count for e in hit)}, "
+                      f"x{sum(e.count for e in hit)}{parts}, "
                       f"{100 * hit_ms / prefill_ms:.1f} % of the "
                       f"{prefill_ms:.3f} ms prefill [{card}]", flush=True)
 
@@ -1794,6 +1808,9 @@ def check_scan(ss, ref) -> tuple:
     bitwise equal.  Returns the max abs errors (forward y, backward) at
     SCAN_MAIN without dh_last."""
     main = None
+    edges = {ss.CHUNK - 1, ss.CHUNK, ss.CHUNK + 1}
+    if not edges <= {case[1] for case in SCAN_CASES}:
+        fail(f"SCAN_CASES miss the chunk edges S = {sorted(edges)}")
     for case in SCAN_CASES:
         args, dy, dhl = scan_inputs(case)
         y, hl, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
@@ -1869,12 +1886,23 @@ def scan_bound(case, backward: bool = False,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def scan_launches(fn, calls: int = 10) -> str:
+    """Each launch of a scan call by profiler device time: the kernel's
+    name, its mean ms a launch and how many launches of `calls` calls of fn
+    the profile holds (a profile can lose the first calls' kernels)."""
+    rows = [e for e in device_kernels(lambda: [fn() for _ in range(calls)])
+            if "ssm_scan" in e.key]
+    return ", ".join(f"{re.search(r'ssm_scan_[a-z]+_kernel', e.key)[0]} "
+                     f"{e.self_device_time_total / 1e3 / e.count:.4f} ms "
+                     f"({e.count} launches)" for e in rows) or "not measured"
+
+
 def time_scan(ss, ref, card) -> dict:
     """Phase 4a for the scan at SCAN_MAIN (Hymba-1.5B's prefill and
     training shape, no h0): the forward without checkpoints (serving's)
-    and with, beside the plain loop; the backward beside its plain twin,
-    with its two launches by profiler; each with its bound.  Returns
-    {"forward" | "backward": (ms, plain_ms, bound_ms, bound_by)}."""
+    and with, beside the plain loop; the backward beside its plain twin;
+    each call's launches by profiler device time; each with its bound.
+    Returns {"forward" | "backward": (ms, plain_ms, bound_ms, bound_by)}."""
     args, dy, _ = scan_inputs(SCAN_MAIN)
     fwd_ms = time_ms(lambda: ss.selective_scan(*args), 20)
     ck_ms = time_ms(lambda: ss.selective_scan_fwd(*args, want_ckpt=True), 20)
@@ -1886,25 +1914,24 @@ def time_scan(ss, ref, card) -> dict:
     bwd_ms = time_ms(bwd, 20)
     bwd_plain_ms = time_ms(lambda: ref.ssm_scan_bwd_plain(
         *args, dy, None, ckpt_every=ss.CKPT_EVERY), 1, warmup=1)
-    rows = device_kernels(lambda: [bwd() for _ in range(10)])
-    parts = ", ".join(f"{re.search(r'ssm_scan_[a-z]+_kernel', e.key)[0]} "
-                      f"{e.self_device_time_total / 1e3 / e.count:.4f} ms "
-                      f"x{e.count}" for e in rows
-                      if "ssm_scan" in e.key) or "not measured"
-    fwd_dev = kernel_device_ms(lambda: ss.selective_scan(*args), "ssm_scan")
+    parts = {"forward": scan_launches(lambda: ss.selective_scan(*args)),
+             "with checkpoints": scan_launches(
+                 lambda: ss.selective_scan_fwd(*args, want_ckpt=True)),
+             "backward": scan_launches(bwd)}
     fwd_b, bwd_b = scan_bound(SCAN_MAIN), scan_bound(SCAN_MAIN, backward=True)
     ck_b = scan_bound(SCAN_MAIN, ckpt=True)
     expf_ms = math.prod(SCAN_MAIN[:4]) / PEAK_MUFU * 1e3
-    print(f"selective_scan {SCAN_MAIN[:4]} fp32 without h0: forward "
-          f"{fwd_ms:.4f} ms by CUDA events ("
-          + ("device time not measured" if fwd_dev is None else
-             f"{fwd_dev:.4f} ms device time a launch, profiler")
-          + f"), bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); with checkpoints "
-          f"{ck_ms:.4f} ms (bound {ck_b[0]:.4f} ms, {ck_b[1]}); the plain "
-          f"loop {plain_ms:.4f} ms; backward {bwd_ms:.4f} ms (per launch, "
-          f"profiler: {parts}), bound {bwd_b[0]:.4f} ms ({bwd_b[1]}), plain "
-          f"{bwd_plain_ms:.4f} ms; the expf alone at the MUFU rate "
-          f"{expf_ms:.4f} ms [{card}]", flush=True)
+    print(f"selective_scan {SCAN_MAIN[:4]} fp32 without h0, chunks of "
+          f"{ss.CHUNK}: forward {fwd_ms:.4f} ms by CUDA events, bound "
+          f"{fwd_b[0]:.4f} ms ({fwd_b[1]}); with checkpoints {ck_ms:.4f} ms "
+          f"(bound {ck_b[0]:.4f} ms, {ck_b[1]}); the plain loop "
+          f"{plain_ms:.4f} ms; backward {bwd_ms:.4f} ms, bound "
+          f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), plain {bwd_plain_ms:.4f} ms; "
+          f"the exps alone at the MUFU rate {expf_ms:.4f} ms [{card}]",
+          flush=True)
+    for name, part in parts.items():
+        print(f"selective_scan {name} by launch (profiler device time, 10 "
+              f"calls): {part} [{card}]", flush=True)
     return {"forward": (fwd_ms, plain_ms, *fwd_b),
             "backward": (bwd_ms, bwd_plain_ms, *bwd_b)}
 

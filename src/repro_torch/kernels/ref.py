@@ -335,8 +335,65 @@ def ssm_checkpoints(dt, u, b, a, h0, every: int):
     return torch.stack(out, 1)
 
 
+def ssm_chunk_carry(local, sdt, a, init, reverse: bool = False):
+    """The carry that joins the selective scan's chunks, as the CUDA
+    kernels run it: `local` (B,nC,D,N) the state each chunk leaves when
+    walked from zero (the last chunk walked has none), `sdt` (B,nC,D) each
+    chunk's sum of dt, `init` (B,D,N) or None (zeros).  Walking the chunks
+    in order (or, `reverse`, from the last), each chunk's slot takes the
+    carried state x, then x = exp(a sdt) x + local: the chunk's decay is
+    one exp of a sum, at most 1 and never divided by.  Returns (B,nC,D,N):
+    h before each chunk (forward) or R after it (reverse)."""
+    bsz, nc, di, n = local.shape
+    x = (torch.zeros((bsz, di, n), dtype=local.dtype, device=local.device)
+         if init is None else init.to(local.dtype))
+    out = [None] * nc
+    for j in range(nc):
+        ck = nc - 1 - j if reverse else j
+        out[ck] = x
+        if j + 1 < nc:
+            x = torch.exp(sdt[:, ck, :, None] * a) * x + local[:, ck]
+    return torch.stack(out, 1)
+
+
+def _ssm_walk(dt, u, b, a, h, lo, hi, c=None):
+    """h after tokens lo .. hi - 1 of the forward recurrence from h, and
+    with `c` the list of y_t = sum_n h_t C_t."""
+    ys = []
+    for t in range(lo, hi):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * b[:, t, None, :])
+        if c is not None:
+            ys.append((h * c[:, t, None, :]).sum(-1))
+    return h, ys
+
+
+def ssm_scan_chunked(dt, u, b, c, a, h0, chunk: int):
+    """The selective scan's forward in the CUDA kernels' order, in dt's
+    dtype: each chunk of `chunk` tokens but the last walked from h = 0
+    (its state hloc and its sum of dt), `ssm_chunk_carry` for h before each
+    chunk, then each chunk walked again from there for y.  dt, u (B,S,D);
+    b, c (B,S,N); a (D,N); h0 (B,D,N) or None.  Returns (y (B,S,D), h_last
+    (B,D,N)), as `selective_scan.ssm_scan_plain` does."""
+    bsz, s, di = dt.shape
+    u, b, c, a = (t.to(dt.dtype) for t in (u, b, c, a))
+    nc = -(-s // chunk)
+    spans = [(k * chunk, min(s, (k + 1) * chunk)) for k in range(nc)]
+    zero = torch.zeros((bsz, di, a.shape[-1]), dtype=dt.dtype,
+                       device=dt.device)
+    local = torch.stack([_ssm_walk(dt, u, b, a, zero, lo, hi)[0]
+                         for lo, hi in spans[:-1]] + [zero], 1)
+    sdt = torch.stack([dt[:, lo:hi].sum(1) for lo, hi in spans], 1)
+    h_in = ssm_chunk_carry(local, sdt, a, h0)
+    ys = []
+    for k, (lo, hi) in enumerate(spans):
+        h, y = _ssm_walk(dt, u, b, a, h_in[:, k], lo, hi, c)
+        ys += y
+    return torch.stack(ys, 1), h
+
+
 def ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last, *,
-                       ckpt_every: int = 32):
+                       ckpt_every: int = 16, chunk: int | None = None):
     """The VJP of the selective scan as the CUDA backward computes it, in
     dt's dtype.  dy: (B,S,D) or None, dh_last: (B,D,N) or None (zeros).
     With G_t = dL/dh_t and R = dh_last, walking t from S - 1 down to 0:
@@ -348,8 +405,11 @@ def ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last, *,
     with decay_t = exp(dt_t a).  h_{t-1} is recomputed forwards inside
     each `ckpt_every`-token span from the state at the span's start
     (`ssm_checkpoints`, as the kernel's), never by dividing by the decay,
-    which underflows to 0.  Returns (ddt, du (B,S,D), db, dc (B,S,N), da
-    (D,N), dh0 (B,D,N))."""
+    which underflows to 0.  With `chunk` (a multiple of `ckpt_every`), the
+    CUDA kernels' order: each chunk but the first walked back from R = 0,
+    the reverse carry (`ssm_chunk_carry`) from dh_last for R at the end of
+    each chunk, then each chunk walked back from there.  Returns (ddt, du
+    (B,S,D), db, dc (B,S,N), da (D,N), dh0 (B,D,N))."""
     bsz, s, di = dt.shape
     f = dt.dtype
     u, b, c, a = (t.to(f) for t in (u, b, c, a))
@@ -357,11 +417,18 @@ def ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last, *,
     ckpts = ssm_checkpoints(dt, u, b, a, h0, ckpt_every)
     g = (torch.zeros((bsz, di, a.shape[-1]), dtype=f, device=dt.device)
          if dh_last is None else dh_last.to(f).clone())
+    r_out = {}
+    if chunk is not None:
+        if chunk % ckpt_every:
+            raise ValueError(f"chunk {chunk} is not a multiple of "
+                             f"ckpt_every {ckpt_every}")
+        r_out = _ssm_reverse_carry(dt, c, a, dy, g, chunk)
     ddt, du = torch.empty_like(dt), torch.empty_like(dt)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     da = torch.zeros_like(a)
     for ck in reversed(range(ckpts.shape[1])):
         start, stop = ck * ckpt_every, min(s, (ck + 1) * ckpt_every)
+        g = r_out.get(stop, g)
         hist = [ckpts[:, ck]]
         for t in range(start, stop):
             hist.append(torch.exp(dt[:, t, :, None] * a) * hist[-1]
@@ -379,3 +446,25 @@ def ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last, *,
             da = da + (ghd * dtt[..., None]).sum(0)
             g = dec * gt
     return ddt, du, db, dc, da, g
+
+
+def _ssm_reverse_carry(dt, c, a, dy, dh_last, chunk: int) -> dict:
+    """{the token after each chunk: R there} by the reverse carry: each
+    chunk but the first walked back from R = 0 (R = decay (R + dy C)),
+    then `ssm_chunk_carry` from dh_last."""
+    bsz, s, di = dt.shape
+    nc = -(-s // chunk)
+    spans = [(k * chunk, min(s, (k + 1) * chunk)) for k in range(nc)]
+    zero = torch.zeros_like(dh_last)
+    local = []
+    for lo, hi in spans[1:]:
+        r = zero
+        for t in reversed(range(lo, hi)):
+            r = torch.exp(dt[:, t, :, None] * a) * (
+                r + dy[:, t, :, None] * c[:, t, None, :])
+        local.append(r)
+    sdt = torch.stack([dt[:, lo:hi].sum(1) for lo, hi in spans], 1)
+    r_out = ssm_chunk_carry(torch.stack([zero] + local, 1), sdt, a, dh_last,
+                            reverse=True)
+    return {hi: r_out[:, k] for k, (_, hi) in enumerate(spans)}
+

@@ -8,15 +8,20 @@ kernels compute the same scan and VJP.  Both live in
 `csrc/selective_scan.cu` (see its header for the designs and their bounds
 on an H100), built by nvcc on first use and called through ctypes.  On CPU
 tensors each wrapper runs its plain twin (`ssm_scan_plain`,
-`ref.ssm_scan_bwd_plain`); on CUDA tensors it launches its kernel or
-raises.  `selective_scan.launches` counts forward launches and
-`selective_scan_bwd.launches` backward calls (two kernels each).
+`ref.ssm_scan_bwd_plain`); on CUDA tensors it launches its kernels or
+raises.  The kernels split the sequence into chunks of CHUNK tokens that
+run in parallel, joined by the scan's linear carry (`ref.ssm_scan_chunked`
+and `ref.ssm_scan_bwd_plain(..., chunk=CHUNK)` are their order on the
+CPU): a forward call is three launches (one where S <= CHUNK), a backward
+call four (two).
+`selective_scan.launches` counts forward calls and
+`selective_scan_bwd.launches` backward calls.
 
 `SelectiveScan` is the way to differentiate through the kernels, and the
 one that `ops.ssm_scan` calls: its forward asks the kernel for h every
 CKPT_EVERY tokens and saves the inputs and those checkpoints (nothing
 where no gradient can reach the call), its backward runs the backward
-kernel.
+kernels.
 """
 
 from __future__ import annotations
@@ -31,16 +36,19 @@ from repro_torch.kernels import build, ref
 # state dims the kernels take: the reduced Hymba's and Hymba-1.5B's
 STATE_DIMS = (4, 16)
 # tokens between the forward's checkpoints: kCkptEvery in the source
-CKPT_EVERY = 32
+CKPT_EVERY = 16
 # channels a block: kChannels (the backward's dB / dC partials per block)
-CHANNELS = 32
+CHANNELS = 64
+# tokens a chunk (a multiple of CKPT_EVERY); a call with S <= CHUNK walks
+# one chunk and needs no carry
+CHUNK = 96
 
 
 def bind(lib: ctypes.CDLL):
     """(ssm_scan_fwd, ssm_scan_error_string) of a library built from
     `csrc/selective_scan.cu`, with their ctypes signatures."""
     fn = lib.ssm_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
@@ -51,7 +59,7 @@ def bind(lib: ctypes.CDLL):
 def bind_bwd(lib: ctypes.CDLL):
     """(ssm_scan_bwd, ssm_scan_error_string), as `bind`."""
     fn = lib.ssm_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, bind(lib)[1]
@@ -140,25 +148,40 @@ def selective_scan_fwd(dt, u, b, c, a, h0=None, *, want_ckpt: bool = False):
             "output would carry none; differentiate through "
             "SelectiveScan.apply (ops.ssm_scan does), or call under "
             "torch.no_grad()")
+    y, h_last, ckpt = launch(_fwd(), dt, u, b, c, a, h0, want_ckpt, CHUNK)
+    selective_scan.launches += 1
+    return y, h_last, ckpt
+
+
+def _new(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def launch(fwd, dt, u, b, c, a, h0, want_ckpt: bool, chunk: int):
+    """Check the CUDA inputs and run the forward kernels of `fwd` (from
+    `bind`) in chunks of `chunk` tokens (a multiple of CKPT_EVERY); returns
+    (y, h_last, ckpt or None).  Counts nothing: `selective_scan_fwd` counts
+    its own calls."""
     _check(dt, u, b, c, a, h0)
     dt, u, b, c, a = (t.contiguous() for t in (dt, u, b, c, a))
     h0 = None if h0 is None else h0.contiguous()
     bsz, s, di = dt.shape
     n = a.shape[-1]
-
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dt.device)
-    y, h_last = new(bsz, s, di), new(bsz, di, n)
-    ckpt = new(bsz, -(-s // CKPT_EVERY), di, n) if want_ckpt else None
-    fn, errstr = _fwd()
+    nc, dev = -(-s // chunk), dt.device
+    y, h_last = _new(dev, bsz, s, di), _new(dev, bsz, di, n)
+    ckpt = (_new(dev, bsz, -(-s // CKPT_EVERY), di, n) if want_ckpt
+            else None)
+    # the chunks' local states and sums of dt, then the carried states
+    cbuf, sdt = ((_new(dev, bsz, nc, di, n), _new(dev, bsz, nc, di))
+                 if nc > 1 else (None, None))
+    fn, errstr = fwd
     err = fn(dt.data_ptr(), u.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), _ptr(h0), y.data_ptr(), h_last.data_ptr(),
-             _ptr(ckpt), bsz, s, di, n,
-             torch.cuda.current_stream(dt.device).cuda_stream)
+             _ptr(ckpt), _ptr(cbuf), _ptr(sdt), bsz, s, di, n, chunk,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    selective_scan.launches += 1
     return y, h_last, ckpt
 
 
@@ -182,10 +205,19 @@ def selective_scan_bwd(dt, u, b, c, a, h0, dy, dh_last, ckpt):
     if dt.device.type == "cpu":
         return ref.ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last,
                                       ckpt_every=CKPT_EVERY)
+    got = bwd_launch(_bwd(), dt, u, b, c, a, h0, dy, dh_last, ckpt, CHUNK)
+    selective_scan_bwd.launches += 1
+    return got
+
+
+def bwd_launch(bwd, dt, u, b, c, a, h0, dy, dh_last, ckpt, chunk: int):
+    """Check the CUDA inputs and run the backward kernels of `bwd` (from
+    `bind_bwd`) in chunks of `chunk` tokens; returns (ddt, du, db, dc, da,
+    dh0).  Counts nothing."""
     _check(dt, u, b, c, a, h0)
     bsz, s, di = dt.shape
     n = a.shape[-1]
-    nck = -(-s // CKPT_EVERY)
+    nck, nc = -(-s // CKPT_EVERY), -(-s // chunk)
     dy = torch.zeros_like(dt) if dy is None else dy
     extra = {"dy": (dy, (bsz, s, di)), "ckpt": (ckpt, (bsz, nck, di, n))}
     if dh_last is not None:
@@ -199,26 +231,26 @@ def selective_scan_bwd(dt, u, b, c, a, h0, dy, dh_last, ckpt):
     dt, u, b, c, a, dy, ckpt = (t.contiguous()
                                 for t in (dt, u, b, c, a, dy, ckpt))
     dh_last = None if dh_last is None else dh_last.contiguous()
-
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dt.device)
-    ddt, du, db, dc = new(bsz, s, di), new(bsz, s, di), new(bsz, s, n), \
-        new(bsz, s, n)
-    da, dh0 = new(di, n), new(bsz, di, n)
+    dev = dt.device
+    ddt, du = _new(dev, bsz, s, di), _new(dev, bsz, s, di)
+    db, dc = _new(dev, bsz, s, n), _new(dev, bsz, s, n)
+    da, dh0 = _new(dev, di, n), _new(dev, bsz, di, n)
     nblk = -(-di // CHANNELS)
-    part_b, part_c = new(nblk, bsz, s, n), new(nblk, bsz, s, n)
-    da_part = new(bsz, di, n)
-    fn, errstr = _bwd()
+    part_b, part_c = _new(dev, nblk, bsz, s, n), _new(dev, nblk, bsz, s, n)
+    da_part = _new(dev, bsz, nc, di, n)
+    cbuf, sdt = ((_new(dev, bsz, nc, di, n), _new(dev, bsz, nc, di))
+                 if nc > 1 else (None, None))
+    fn, errstr = bwd
     err = fn(dt.data_ptr(), u.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), dy.data_ptr(), _ptr(dh_last), ckpt.data_ptr(),
              ddt.data_ptr(), du.data_ptr(), db.data_ptr(), dc.data_ptr(),
              da.data_ptr(), dh0.data_ptr(), part_b.data_ptr(),
-             part_c.data_ptr(), da_part.data_ptr(), bsz, s, di, n,
-             torch.cuda.current_stream(dt.device).cuda_stream)
+             part_c.data_ptr(), da_part.data_ptr(), _ptr(cbuf), _ptr(sdt),
+             bsz, s, di, n, chunk,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    selective_scan_bwd.launches += 1
     return ddt, du, db, dc, da, dh0
 
 

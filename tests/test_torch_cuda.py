@@ -792,12 +792,18 @@ def _scan_args(dev, b, s, d, n, with_h0=True, strong=False, seed=0):
     ((2, 65, 77, 4), True, False),
     ((3, 100, 77, 16), False, True),
     ((2, 300, 1600, 16), True, False),
+    ((2, ss.CHUNK - 1, 64, 4), True, False),
+    ((2, ss.CHUNK, 1600, 16), False, False),
+    ((2, ss.CHUNK + 1, 64, 16), True, False),
+    ((2, 2 * ss.CHUNK - 6, 77, 16), True, False),
+    ((2, 2 * ss.CHUNK + 44, 77, 4), False, True),
 ])
 def test_scan_kernels_match_plain(dev, shape, with_h0, strong):
     """The forward's y and h_last within 1e-5 (relative max) of the plain
     loop, its checkpoints of `ref.ssm_checkpoints`; the backward's six
     gradients within 1e-4 x max(max |want|, 1) of `ref.ssm_scan_bwd_plain`,
-    finite."""
+    finite.  The shapes cross the kernels' chunks of ss.CHUNK tokens (one
+    chunk, its edges, D = 77 over two chunks, strong decay over three)."""
     args, dy, dh = _scan_args(dev, *shape, with_h0, strong)
     y, h, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
     want_y, want_h = ss.ssm_scan_plain(*args)
@@ -807,6 +813,30 @@ def test_scan_kernels_match_plain(dev, shape, with_h0, strong):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
     got = ss.selective_scan_bwd(*args, dy, dh, ck)
     want = ref.ssm_scan_bwd_plain(*args, dy, dh)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(),
+                                                        1.0)
+
+
+@pytest.mark.parametrize("shape,with_h0", [
+    ((2, 3 * ss.CHUNK + 5, 64, 16), True),
+    ((3, 2 * ss.CHUNK, 77, 4), False),
+])
+def test_scan_kernels_match_the_chunked_order(dev, shape, with_h0):
+    """The kernels against their chunk and carry order on the same device
+    (`ref.ssm_scan_chunked`, `ref.ssm_scan_bwd_plain` at ss.CHUNK): y and
+    h_last within 1e-5 (relative max), the six gradients within 1e-4 x
+    max(max |want|, 1)."""
+    args, dy, dh = _scan_args(dev, *shape, with_h0)
+    y, h, ck = ss.selective_scan_fwd(*args, want_ckpt=True)
+    want_y, want_h = ref.ssm_scan_chunked(*args, ss.CHUNK)
+    for got, want in ((y, want_y), (h, want_h)):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    got = ss.selective_scan_bwd(*args, dy, dh, ck)
+    want = ref.ssm_scan_bwd_plain(*args, dy, dh, ckpt_every=ss.CKPT_EVERY,
+                                  chunk=ss.CHUNK)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()

@@ -11,7 +11,13 @@ Inputs come from a numpy seed.  Bars:
   * the fp32 block's gradients against JAX's: 1e-5 of the largest
     magnitude (fp32 sums in another order);
   * `SelectiveScan` on CPU tensors (the plain twins on both sides), with
-    and without `torch.utils.checkpoint`: equal.
+    and without `torch.utils.checkpoint`: equal;
+  * the CUDA kernels' chunk and carry order on the CPU
+    (`ref.ssm_scan_chunked`, `ref.ssm_scan_bwd_plain` with a chunk) against
+    the plain loop and its plain backward: float64 at 1e-12 of max(max |want|, 1)
+    (relative max for y and h_last; the same sums in another order), fp32
+    at the kernels' bars (1e-5 relative, 1e-4 of max(max |want|, 1))
+    against the float64 loop.
 """
 
 import functools
@@ -36,9 +42,11 @@ GRADS = ("ddt", "du", "db", "dc", "da", "dh0")
 def _scan_inputs(s, n, *, d=8, strong=False, dtype=np.float64, seed=0):
     """(dt, u, b, c, a, h0) as numpy arrays and (dy, dh_last): dt =
     softplus(N(0, 1)) or, `strong`, U[50, 60], so that exp(dt a) underflows
-    to 0 in float64 for the upper states (a = -(1 .. N) x e^(0.1 N))."""
+    to 0 in float64 for the upper states (a = -(1 .. N) x e^(0.1 N)), or,
+    `strong="kernel"`, chip_smoke's U[6, 10] (0 in fp32)."""
     rng = np.random.default_rng(seed)
-    dt = (rng.uniform(50, 60, (2, s, d)) if strong
+    lo, hi = (6, 10) if strong == "kernel" else (50, 60)
+    dt = (rng.uniform(lo, hi, (2, s, d)) if strong
           else np.log1p(np.exp(rng.standard_normal((2, s, d)))))
     u, dy = rng.standard_normal((2, 2, s, d))
     b, c = rng.standard_normal((2, 2, s, n))
@@ -209,3 +217,100 @@ def test_dispatch():
         ops.ssm_scan(*ins, force="bogus")
     assert ss.selective_scan_fwd(*ins, want_ckpt=True)[2] is None
     assert ss.selective_scan.launches == before
+
+
+# chunks of CHUNK tokens on the CPU (a multiple of CKPT_EVERY, small so the
+# loops stay quick): S = 1, CHUNK - 1, CHUNK, CHUNK + 1, a ragged last chunk
+# and whole chunks
+CHUNK = 32
+CHUNKED = [
+    (1, 4, True, True, False),
+    (CHUNK - 1, 4, False, True, False),
+    (CHUNK, 16, True, False, False),
+    (CHUNK + 1, 4, True, True, False),
+    (2 * CHUNK + 5, 16, False, False, False),
+    (3 * CHUNK, 4, True, True, False),
+    (2 * CHUNK + 5, 4, True, True, True),
+    (3 * CHUNK + 7, 16, False, True, "kernel"),
+]
+
+
+def _chunked_inputs(s, n, with_h0, with_dh, strong, dtype):
+    dt, u, b, c, a, h0, dy, dh = _t(*_scan_inputs(s, n, strong=strong,
+                                                  dtype=dtype))
+    return (dt, u, b, c, a, h0 if with_h0 else None), dy, (
+        dh if with_dh else None)
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("s,n,with_h0,with_dh,strong", CHUNKED)
+def test_chunked_forward_matches_the_loop(s, n, with_h0, with_dh, strong):
+    """`ref.ssm_scan_chunked` (each chunk walked from zero, the carry
+    exp(a sdt) h + hloc, each chunk walked again) against the plain loop:
+    float64 within 1e-12, fp32 within the kernel's 1e-5 (relative max),
+    every value finite, also where each chunk's decay underflows to 0."""
+    args, _, _ = _chunked_inputs(s, n, with_h0, with_dh, strong, np.float64)
+    want_y, want_h = ss.ssm_scan_plain(*args)
+    y, h = ref.ssm_scan_chunked(*args, CHUNK)
+    assert y.shape == want_y.shape and h.shape == want_h.shape
+    assert _rel(y, want_y) <= 1e-12 and _rel(h, want_h) <= 1e-12
+    args32, _, _ = _chunked_inputs(s, n, with_h0, with_dh, strong,
+                                   np.float32)
+    y32, h32 = ref.ssm_scan_chunked(*args32, CHUNK)
+    assert torch.isfinite(y32).all() and torch.isfinite(h32).all()
+    assert _rel(y32.double(), want_y) <= 1e-5
+    assert _rel(h32.double(), want_h) <= 1e-5
+
+
+@pytest.mark.parametrize("s,n,with_h0,with_dh,strong", CHUNKED)
+def test_chunked_backward_matches_the_plain_backward(s, n, with_h0, with_dh,
+                                                     strong):
+    """`ref.ssm_scan_bwd_plain` with a chunk (each chunk but the first
+    walked back from R = 0, the reverse carry from dh_last, each chunk
+    walked back from its R) against it without: float64 within 1e-12, fp32
+    within the kernel's 1e-4 of max(max |want|, 1), all six gradients
+    finite."""
+    args, dy, dh = _chunked_inputs(s, n, with_h0, with_dh, strong,
+                                   np.float64)
+    want = ref.ssm_scan_bwd_plain(*args, dy, dh)
+    got = ref.ssm_scan_bwd_plain(*args, dy, dh, chunk=CHUNK)
+    _held(got, want, 1e-12)
+    args32, dy32, dh32 = _chunked_inputs(s, n, with_h0, with_dh, strong,
+                                         np.float32)
+    got32 = ref.ssm_scan_bwd_plain(*args32, dy32, dh32, chunk=CHUNK)
+    _held([g.double() for g in got32], want, 1e-4)
+
+
+def test_chunked_carry_underflows_without_harm():
+    """At the strong-decay draw every chunk's decay exp(a sdt) is 0 in the
+    upper states of fp32, and the carry stays finite: it multiplies by the
+    decay and never divides by it."""
+    (dt, _, _, _, a, _), _, _ = _chunked_inputs(3 * CHUNK + 7, 16, True,
+                                                True, "kernel", np.float32)
+    sdt = dt[:, :CHUNK].sum(1)
+    assert (torch.exp(sdt[..., None] * a) == 0).any()
+    local = torch.randn(2, 3, 8, 16)
+    out = ref.ssm_chunk_carry(local, torch.stack([sdt] * 3, 1), a, None)
+    assert torch.isfinite(out).all() and torch.equal(out[:, 0],
+                                                     torch.zeros(2, 8, 16))
+
+
+def test_chunk_must_hold_whole_spans():
+    """The backward's chunks restart R at a span's end: a chunk that is not
+    a multiple of the checkpoint span raises."""
+    args, dy, dh = _chunked_inputs(40, 4, True, True, False, np.float64)
+    with pytest.raises(ValueError, match="multiple"):
+        ref.ssm_scan_bwd_plain(*args, dy, dh, ckpt_every=16, chunk=24)
+
+
+def test_constants_match_the_kernel_source():
+    """CKPT_EVERY and CHANNELS are the source's kCkptEvery and kChannels,
+    and CHUNK holds whole checkpoint spans."""
+    src = (ss.build.CSRC / "selective_scan.cu").read_text()
+    for name, value in (("kCkptEvery", ss.CKPT_EVERY),
+                        ("kChannels", ss.CHANNELS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert ss.CHUNK % ss.CKPT_EVERY == 0
