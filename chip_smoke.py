@@ -8,8 +8,8 @@ Phases, each fatal on failure:
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
      and print ptxas's registers and spills per kernel and its warning and
      C75xx lines (fatal for a tensor-core kernel that spills or has its
-     wgmma serialized, and for the wkv6 pair walk or a selective-scan
-     kernel that spills);
+     wgmma serialized, and for the wkv6 pair walk, a selective-scan
+     kernel or the MLA layout's kernel that spills);
   2. each kernel against its plain PyTorch twin on the card, over the
      masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
      CASES (with the tile edges of the bf16 hd-256 kernel) and on strided
@@ -21,7 +21,13 @@ Phases, each fatal on failure:
      there), over CASES and the wgmma backward's own tile edges at hd 64,
      128 and 256 (BWD_EDGES), and two backward calls bitwise equal at the
      main shape, at hd 128 and at Gemma-7B's training shape (2, 2048, 16,
-     256); wkv6 over WKV_CASES (one with rows that take the
+     256); the flash forward at DeepSeek-V3's MLA layout (q of head dim
+     576, one shared k head of 576 and v head of 512) over MLA_CASES (1,
+     3 and 128 heads; Sq / Skv 1, 127, 129, a decode step at position 2063
+     of a 2064-position cache and the 2048-token prefill into it; v a view
+     of k's first 512 features) in fp32 and bf16 within the same bars, one
+     launch of its own a call, and a grad-mode call there raising
+     NotImplementedError; wkv6 over WKV_CASES (one with rows that take the
      kernel's 4-byte copy path) and a state-carry case, y and the final
      state within |got - want| <= 1e-4 + 1e-4 |want| elementwise, the main
      shape included; the wkv6 backward over WKV_CASES with a random
@@ -105,7 +111,29 @@ Phases, each fatal on failure:
      ms/token, busy shares, the weights' bytes and peak memory), with the
      flash forward timed at their prefill shapes (4, 2048, 16 | 64, 128)
      beside SDPA, and one `build_trainer` step of the reduced DeepSeek-MoE
-     on the card (a finite loss, its router bias unchanged);
+     on the card (a finite loss, its router bias unchanged); then
+     DeepSeek-MoE 16B trained at every published width, its depth cut to
+     MOE_TRAIN_LAYERS (`moe_train`: batch 4 x 2048, fp32 masters, remat
+     full, exactly 8 flash forwards and 4 backwards a step, every router
+     bias bitwise unchanged; step ms, tokens/s, peak memory, finite
+     losses, the flash kernels' shares of the step), its step through the
+     kernels against the plain twins at MOE_CHECK_LAYERS layers within
+     bars set by a third step through the naive oracle (the loss within
+     max(2e-2, 1.5 x the oracle's distance), each gradient leaf within
+     max(GRAD_BAR, 1.5 x the oracle's distance on that leaf), the tokens
+     whose experts differ counted by MoE layer); then DeepSeek-V3: the
+     MLA-layout kernel at its prefill shape (4, 2048 into 2064, 128 heads,
+     576 / 512) bf16 beside its plain twin, SDPA given k and v expanded to
+     128 heads and its bound (`time_flash_mla`), one fp32 MLA block at
+     full width (1 x 2048, then a decode step) card against CPU within
+     V3_MLA_REL with its cache entries, the reduced V3 on the GPU against
+     the CPU, and V3 served at every published width, its depth cut to
+     V3_SERVE_LAYERS (`v3_serve`: `serve.generate`, exactly 5 MLA-layout
+     launches a serve and nothing else; each layer's MLA within 2e-2 of
+     the plain twin; the logits within max(2e-2, 1.5 x the naive oracle's
+     distance), the tokens whose experts differ counted, one sequence at a
+     time; prefill ms, decode ms/token, the MLA kernel's share of a
+     profiled prefill, the weights' bytes and peak memory);
   5c. last of the models, Hymba-1.5B: one `blocks.ssm` call at its full
      width (d_inner 1600, state 16) in fp32 on the 4 x 2048 tokens of its
      prefill, card (the scan kernel) against CPU (the loop) from the same
@@ -199,6 +227,7 @@ without that last line, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -339,6 +368,41 @@ MOE_ARCH = "deepseek-moe-16b"
 VLM_ARCH = "chameleon-34b"
 MOE_BLOCK_REL = 1e-4
 MOE_AUX_ABS = 1e-6
+# DeepSeek-MoE 16B trained at every published width, its depth cut to the
+# leading dense layer and 3 MoE layers: 2.27 B fp32 params (0.419 B of
+# embedding and unembedding, 0.084 B the dense layer, 0.588 B a MoE layer)
+# with grads, m and v ~36 GB, and the fp32 logits of 4 x 2048 tokens over
+# 102400 entries 3.4 GB a copy.  Its step through the kernels is held
+# against the plain twins at MOE_CHECK_LAYERS (1 dense + 2 MoE) by the
+# naive oracle's distance, leaf by leaf (`train_vs_plain`)
+MOE_TRAIN_LAYERS = 4
+MOE_CHECK_LAYERS = 3
+# DeepSeek-V3 served at every published width (d_model 7168, 128 heads,
+# MLA: q rank 1536, kv rank 512, nope 128, rope 64, v 128; 256 routed
+# experts top 8 of 2048 and 1 shared, 21 slots a group of 512; dense d_ff
+# 18432; vocab 129280 untied), its depth cut to the 3 dense-lead layers and
+# 2 MoE layers: 1.853 B params of embedding and unembedding, 0.584 B a
+# dense-lead layer, 11.507 B a MoE layer, 0.686 B of MTP params, 27.3 B in
+# all, ~54.6 GB of bf16 weights.  Its prefill attends through the flash
+# forward at the MLA layout, one launch a layer; decode takes the naive
+# absorbed branch.  One fp32 MLA block at full width (batch 1 x 2048, then
+# a decode step) on the card against the CPU, within V3_MLA_REL
+V3_ARCH = "deepseek-v3-671b"
+V3_SERVE_LAYERS = 5
+V3_MLA_REL = 1e-4
+MLA_SCALE = (128 + 64) ** -0.5   # V3's qk_dim ** -0.5, not 576 ** -0.5
+# The flash forward at the MLA layout against its plain twin (phase 2):
+# (B, Sq, Skv, H, q_offset, v a view of k's first 512 features); q (B, Sq,
+# H, 576), one k head of 576 and one v head of 512, causal, MLA_SCALE.  One
+# head, three and V3's 128; a decode step at the end of the 2064-position
+# cache and the prefill into it; the kernel's 64-row blocks and 32-key
+# tiles at 127 / 129
+MLA_CASES = [(2, sq, skv, h, q_offset, h == 3)
+             for h in (1, 3, 128)
+             for sq, skv, q_offset in [(1, 1, 0), (127, 127, 0),
+                                       (129, 129, 0), (1, 2064, 2063),
+                                       (2048, 2064, 0)]]
+MLA_MAIN = (BATCH, PROMPT, PROMPT + GEN, 128, 0, True)   # V3's prefill
 # Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
 # weights) at every published width and full depth, through the flash
 # forward at hd 64 and 25 heads, one launch per layer (32, 29 of them with
@@ -389,8 +453,8 @@ SCAN_BWD_BAR = "|got - want| <= 1e-4 x max(max |want|, 1), each gradient"
 # compute capability 9.0), 132 SMs at the SXM part's 1.98 GHz boost clock
 PEAK_MUFU = 16 * 132 * 1.98e9
 # Every launch counter, in the order the script reports them
-COUNTERS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
-            "selective_scan", "selective_scan_bwd")
+COUNTERS = ("flash_attention", "flash_attention_mla", "flash_attention_bwd",
+            "wkv6", "wkv6_bwd", "selective_scan", "selective_scan_bwd")
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -648,7 +712,7 @@ def ptxas_report(log: str) -> list:
                 r"|(?<=\d)(ssm_scan_[a-z_]*kernel)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
-                  if re.search(r"ILi\d+EfE", mangled) else "")
+                  if re.search(r"ILi\d+EfE|IfE", mangled) else "")
             label = name.group(name.lastindex) if name else mangled
             cur = {"kernel": f"{label}<"
                              f"{', '.join(args + ([dt] if dt else []))}>",
@@ -775,10 +839,8 @@ def attn_kwargs(case):
     return dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
 
 
-def attn_flops(case) -> float:
-    """The QK^T and PV operations of the visible (q, k) pairs."""
-    b, sq, skv, h, hd = case[:5]
-    causal, window, q_offset, _ = case[5:]
+def visible_pairs(sq, skv, causal, window, q_offset) -> int:
+    """The (q, k) pairs that the mask leaves visible."""
     q_pos = torch.arange(sq, dtype=torch.int64)[:, None] + q_offset
     k_pos = torch.arange(skv, dtype=torch.int64)[None, :]
     vis = torch.ones(sq, skv, dtype=torch.bool)
@@ -786,7 +848,15 @@ def attn_flops(case) -> float:
         vis &= q_pos >= k_pos
     if window is not None:
         vis &= q_pos - k_pos < window
-    return 4.0 * b * h * hd * int(vis.sum())
+    return int(vis.sum())
+
+
+def attn_flops(case) -> float:
+    """The QK^T and PV operations of the visible (q, k) pairs."""
+    b, sq, skv, h, hd = case[:5]
+    causal, window, q_offset, _ = case[5:]
+    return 4.0 * b * h * hd * visible_pairs(sq, skv, causal, window,
+                                            q_offset)
 
 
 def roofline(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -944,6 +1014,121 @@ def check_deterministic(fa, case) -> None:
         fail(f"flash_attention_bwd {case}: two calls differ ({same})")
 
 
+def mla_qkv(case, dtype, seed=0) -> tuple:
+    """q (B,Sq,H,576), k (B,Skv,1,576) and v (B,Skv,1,512) on the card at an
+    MLA_CASES case; v a view of k's first 512 features where it says."""
+    b, sq, skv, h, _, view = case
+    g = torch.Generator("cuda").manual_seed(seed)
+    q = torch.randn(b, sq, h, 576, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, skv, 1, 576, generator=g, device="cuda").to(dtype)
+    v = (k[..., :512] if view else
+         torch.randn(b, skv, 1, 512, generator=g, device="cuda").to(dtype))
+    return q, k, v
+
+
+def check_mla(fa, ref) -> None:
+    """Phase 2 for the flash forward at the MLA layout, over MLA_CASES in
+    fp32 and bf16: one launch of its own kernel a call, the output within
+    TOL[dtype] (max abs) and lse within 1e-4 (relative max) of the plain
+    twin's; and a call that would need a gradient raising
+    NotImplementedError (its backward is not ported)."""
+    for case in MLA_CASES:
+        kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = mla_qkv(case, dtype)
+            before = fa.flash_attention.launches_mla
+            got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+            launched = fa.flash_attention.launches_mla - before
+            want, want_lse = ref.flash_fwd(q, k, v, min(512, case[2]), **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            lse_err = rel_err(lse, want_lse)
+            ok = (launched == 1 and got.shape == want.shape
+                  and torch.isfinite(got).all().item() and err <= TOL[dtype]
+                  and lse_err <= 1e-4)
+            print(json.dumps({"mla_case": list(case), "dtype": str(dtype),
+                              "max_abs_err": err, "tol": TOL[dtype],
+                              "lse_rel_max_err": lse_err, "lse_tol": 1e-4,
+                              "ok": ok}), flush=True)
+            if not ok:
+                fail(f"flash_attention at the MLA layout {case} {dtype}: "
+                     f"error {err}, lse {lse_err}, launches {launched}")
+            del q, k, v, got, want
+    q, k, v = mla_qkv(MLA_CASES[0], torch.bfloat16)
+    try:
+        fa.FlashAttention.apply(q.requires_grad_(), k, v, True, None, 0,
+                                MLA_SCALE, True)
+    except NotImplementedError as err:
+        print(f"the MLA layout under grad: {err}", flush=True)
+    else:
+        fail("a grad-mode call at the MLA layout did not raise")
+
+
+def mla_bound(case) -> tuple[float, str]:
+    """Least time (ms) of the MLA-layout forward in bf16: q, k, v read and
+    o written once, against QK^T over 576 features and PV over 512 for
+    each visible pair, head and sequence."""
+    b, sq, skv, h, q_offset, _ = case
+    flops = (2.0 * (576 + 512) * b * h
+             * visible_pairs(sq, skv, True, None, q_offset))
+    nbytes = 2 * (b * sq * h * (576 + 512) + b * skv * (576 + 512))
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+def time_flash_mla(fa, card) -> tuple:
+    """Phase 4a for the MLA layout at V3's prefill shape (MLA_MAIN, bf16,
+    v a view of k): the kernel against its plain twin (max abs, held to
+    2e-2) and both timed, beside `scaled_dot_product_attention` given k
+    and v expanded to 128 heads (a yardstick the port never calls; its
+    output held to the kernel's within 0.1, a check of the mask), with the
+    bound.  Returns (ms, plain_ms, sdpa_ms or None, bound_ms, bound_by,
+    max abs err)."""
+    q, k, v = mla_qkv(MLA_MAIN, torch.bfloat16)
+    kw = dict(causal=True, q_offset=MLA_MAIN[4], scale=MLA_SCALE)
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        del want
+        if err > TOL[torch.bfloat16]:
+            fail(f"flash_attention at the MLA layout {MLA_MAIN}: {err}")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 10, warmup=1)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2,
+                           warmup=1)
+        h = MLA_MAIN[3]
+        qt = q.transpose(1, 2)
+        kt, vt = (x.expand(-1, -1, h, -1).transpose(1, 2) for x in (k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=MLA_SCALE)
+        try:
+            lib_err = (sdpa().transpose(1, 2).float()
+                       - got.float()).abs().max().item()
+            rows = device_kernels(sdpa)
+            lib_ms = time_ms(sdpa, 5, warmup=1)
+            how = (f"sdpa {lib_ms:.4f} ms (kernel that ran: "
+                   f"{max(rows, key=lambda e: e.self_device_time_total).key[:80] if rows else 'not measured'}; "
+                   f"vs kernel max abs err {lib_err:.3e})")
+            if lib_err > 0.1:
+                fail(f"SDPA at the MLA layout differs from the kernel: "
+                     f"{lib_err}")
+        except RuntimeError as ex:
+            lib_ms, how = None, f"sdpa: none ({str(ex)[:200]})"
+    bound_ms, bound_by = mla_bound(MLA_MAIN)
+    b, sq, skv, h, q_offset, _ = MLA_MAIN
+    gflop = 2 * (576 + 512) * b * h * visible_pairs(sq, skv, True, None,
+                                                    q_offset) / 1e9
+    print(f"flash_attention at the MLA layout {MLA_MAIN[:4]} (576 / 512, "
+          f"v a view of k) bf16 causal: kernel {ms:.4f} ms ("
+          f"{gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {how}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); kernel vs plain max abs "
+          f"err {err:.3e} [{card}]", flush=True)
+    del q, k, v, got, qt, kt, vt
+    torch.cuda.empty_cache()
+    return ms, plain_ms, lib_ms, bound_ms, bound_by, err
+
+
 def window_mask(case):
     """(Sq, Skv) bool on the card: causal within the case's window, the
     mask SDPA is given for a windowed case."""
@@ -1079,23 +1264,28 @@ def counts(**launches) -> dict:
 
 
 def set_counts(counters) -> None:
-    for fn in counters.values():
-        fn.launches = 0
+    """`counters`: {name: (wrapper, attribute)}, each a launch count."""
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(counters) -> dict:
-    return {name: fn.launches for name, fn in counters.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-def train_path(card, cfg, batch: int, train, counters) -> dict:
+def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
     """Phase 3 for training: `build_trainer` on `cfg` at batch x PROMPT, a
     warm-up step, then TRAIN_STEPS steps, each with the counts set to 0
-    just before it and read just after (and checked).  Returns the numbers
-    for the report: the median step time and one step's launches, as the
-    serve phases report one serve's."""
+    just before it and read just after (and checked).  `fixed(params)`, if
+    given, lists leaves that every step must leave bitwise where they
+    were.  Returns the numbers for the report: the median step time and
+    one step's launches, as the serve phases report one serve's, and the
+    peak memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, step, _ = train.build_trainer(cfg, device="cuda", remat="full")
+    held = ([t.detach().clone() for t in fixed(state.params)]
+            if fixed is not None else [])
     batches = train_batches(cfg, TRAIN_STEPS + 2, batch)
     state, m = step(state, batches[0])
     losses = [float(m["loss"])]
@@ -1126,8 +1316,21 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
              "forward per layer, its recompute, and a backward per layer)")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train {cfg.name}: a loss is not finite: {losses}")
+    if fixed is not None:
+        same = [torch.equal(a, b) for a, b in zip(fixed(state.params), held)]
+        print(f"train {cfg.name}: {len(same)} fixed leaves bitwise unchanged "
+              f"after {TRAIN_STEPS + 1} steps: {all(same)}", flush=True)
+        if not (same and all(same)):
+            fail(f"train {cfg.name}: a fixed leaf moved ({same})")
     rows = device_kernels(lambda: step(state, batches[-1]))
     report_busy(f"{cfg.name} train step", rows, step_ms, 1, top=12)
+    fwd_rows = [e for e in rows if "flash_fwd" in e.key]
+    if fwd_rows:   # the flash forward's share of the step (with remat)
+        fwd_ms = sum(e.self_device_time_total for e in fwd_rows) / 1e3
+        print(f"{cfg.name} train step: the flash forward {fwd_ms:.3f} ms of "
+              f"device time x{sum(e.count for e in fwd_rows)}, "
+              f"{100 * fwd_ms / step_ms:.1f} % of the {step_ms:.3f} ms step "
+              f"[{card}]", flush=True)
     bwd_rows = [e for e in rows if "flash_bwd" in e.key]
     if bwd_rows:   # the flash backward's share of the step, by launch
         bwd_ms = sum(e.self_device_time_total for e in bwd_rows) / 1e3
@@ -1157,7 +1360,8 @@ def train_path(card, cfg, batch: int, train, counters) -> dict:
                   flush=True)
     del state
     torch.cuda.empty_cache()
-    return {"step_ms": step_ms, "launches": per_step[0]}
+    return {"step_ms": step_ms, "launches": per_step[0], "peak_gb": peak_gb,
+            "tokens_per_s": batch * PROMPT * 1e3 / step_ms, "losses": losses}
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -1216,43 +1420,94 @@ def fp32_distances(card, cfg, lm, params, batch, kernel, plain) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def routing_picks(picks: list):
+    """While open, each MoE layer's call of `blocks.route` appends its
+    tokens' chosen experts (sorted, (G, S_g, K)) to `picks`."""
+    from repro_torch.models import blocks
+    real = blocks.route
+
+    def route(*args):
+        out = real(*args)
+        picks.append(out[1].sort(dim=-1).values)
+        return out
+    blocks.route = route
+    try:
+        yield picks
+    finally:
+        blocks.route = real
+
+
+def moved_tokens(a: list, b: list) -> list:
+    """Per MoE layer, the tokens whose chosen experts differ."""
+    return [int((x != y).any(dim=-1).sum()) for x, y in zip(a, b)]
+
+
 def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     """Phase 4 for training: from the same fp32 params and batch, the loss
     and every gradient leaf of one step of `cfg` through the kernels
     against the same through the plain twins (autograd of
     `ref.flash_attention_ref`, the wkv6 and scan loops).  The loss within
     2e-2 relative; each leaf's relative L2 error within GRAD_BAR (see
-    there).  For a hybrid model, whose normed mixing carries bf16
+    there).  For a MoE model, whose routing turns bf16 rounding into other
+    experts, a third step through the naive oracle sets the bars: the loss
+    within max(2e-2, 1.5 x the oracle's distance from the plain step), each
+    leaf within max(GRAD_BAR, 1.5 x the oracle's distance on that leaf);
+    the tokens whose experts differ between the kernel's and the plain
+    step are counted by MoE layer, and the five leaves nearest their bars
+    printed.  For a hybrid model, whose normed mixing carries bf16
     rounding from layer to layer, both steps' distances from fp32
     activations are printed beside it (`fp32_distances`)."""
     params = lm.build(cfg).init(torch.Generator("cuda").manual_seed(0),
                                 dtype=torch.float32)
     leaves = tree_leaves(params)
+    names = leaf_names(params)
     for p in leaves:
         p.requires_grad_(True)
     batch = train_batches(cfg, 1, batch_size)[0]
-    got = {}
-    for force in (None, "plain"):
-        loss = lm.build(cfg, force=force, remat="full").loss(params, batch)
-        got[force] = (loss.item(), torch.autograd.grad(loss, leaves))
+    got, picks = {}, {}
+    oracle = cfg.moe is not None
+    for force in (None, "plain") + (("naive",) if oracle else ()):
+        with routing_picks(picks.setdefault(force, [])):
+            loss = lm.build(cfg, force=force, remat="full").loss(params,
+                                                                 batch)
+        got[force] = (loss.item(), torch.autograd.grad(
+            loss, leaves, materialize_grads=True))
+        del loss
     (loss_k, gk), (loss_p, gp) = got[None], got["plain"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     l2 = [rel_l2(a, b) for a, b in zip(gk, gp)]
-    worst = max(range(len(l2)), key=l2.__getitem__)
+    if oracle:
+        loss_n, gn = got["naive"]
+        loss_bar = max(2e-2, 1.5 * abs(loss_n - loss_p) / abs(loss_p))
+        bars = [max(GRAD_BAR, 1.5 * rel_l2(a, b)) for a, b in zip(gn, gp)]
+    else:
+        loss_bar, bars = 2e-2, [GRAD_BAR] * len(l2)
+    worst = max(range(len(l2)), key=lambda i: l2[i] / bars[i])
     print(f"{cfg.name} train step kernels vs plain: loss {loss_k:.6f} vs "
           f"{loss_p:.6f} "
-          f"(rel {loss_rel:.3e}, bar 2e-2); gradient leaves: worst relative "
-          f"L2 error {l2[worst]:.3e} (leaf {worst} of {len(l2)}, "
-          f"{leaf_names(params)[worst]}, bar "
-          f"{GRAD_BAR}), median {sorted(l2)[len(l2) // 2]:.3e}, worst "
+          f"(rel {loss_rel:.3e}, bar {loss_bar:.3e}); gradient leaves: worst "
+          f"relative L2 error against its bar {l2[worst]:.3e} (leaf {worst} "
+          f"of {len(l2)}, {names[worst]}, bar {bars[worst]:.3e}), median "
+          f"{sorted(l2)[len(l2) // 2]:.3e}, worst "
           f"relative max error {max(rel_err(a, b) for a, b in zip(gk, gp)):.3e} "
           f"[{card}]", flush=True)
+    if oracle:
+        nearest = sorted(range(len(l2)), key=lambda i: -l2[i] / bars[i])[:5]
+        print(f"{cfg.name} train step: naive oracle vs plain loss "
+              f"{abs(loss_n - loss_p) / abs(loss_p):.3e}; the five leaves "
+              "nearest their bars (kernel vs plain, bar): " + ", ".join(
+                  f"{names[i]} {l2[i]:.3e} / {bars[i]:.3e}" for i in nearest)
+              + "; tokens whose experts differ between the kernel's and the "
+              f"plain step, by MoE layer (of {batch_size * PROMPT}): "
+              f"{moved_tokens(picks[None], picks['plain'])} [{card}]",
+              flush=True)
     if cfg.ssm is not None:
         fp32_distances(card, cfg, lm, params, batch, got[None], got["plain"])
-    if loss_rel > 2e-2 or l2[worst] > GRAD_BAR:
+    if loss_rel > loss_bar or l2[worst] > bars[worst]:
         fail(f"a {cfg.name} training step through the kernels differs from "
-             f"the plain twins: loss {loss_rel}, gradient leaf {worst} "
-             f"{l2[worst]}")
+             f"the plain twins: loss {loss_rel} (bar {loss_bar}), gradient "
+             f"leaf {names[worst]} {l2[worst]} (bar {bars[worst]})")
     del params, leaves, gk, gp, got
     torch.cuda.empty_cache()
 
@@ -1404,7 +1659,7 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
     probabilities to bf16 as the kernel does), and the tokens whose
     chosen experts differ between the kernel's prefill and the plain
     twin's are counted by layer."""
-    from repro_torch.models import blocks, layers
+    from repro_torch.models import layers
     dev = prompts.device
     pos = torch.arange(PROMPT, device=dev)[None]
     x = layers.embed(params["embed"], prompts)
@@ -1429,25 +1684,17 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
         return hybrid_logits_bar(card, cfg, lm, params, prompts)
     if cfg.moe is None:
         return 2e-2
-    picks, real_route = {}, blocks.route
+    picks = {}
 
     def prefill(force):
-        def route(*args):
-            out = real_route(*args)
-            picks.setdefault(force, []).append(out[1].sort(dim=-1).values)
-            return out
         model = lm.build(cfg, force=force)
-        blocks.route = route
-        try:
+        with routing_picks(picks.setdefault(force, [])):
             return model.prefill(params, prompts,
                                  model.init_cache(BATCH, PROMPT, dev))
-        finally:
-            blocks.route = real_route
     got, want, naive = (prefill(f) for f in (None, "plain", "naive"))
     rel, floor = rel_err(got, want), rel_err(naive, want)
     bar = max(2e-2, 1.5 * floor)
-    moved = [int((a != b).any(dim=-1).sum())
-             for a, b in zip(picks[None], picks["plain"])]
+    moved = moved_tokens(picks[None], picks["plain"])
     print(f"{cfg.name} prefill: logits kernel vs plain {rel:.3e} (bar "
           f"{bar:.3e}); naive oracle vs plain {floor:.3e}; kernel vs naive "
           f"{rel_err(got, naive):.3e}; tokens whose experts differ between "
@@ -1637,21 +1884,257 @@ def moe_train_step(card, configs, train) -> None:
     as under `jax.value_and_grad`)."""
     cfg = configs.get(MOE_ARCH, reduced=True)
     _, state, step, _ = train.build_trainer(cfg, device="cuda")
-
-    def biases():
-        return [lp["ffn"]["router_bias"] for name, sub in state.params.items()
-                if name.startswith("seg") for lp in sub
-                if "router_bias" in lp.get("ffn", {})]
-    before = [b.detach().clone() for b in biases()]
+    before = [b.detach().clone() for b in router_biases(state.params)]
     state, m = step(state, train_batches(cfg, 1, 2, 64)[0])
     loss = float(m["loss"])
-    same = [torch.equal(a, b) for a, b in zip(biases(), before)]
+    same = [torch.equal(a, b) for a, b in
+            zip(router_biases(state.params), before)]
     print(f"train reduced {MOE_ARCH} one step on the card: loss {loss:.4f}, "
           f"router biases unchanged {same} [{card}]", flush=True)
     if not (before and all(same) and math.isfinite(loss)):
         fail(f"reduced {MOE_ARCH} train step: loss {loss}, router biases "
              f"unchanged {same}")
     del state, step
+
+
+def router_biases(params) -> list:
+    """Every MoE layer's router bias."""
+    return [lp["ffn"]["router_bias"] for name, sub in params.items()
+            if name.startswith("seg") for lp in sub
+            if "router_bias" in lp.get("ffn", {})]
+
+
+def moe_train(card, configs, lm, train, counters) -> dict:
+    """Phases 3-5 for DeepSeek-MoE 16B training (5b, after the reduced
+    step): `train_path` at every published width and MOE_TRAIN_LAYERS deep
+    (batch 4 x 2048, fp32 masters, AdamW, remat full: exactly 2 flash
+    forwards and 1 flash backward a layer a step, every router bias
+    bitwise unchanged), then its step through the kernels against the
+    plain twins at MOE_CHECK_LAYERS, held by the naive oracle
+    (`train_vs_plain`).  Returns `train_path`'s numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    full = configs.get(MOE_ARCH)
+    cfg = cut_config(full, MOE_TRAIN_LAYERS)
+    print(f"train {MOE_ARCH}: every published width, depth cut to "
+          f"{MOE_TRAIN_LAYERS} of {full.n_layers} layers "
+          f"({[(g.kind, g.count) for g in lm.layer_plan(cfg)]}; fp32 masters "
+          "with grads, m and v ~36 GB; all 28 layers need ~262 GB)",
+          flush=True)
+    trained = train_path(card, cfg, BATCH, train, counters,
+                         fixed=router_biases)
+    train_vs_plain(card, cut_config(full, MOE_CHECK_LAYERS), BATCH, lm)
+    print(f"moe training phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return trained
+
+
+def v3_mla_check(card, configs, lm, fa) -> dict:
+    """Phase 5b: one fp32 `blocks.mla_attention` call at DeepSeek-V3's full
+    width, batch 1 x PROMPT into a fp32 latent cache of PROMPT + 1
+    positions, then one decode step, on the card (the prefill through the
+    MLA-layout kernel: one launch) and on the CPU (its plain twin) from the
+    same numpy-seeded params and inputs: both outputs and the cache
+    entries within V3_MLA_REL (relative max)."""
+    import numpy as np
+    from repro_torch.models import blocks
+    t0 = time.perf_counter()
+    dims = lm.mla_dims(configs.get(V3_ARCH))
+    rng = np.random.default_rng(0)
+    d, h, r_q, r_kv = (dims.d_model, dims.n_heads, dims.q_lora_rank,
+                       dims.kv_lora_rank)
+    # `blocks.init_mla`'s leaves: (shape, fan-in)
+    leaves = {"wq_a": ((d, r_q), d), "wq_b": ((r_q, h, dims.qk_dim), r_q),
+              "wkv_a": ((d, r_kv + dims.qk_rope_dim), d),
+              "wk_b": ((r_kv, h, dims.qk_nope_dim), r_kv),
+              "wv_b": ((r_kv, h, dims.v_head_dim), r_kv),
+              "wo": ((h, dims.v_head_dim, d), h * dims.v_head_dim)}
+    cpu_p = {name: torch.from_numpy(
+        (rng.standard_normal(shape) * n ** -0.5).astype(np.float32))
+        for name, (shape, n) in leaves.items()}
+    for name, n in (("q_norm", r_q), ("kv_norm", r_kv)):
+        cpu_p[name] = {"scale": torch.from_numpy(
+            (1 + 0.1 * rng.standard_normal(n)).astype(np.float32))}
+    x = torch.from_numpy(rng.standard_normal(
+        (1, PROMPT + 1, dims.d_model)).astype(np.float32))
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), cpu_p)
+        cache = blocks.init_mla_cache(1, PROMPT + 1, dims, dev,
+                                      dtype=torch.float32)
+        xt, pos = x.to(dev), torch.arange(PROMPT + 1, device=dev)[None]
+        with torch.no_grad():
+            pre = blocks.mla_attention(p, dims, xt[:, :PROMPT],
+                                       pos[:, :PROMPT], kv_cache=cache,
+                                       cache_index=0)
+            dec = blocks.mla_attention(p, dims, xt[:, PROMPT:],
+                                       pos[:, PROMPT:], kv_cache=cache,
+                                       cache_index=PROMPT)
+        return [t.cpu() for t in (pre, dec, cache["ckv"], cache["krope"])]
+    before = fa.flash_attention.launches_mla
+    got = run("cuda")
+    launched = fa.flash_attention.launches_mla - before
+    want = run("cpu")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    print(f"{V3_ARCH} MLA block at full width (d {dims.d_model}, "
+          f"{dims.n_heads} heads, q rank {dims.q_lora_rank}, kv rank "
+          f"{dims.kv_lora_rank}, rope {dims.qk_rope_dim}), fp32, 1 x "
+          f"{PROMPT} then one decode step, card vs CPU: relative max errors "
+          f"prefill {errs[0]:.3e}, decode {errs[1]:.3e}, cache ckv "
+          f"{errs[2]:.3e}, krope {errs[3]:.3e} (bar {V3_MLA_REL}); "
+          f"{launched} MLA-layout launches on the card; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if launched != 1 or max(errs) > V3_MLA_REL:
+        fail(f"the full-width fp32 MLA block on the card differs from the "
+             f"CPU: {errs}, launches {launched}")
+    del got, want, cpu_p
+    return {"rel_errs": errs}
+
+
+def v3_serve(card, configs, lm, serve, counters) -> dict:
+    """Phases 3-5 for DeepSeek-V3 at every published width and
+    V3_SERVE_LAYERS deep (5b, last of its models, the card's memory
+    released before it): `serve.generate` counted (exactly one MLA-layout
+    flash forward a layer for the prefill, none in decode, nothing else);
+    each layer's MLA on the same input through the kernel against the
+    plain twin (relative max <= 2e-2); the prefill logits against the plain
+    twin within max(2e-2, 1.5 x the naive oracle's distance), the tokens
+    whose experts differ counted by MoE layer; these checks one sequence at
+    a time (the oracle's fp32 logits at 128 heads are 8.7 GB a layer at
+    batch 4); prefill ms, decode ms / token, the profiler's device time of
+    one prefill with the MLA kernel's share, the weights' bytes and peak
+    memory."""
+    from repro_torch.models import blocks, layers
+    t_phase = time.perf_counter()
+    full = configs.get(V3_ARCH)
+    cfg = dataclasses.replace(full, n_layers=V3_SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    model = lm.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(params)) / 1e9
+    print(f"serve {V3_ARCH}: every published width, depth cut to "
+          f"{V3_SERVE_LAYERS} of {full.n_layers} layers "
+          f"({[(g.kind, g.count) for g in model.plan]}), {n_params:.3f} B "
+          f"params, {weights_gb:.3f} GB of weights (the MTP head's "
+          f"included), initialised in {init_s:.1f} s", flush=True)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    set_counts(counters)
+    t0 = time.perf_counter()
+    toks = serve.generate(model, params, prompts, PROMPT + GEN, GEN)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launched = read_counts(counters)
+    print(f"serve {V3_ARCH}: {serve_s:.3f}s end to end (batch {BATCH}, "
+          f"prompt {PROMPT}, {GEN} new tokens), launches {launched} "
+          f"[{card}]", flush=True)
+    if launched != counts(flash_attention_mla=cfg.n_layers):
+        fail(f"serve {V3_ARCH} launched {launched}; want "
+             f"{counts(flash_attention_mla=cfg.n_layers)} (the flash forward "
+             "at the MLA layout once per layer, nothing else)")
+    check_tokens(toks, cfg.vocab, V3_ARCH)
+    dims = lm.mla_dims(cfg)
+    pos = torch.arange(PROMPT, device=dev)[None]
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
+    with torch.inference_mode():
+        worst = 0.0
+        for i in range(BATCH):
+            x = layers.embed(params["embed"], prompts[i:i + 1], scale)
+            for j, seg in enumerate(model.plan):
+                for lp in params[f"seg{j}"]:
+                    h = layers.rmsnorm(lp["ln_attn"], x)
+                    outs = [blocks.mla_attention(lp["attn"], dims, h, pos,
+                                                 force=force)
+                            for force in (None, "plain")]
+                    worst = max(worst, rel_err(*outs))
+                    x, _ = lm._apply_block(lp, cfg, seg, x, pos)
+            del x, h, outs
+        print(f"{V3_ARCH} prefill: worst MLA kernel vs plain on the same "
+              f"input, over {cfg.n_layers} layers and {BATCH} sequences, "
+              f"{worst:.3e} (bar 2e-2) [{card}]", flush=True)
+        if worst > 2e-2:
+            fail(f"{V3_ARCH}: an MLA through the kernel differs from plain: "
+                 f"{worst}")
+        picks, logits = {}, {}
+        for force in (None, "plain", "naive"):
+            m = lm.build(cfg, force=force)
+            rows = []
+            for i in range(BATCH):
+                with routing_picks(picks.setdefault(force, [])):
+                    rows.append(m.prefill(params, prompts[i:i + 1],
+                                          m.init_cache(1, PROMPT, dev)))
+                torch.cuda.empty_cache()
+            logits[force] = torch.cat(rows)
+        got, want, naive = logits[None], logits["plain"], logits["naive"]
+        rel, floor = rel_err(got, want), rel_err(naive, want)
+        bar = max(2e-2, 1.5 * floor)
+        n_moe = sum(g.count for g in model.plan if g.kind == "moe")
+        per = moved_tokens(picks[None], picks["plain"])   # sequence-major
+        moved = [sum(per[j::n_moe]) for j in range(n_moe)]
+        print(f"{V3_ARCH} prefill: logits kernel vs plain {rel:.3e} (bar "
+              f"{bar:.3e}); naive oracle vs plain {floor:.3e}; kernel vs "
+              f"naive {rel_err(got, naive):.3e}; tokens whose experts differ "
+              f"between the kernel's and the plain twin's prefill, by MoE "
+              f"layer (of {BATCH * PROMPT}): {moved} [{card}]", flush=True)
+        if not (torch.isfinite(got).all().item() and rel <= bar):
+            fail(f"{V3_ARCH} prefill logits through the kernel differ from "
+                 f"plain: {rel} (bar {bar})")
+        del logits, got, want, naive, picks
+        torch.cuda.empty_cache()
+
+        cache = model.init_cache(BATCH, PROMPT + GEN, dev)
+        prefill_ms = time_ms(lambda: model.prefill(params, prompts, cache), 3,
+                             warmup=1)
+        tok = model.prefill(params, prompts, cache)[:, -1].argmax(
+            dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(GEN - 1):
+            tok = model.decode_step(params, tok, cache, PROMPT + i)[:, -1] \
+                .argmax(dim=-1, keepdim=True)
+        end.record()
+        end.synchronize()
+        decode_ms = start.elapsed_time(end) / (GEN - 1)
+        print(f"{V3_ARCH} prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms; "
+              f"decode {decode_ms:.3f} ms/token, "
+              f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH}; "
+              f"weights {weights_gb:.3f} GB [{card}]", flush=True)
+        label = f"{V3_ARCH} prefill"
+        rows = device_kernels(lambda: model.prefill(params, prompts, cache))
+        report_busy(label, rows, prefill_ms, 1)
+        hit = [e for e in rows if "flash_fwd_mla" in e.key]
+        mla_ms = (sum(e.self_device_time_total for e in hit) / 1e3
+                  if hit else None)
+        if hit:
+            print(f"{label}: the flash forward at the MLA layout "
+                  f"{mla_ms:.3f} ms of device time "
+                  f"x{sum(e.count for e in hit)}, "
+                  f"{100 * mla_ms / prefill_ms:.1f} % of the "
+                  f"{prefill_ms:.3f} ms prefill [{card}]", flush=True)
+
+        def three_steps():
+            for i in range(3):
+                model.decode_step(params, tok, cache, PROMPT + i)
+        report_busy(f"{V3_ARCH} decode step", device_kernels(three_steps),
+                    decode_ms, 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve {V3_ARCH}: peak memory {peak_gb:.3f} GB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del params, cache, toks, model
+    torch.cuda.empty_cache()
+    return {"launches": launched["flash_attention_mla"], "peak_gb": peak_gb,
+            "weights_gb": weights_gb, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "mla_device_ms": mla_ms,
+            "logits_rel": rel, "logits_bar": bar, "moved_tokens": moved}
 
 
 def bf16_state_close(got, want) -> tuple:
@@ -2029,14 +2512,13 @@ def serve_counted(serve, arch, counters) -> tuple:
     """Phase 3 for one model: every launch counter set to 0 just before
     `serve.main`, read just after.  Returns (tokens, {kernel: launches},
     seconds)."""
-    for fn in counters.values():
-        fn.launches = 0
+    set_counts(counters)
     t0 = time.perf_counter()
     toks = serve.main(["--arch", arch, "--batch", str(BATCH),
                        "--prompt-len", str(PROMPT), "--gen", str(GEN)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return toks, {name: fn.launches for name, fn in counters.items()}, dt
+    return toks, read_counts(counters), dt
 
 
 def check_tokens(toks, vocab: int, arch: str) -> None:
@@ -3176,26 +3658,31 @@ def main() -> int:
             print(f"  {name}: {row['kernel']}: {row['registers']} registers,"
                   f" {row['spill']} bytes spill stores", flush=True)
             # the tensor-core kernels: no spills, no serialized wgmma; the
-            # wkv6 backward's span walk and the scan kernels: no spills
+            # wkv6 backward's span walk, the scan kernels and the MLA
+            # layout's kernel: no spills
             if "_bf16<" in row["kernel"] and (row["spill"] or row["c75"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled, "
                      f"{row['c75']}")
             if (("wkv6_pair_kernel" in row["kernel"]
-                 or "ssm_scan" in row["kernel"]) and row["spill"]):
+                 or "ssm_scan" in row["kernel"]
+                 or "flash_fwd_mla" in row["kernel"]) and row["spill"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled")
 
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)
+    check_mla(fa, ref)
     wkv_main_err = check_wkv6(wkv)
     wkv_bwd_err = check_wkv6_bwd(wkv, ref)
     scan_errs = check_scan(ss, ref)
 
     # 3-5 for the dense main paths, TinyLlama-1.1B and Gemma-7B (hd 256)
-    counters = {"flash_attention": fa.flash_attention,
-                "flash_attention_bwd": fa.flash_attention_bwd,
-                "wkv6": wkv.wkv6, "wkv6_bwd": wkv.wkv6_bwd,
-                "selective_scan": ss.selective_scan,
-                "selective_scan_bwd": ss.selective_scan_bwd}
+    counters = {"flash_attention": (fa.flash_attention, "launches"),
+                "flash_attention_mla": (fa.flash_attention, "launches_mla"),
+                "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
+                "wkv6": (wkv.wkv6, "launches"),
+                "wkv6_bwd": (wkv.wkv6_bwd, "launches"),
+                "selective_scan": (ss.selective_scan, "launches"),
+                "selective_scan_bwd": (ss.selective_scan_bwd, "launches")}
     launches = dense_serve(card, configs, serve, counters,
                            ARCH)["flash_attention"]
 
@@ -3263,6 +3750,17 @@ def main() -> int:
               for arch in (MOE_ARCH, VLM_ARCH)}
     # C3: a MoE training step on the card leaves the router bias alone
     moe_train_step(card, configs, train)
+    # A11.2: DeepSeek-MoE 16B trained at every published width,
+    # MOE_TRAIN_LAYERS deep, through the hd-128 flash forward and backward
+    moe_trained = moe_train(card, configs, lm, train, counters)
+    # A11.3: DeepSeek-V3's MLA at its latent layout: the kernel alone beside
+    # its twin and SDPA (on a card free of weights), one fp32 MLA block at
+    # full width card against CPU, the reduced V3 on the GPU against the
+    # CPU, then V3 served at every published width, V3_SERVE_LAYERS deep
+    mla_t = time_flash_mla(fa, card)
+    v3_block = v3_mla_check(card, configs, lm, fa)
+    reduced_on_gpu(card, configs, lm, V3_ARCH)
+    served[V3_ARCH] = v3_serve(card, configs, lm, serve, counters)
 
     # 5c. Hymba-1.5B, last of the models: the SSM block, the windowed
     # flash forward at 25 heads, the serve at full width and depth, then
@@ -3304,6 +3802,16 @@ def main() -> int:
         "launches": gemma_launches, "max_abs_err": errs[GEMMA][0],
         "ms": gemma_t[0], "plain_ms": gemma_t[1], "bound_ms": gemma_t[3],
         "bound_by": gemma_t[4], "library_ms": gemma_t[2]}, {
+        # the same wrapper and source at DeepSeek-V3's MLA layout (one
+        # shared k / v head, head dims 576 / 512: its own SIMT kernel)
+        "name": "flash_attention_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/blocks.py:195-200 "
+                    "(ref.flash_attention_ref at the MLA layout; the Pallas "
+                    "flash_attention.py:78 cannot take it)",
+        "launches": served[V3_ARCH]["launches"], "max_abs_err": mla_t[5],
+        "ms": mla_t[0], "plain_ms": mla_t[1], "bound_ms": mla_t[3],
+        "bound_by": mla_t[4], "library_ms": mla_t[2]}, {
         # the same wrapper and source with a 1024-key window at 25 heads:
         # Hymba-1.5B's serve (its launches: 29 windowed, 3 global); the
         # library time is SDPA given the window as a boolean mask
@@ -3341,7 +3849,11 @@ def main() -> int:
         "plain_ms": scan_t["backward"][1], "bound_ms": scan_t["backward"][2],
         "bound_by": scan_t["backward"][3], "library_ms": None}]}))
     print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped,
-                      "hymba_ssm_block": hymba_ssm}))
+                      "hymba_ssm_block": hymba_ssm,
+                      "moe_train": {k: moe_trained[k] for k in (
+                          "step_ms", "tokens_per_s", "peak_gb", "launches",
+                          "losses")},
+                      "v3_mla_block": v3_block}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))
     print(json.dumps({"inverse": inverse}))

@@ -3,11 +3,12 @@
 `params_from_jax` takes the JAX `params` pytree after
 `jax.tree.map(np.asarray, ...)` (nested dicts of numpy arrays) and returns
 the port's params: each segment's leading layer axis unstacked into a list
-of per-layer dicts, matmul weights in bf16 (the JAX path casts them to bf16
-at every use, so this is bit-identical), and in fp32 the norm scales
-(`scale` leaves) and the leaves that the JAX blocks read in fp32
-(FP32_LEAVES: the MoE router bias, the SSM's `a_log`, the RWKV time-mix's
-decay and bonus).  With `dtype=torch.float32` every leaf is fp32: the JAX
+of per-layer dicts (other subtrees, DeepSeek-V3's MTP head among them, as
+they are), matmul weights in bf16, MLA's projections among them (the JAX
+path casts them to bf16 at every use, so this is bit-identical), and in
+fp32 the norm scales (`scale` leaves) and the leaves that the JAX blocks
+read in fp32 (FP32_LEAVES: the MoE router bias, the SSM's `a_log`, the
+RWKV time-mix's decay and bonus).  With `dtype=torch.float32` every leaf is fp32: the JAX
 package's own fp32 masters, for training.
 """
 

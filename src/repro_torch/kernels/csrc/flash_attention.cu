@@ -82,6 +82,27 @@
 // Either kernel gives the plain version's result for a row that sees at
 // least one key.
 //
+// DeepSeek-V3's latent (MLA) layout, fp32 and bf16 (`flash_fwd_mla`,
+// entry `flash_attention_mla_fwd`): q (B, Sq, H, 576), one k head (B, Skv,
+// 1, 576) and one v head (B, Skv, 1, 512) shared by all of q's heads (the
+// absorbed form of src/repro/models/blocks.py:180-200, which the JAX
+// package sends to its chunked reference because the Pallas kernel cannot
+// take it).  Bound at the served shape (4, 2048, 128, 576 / 512), causal,
+// bf16: 2,098,176 causal pairs x 512 (b, h) x 2 x (576 + 512) = 2.34 TFLOP,
+// 2.363 ms at 989 TFLOP/s; its bytes (q, k, v, o ~2.3 GB) take 0.68 ms at
+// 3.35 TB/s.  Design, simple and right first (the products on the fp32
+// FMA units, 67 TFLOP/s, so ~35 ms at best): heads as rows, as FlashMLA
+// lays them out, since every head reads the same K and V.  A block holds
+// 64 rows (q position, head) of one sequence, their q (scaled, fp32)
+// resident in shared memory, and walks key tiles of 32: the K tile, then
+// the V tile in the same buffer (580-float rows: 222,720 bytes of dynamic
+// shared memory, one block an SM).  256 threads; a thread owns 4 rows and
+// keys tx, tx + 16 of S (so its 4 rows' q and 2 keys' k feed 8 products a
+// float4 of the 576 features), and the same 4 rows x 32 columns of O (128
+// fp32 accumulators), P passed between the 16 lanes of a row by shuffles.
+// The online softmax is the SIMT kernel's, per row, over the 16 lanes.
+// Row tiles are ordered heaviest first.
+//
 // The TMA, mbarrier, descriptor and wgmma primitives and the host-side
 // tensor maps live in hopper.cuh, shared with the backward's wgmma kernels.
 //
@@ -628,6 +649,205 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// SIMT kernel at the MLA layout: one k / v head shared by all of q's heads
+// ---------------------------------------------------------------------------
+
+namespace mla {
+constexpr int kDK = 576;             // q / k head dim (kv_lora_rank + rope)
+constexpr int kDV = 512;             // v head dim (kv_lora_rank)
+constexpr int kThreads = 256;
+constexpr int kBM = 64;              // rows (q position, head) a block
+constexpr int kBN = 32;              // keys a tile
+constexpr int kRows = 4;             // rows a thread (16 row groups)
+constexpr int kCols = kDV / 4 / 16;  // float4 columns of O a thread (8)
+constexpr int kStride = kDK + 4;     // floats a shared row: rows 4 banks apart
+constexpr int kSmem = (kBM + kBN) * kStride * 4;  // Q rows, then K or V
+}  // namespace mla
+
+// Thread (ty, tx), ty = 2 warp + lane / 16, tx = lane % 16: rows 4 ty .. 4 ty
+// + 3 of the block, keys tx and tx + 16 of each S tile, float4 columns tx +
+// 16 c of O.  A row's 16 lanes are one half of a warp.
+template <typename T>
+__global__ void __launch_bounds__(mla::kThreads, 1)
+    flash_fwd_mla(const Params p, int n_rt, int B) {
+  using namespace mla;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                    // kBM rows of kStride
+  float* sKV = smem + kBM * kStride;   // kBN rows of kStride
+
+  const int b = blockIdx.x % B;
+  const int rt = n_rt - 1 - blockIdx.x / B;  // heaviest row tiles first
+  const int n_rows = p.Sq * p.H;
+  const int r0 = rt * kBM;
+  const int lane = threadIdx.x % 32;
+  const int ty = 2 * (threadIdx.x / 32) + lane / 16, tx = lane % 16;
+
+  const T* Q = static_cast<const T*>(p.q) + b * p.sq.b;
+  const T* K = static_cast<const T*>(p.k) + b * p.sk.b;
+  const T* V = static_cast<const T*>(p.v) + b * p.sv.b;
+  T* O = static_cast<T*>(p.o) + b * p.so.b;
+
+  // q, scaled as the plain version scales it, resident for every key tile
+  for (int c = threadIdx.x; c < kBM * (kDK / 4); c += kThreads) {
+    const int r = c / (kDK / 4), f4 = c % (kDK / 4), row = r0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < n_rows) {
+      x = flash::load4(Q + (row / p.H) * p.sq.s + (row % p.H) * p.sq.h +
+                       4 * f4);
+      x = make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale,
+                      x.w * p.scale);
+    }
+    *reinterpret_cast<float4*>(&sQ[r * kStride + 4 * f4]) = x;
+  }
+
+  int qpos[kRows];
+  float m[kRows], l[kRows];
+  float4 acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = r0 + 4 * ty + i;
+    qpos[i] = row < n_rows ? row / p.H + p.q_offset : -1;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  int lo, hi;
+  const int i_first = r0 / p.H, i_last = (min(r0 + kBM, n_rows) - 1) / p.H;
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, i_first,
+                  i_last - i_first + 1, kBN, lo, hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * kBN;
+    __syncthreads();  // the last tile's V is read; sQ is written
+    for (int c = threadIdx.x; c < kBN * (kDK / 4); c += kThreads) {
+      const int r = c / (kDK / 4), f4 = c % (kDK / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < p.Skv) x = flash::load4(K + (k0 + r) * p.sk.s + 4 * f4);
+      *reinterpret_cast<float4*>(&sKV[r * kStride + 4 * f4]) = x;
+    }
+    __syncthreads();
+
+    // S = (q scale) k^T for 4 rows x 2 keys, over the 576 features
+    float s[kRows][2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i][0] = s[i][1] = 0.f;
+    const float* qrow = &sQ[4 * ty * kStride];
+#pragma unroll 4
+    for (int f = 0; f < kDK; f += 4) {
+      const float4 k0v = *reinterpret_cast<const float4*>(&sKV[tx * kStride + f]);
+      const float4 k1v =
+          *reinterpret_cast<const float4*>(&sKV[(tx + 16) * kStride + f]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qrow[i * kStride + f]);
+        s[i][0] = fmaf(qv.x, k0v.x, s[i][0]);
+        s[i][0] = fmaf(qv.y, k0v.y, s[i][0]);
+        s[i][0] = fmaf(qv.z, k0v.z, s[i][0]);
+        s[i][0] = fmaf(qv.w, k0v.w, s[i][0]);
+        s[i][1] = fmaf(qv.x, k1v.x, s[i][1]);
+        s[i][1] = fmaf(qv.y, k1v.y, s[i][1]);
+        s[i][1] = fmaf(qv.z, k1v.z, s[i][1]);
+        s[i][1] = fmaf(qv.w, k1v.w, s[i][1]);
+      }
+    }
+
+    // the online softmax, a row over its 16 lanes; s becomes p
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (!flash::visible(p.Skv, p.causal, p.window, qpos[i],
+                            k0 + tx + 16 * j))
+          s[i][j] = kNegInf;
+      float mx = fmaxf(s[i][0], s[i][1]);
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[i][j] = k0 + tx + 16 * j < p.Skv ? expf(s[i][j] - m_new) : 0.f;
+      l[i] = l[i] * corr + flash::row_sum<16>(s[i][0] + s[i][1]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        acc[i][c].x *= corr;
+        acc[i][c].y *= corr;
+        acc[i][c].z *= corr;
+        acc[i][c].w *= corr;
+      }
+    }
+
+    __syncthreads();  // every warp is done with the K tile
+    for (int c = threadIdx.x; c < kBN * (kDV / 4); c += kThreads) {
+      const int r = c / (kDV / 4), f4 = c % (kDV / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < p.Skv) x = flash::load4(V + (k0 + r) * p.sv.s + 4 * f4);
+      *reinterpret_cast<float4*>(&sKV[r * kStride + 4 * f4]) = x;
+    }
+    __syncthreads();
+
+    // O += P V: key j's p of each row from the lane that holds it
+#pragma unroll 4
+    for (int j = 0; j < kBN; ++j) {
+      float pj[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        pj[i] = __shfl_sync(0xffffffffu, j < 16 ? s[i][0] : s[i][1],
+                            (lane & 16) | (j & 15));
+      const float* vrow = &sKV[j * kStride];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(&vrow[4 * (tx + 16 * c)]);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][c].x = fmaf(pj[i], vv.x, acc[i][c].x);
+          acc[i][c].y = fmaf(pj[i], vv.y, acc[i][c].y);
+          acc[i][c].z = fmaf(pj[i], vv.z, acc[i][c].z);
+          acc[i][c].w = fmaf(pj[i], vv.w, acc[i][c].w);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = r0 + 4 * ty + i;
+    if (row >= n_rows) continue;
+    const int qi = row / p.H, h = row % p.H;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* orow = O + qi * p.so.s + h * p.so.h;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      flash::store4(orow + 4 * (tx + 16 * c),
+                    make_float4(acc[i][c].x * inv, acc[i][c].y * inv,
+                                acc[i][c].z * inv, acc[i][c].w * inv));
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+template <typename T>
+int launch_mla(const Params& p, int B, cudaStream_t stream) {
+  const long long n_rt =
+      (static_cast<long long>(p.Sq) * p.H + mla::kBM - 1) / mla::kBM;
+  if (static_cast<long long>(p.Sq) * p.H > INT_MAX || n_rt * B > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_fwd_mla<T>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, mla::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_mla<T><<<static_cast<unsigned>(n_rt * B), mla::kThreads,
+                     mla::kSmem, stream>>>(p, static_cast<int>(n_rt), B);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -706,6 +926,39 @@ extern "C" int flash_attention_fwd(
     case 256: return launch<256>(p, dtype, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The MLA layout (flash_fwd_mla): q (B, Sq, H, 576), k (B, Skv, 1, 576), v
+// (B, Skv, 1, 512) (v may be a view of k's first 512 features), o (B, Sq, H,
+// 512); strides in elements as above, without k's and v's head strides.
+// dtype, masks, scale, lse and the return value as flash_attention_fwd.
+extern "C" int flash_attention_mla_fwd(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B, int H, int Sq, int Skv, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long o_sb, long long o_ss, long long o_sh,
+    int causal, int window, int q_offset, float scale, void* stream) {
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = lse;
+  p.sq = {q_sb, q_ss, q_sh};
+  p.sk = {k_sb, k_ss, 0};
+  p.sv = {v_sb, v_ss, 0};
+  p.so = {o_sb, o_ss, o_sh};
+  p.H = H;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.causal = causal;
+  p.window = window;
+  p.q_offset = q_offset;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_mla<float>(p, B, st);
+  if (dtype == 1) return launch_mla<__nv_bfloat16>(p, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -13,6 +13,14 @@ ctypes.  On CPU tensors each wrapper runs its plain twin (`ref.flash_fwd`,
 raises.  `flash_attention.launches` counts forward launches and
 `flash_attention_bwd.launches` backward calls (three kernels each).
 
+The forward also takes DeepSeek-V3's latent (MLA) layout, `is_mla`: one k
+and one v head shared by all of q's heads, q and k of head dim 576, v of 512
+(the JAX package runs it through `ref.flash_attention_ref`, since its Pallas
+kernel cannot take it).  Its kernel is a SIMT kernel of its own in the same
+source, counted in `flash_attention.launches_mla`; its backward is not
+ported (ROADMAP A11.3b), so a CUDA call at this layout that would need a
+gradient raises NotImplementedError.
+
 `FlashAttention` is the way to differentiate through the kernels, and the
 one that `ops.attention` calls: its forward asks the kernel for lse and
 saves q, k, v, o and lse (neither where no gradient can reach the call),
@@ -31,6 +39,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# the MLA layout's (q / k, v) head dims: kv_lora_rank + rope, kv_lora_rank
+MLA_DIMS = (576, 512)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,6 +63,31 @@ def _fwd():
 
 
 @functools.cache
+def _fwd_mla():
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention_mla_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, lib.flash_attention_error_string
+
+
+def is_mla(q, k, v) -> bool:
+    """q (B,Sq,H,576), k (B,Skv,1,576) and v (B,Skv,1,512): the MLA layout."""
+    return (q.dim() == k.dim() == v.dim() == 4 and k.shape[2] == v.shape[2] == 1
+            and (q.shape[-1], k.shape[-1], v.shape[-1])
+            == (MLA_DIMS[0], MLA_DIMS[0], MLA_DIMS[1]))
+
+
+def _no_mla_grad(what: str):
+    return NotImplementedError(
+        f"flash_attention: {what} at the MLA layout (one shared k / v head, "
+        "head dims 576 / 512) is not ported (ROADMAP A11.3b: the flash "
+        "backward at the MLA layout); call under torch.no_grad()")
+
+
+@functools.cache
 def _bwd():
     lib = build.library("flash_attention_bwd")
     fn = lib.flash_attention_bwd
@@ -65,11 +100,12 @@ def _bwd():
     return fn, lib.flash_attention_bwd_error_string
 
 
-def _check(q, k, v, window, q_offset, **like_q):
+def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
     """Raise on what the kernels do not take: q (B,Sq,H,hd), k and v
     (B,Skv,H,hd), and the tensors of `like_q` shaped as q, all on one CUDA
     device, in one of _DTYPES, hd in HEAD_DIMS, with a contiguous head_dim
-    and 16-byte aligned rows and strides."""
+    and 16-byte aligned rows and strides.  With `mla`, the MLA layout
+    instead of the equal heads and head dims (`is_mla`)."""
     ts = {"q": q, "k": k, "v": v, **like_q}
     if not all(t.is_cuda and t.device == q.device for t in ts.values()):
         raise ValueError(f"flash_attention: {', '.join(ts)} must lie on one "
@@ -78,20 +114,31 @@ def _check(q, k, v, window, q_offset, **like_q):
         raise ValueError("flash_attention: dtypes "
                          f"{'/'.join(str(t.dtype) for t in ts.values())}; "
                          "the kernel takes float32 or bfloat16")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; want "
-                         "(B,Sq,H,hd) and two equal (B,Skv,H,hd)")
-    b, _, h, hd = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, hd):
-        raise ValueError("flash_attention: q and k/v differ in batch, heads "
-                         "or head_dim (expand GQA before the call)")
-    for name, t in like_q.items():
-        if t.shape != q.shape:
-            raise ValueError(f"flash_attention: {name} {tuple(t.shape)}; "
-                             f"want q's {tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if mla:
+        if not (is_mla(q, k, v) and k.shape[:2] == v.shape[:2]
+                and k.shape[0] == q.shape[0]):
+            raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, v {tuple(v.shape)}; want "
+                             f"(B,Sq,H,{MLA_DIMS[0]}), (B,Skv,1,"
+                             f"{MLA_DIMS[0]}) and (B,Skv,1,{MLA_DIMS[1]})")
+    else:
+        if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+            raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, v {tuple(v.shape)}; want "
+                             "(B,Sq,H,hd) and two equal (B,Skv,H,hd)")
+        b, _, h, hd = q.shape
+        if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, hd):
+            raise ValueError("flash_attention: q and k/v differ in batch, "
+                             "heads or head_dim (expand GQA before the call; "
+                             "one shared head is taken only at the MLA "
+                             f"layout, head dims {MLA_DIMS})")
+        for name, t in like_q.items():
+            if t.shape != q.shape:
+                raise ValueError(f"flash_attention: {name} {tuple(t.shape)}; "
+                                 f"want q's {tuple(q.shape)}")
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head_dim {hd} not in "
+                             f"{HEAD_DIMS}")
     align = 16 // q.element_size()
     for name, t in ts.items():
         if (t.stride(-1) != 1 or any(s % align for s in t.stride()[:3])
@@ -121,39 +168,52 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
                         scale: float | None = None, want_lse: bool = False):
     """The forward: q (B,Sq,H,hd); k, v (B,Skv,H,hd), H already
-    GQA-expanded; any Sq and Skv; hd in HEAD_DIMS on the GPU.  Returns
-    (out (B,Sq,H,hd) in q's dtype, lse), lse the fp32 (B,H,Sq) natural log
-    of each row's softmax denominator over the scaled logits when
-    `want_lse`, else None (the kernel then writes none)."""
+    GQA-expanded, or the MLA layout (`is_mla`); any Sq and Skv; hd in
+    HEAD_DIMS on the GPU.  Returns (out (B,Sq,H,hd_v) in q's dtype, lse),
+    hd_v v's head dim, lse the fp32 (B,H,Sq) natural log of each row's
+    softmax denominator over the scaled logits when `want_lse`, else None
+    (the kernel then writes none)."""
     if q.device.type == "cpu":
         out, lse = ref.flash_fwd(q, k, v, min(512, k.shape[1]), causal,
                                  window, q_offset, scale)
         return out, lse if want_lse else None
+    mla = is_mla(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if mla:
+            raise _no_mla_grad("the gradient")
         raise RuntimeError(
             "flash_attention: an input requires grad, and the kernel's output "
             "would carry none; differentiate through FlashAttention.apply "
             "(ops.attention does), or call under torch.no_grad()")
-    _check(q, k, v, window, q_offset)
+    _check(q, k, v, window, q_offset, mla=mla)
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5 if scale is None else float(scale)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if sq == 0:
         return out, lse
-    fwd, errstr = _fwd()
-    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              None if lse is None else lse.data_ptr(),
-              _DTYPES[q.dtype], b, h, sq, skv, hd,
-              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-              *out.stride()[:3], int(causal), window or 0, q_offset, scale,
-              torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    masks = (int(causal), window or 0, q_offset, scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if mla:
+        fwd, errstr = _fwd_mla()
+        err = fwd(*ptrs, _DTYPES[q.dtype], b, h, sq, skv, *q.stride()[:3],
+                  *k.stride()[:2], *v.stride()[:2], *out.stride()[:3], *masks)
+    else:
+        fwd, errstr = _fwd()
+        err = fwd(*ptrs, _DTYPES[q.dtype], b, h, sq, skv, hd,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *out.stride()[:3], *masks)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    flash_attention.launches += 1
+    if mla:
+        flash_attention.launches_mla += 1
+    else:
+        flash_attention.launches += 1
     return out, lse
 
 
@@ -171,6 +231,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.launches_mla = 0   # the forwards at the MLA layout
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
@@ -184,6 +245,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         return ref.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              min(512, k.shape[1]), causal,
                                              window, q_offset, scale)
+    if is_mla(q, k, v):
+        raise _no_mla_grad("the backward")
     _check(q, k, v, window, q_offset, o=o, do=do)
     b, sq, h, hd = q.shape
     skv = k.shape[1]
@@ -230,6 +293,8 @@ class FlashAttention(torch.autograd.Function):
                 scale=None, grad=True):
         opts = dict(causal=causal, window=window, q_offset=q_offset,
                     scale=scale)
+        if grad and q.is_cuda and is_mla(q, k, v):
+            raise _no_mla_grad("a call that needs a gradient")
         out, lse = flash_attention_fwd(q, k, v, want_lse=grad, **opts)
         if grad:
             ctx.save_for_backward(q, k, v, out, lse)

@@ -5,9 +5,11 @@
 
 `--arch` takes every architecture `models.lm.build` accepts: the dense
 family (tinyllama-1.1b, qwen3-14b, gemma-7b, minicpm-2b, and
-chameleon-34b's backbone), deepseek-moe-16b, hymba-1.5b and rwkv6-3b.  Runs on `cuda`
-unless `--device cpu` is given; without a GPU and without that flag it
-raises.  Weights and prompts are random, from fixed seeds.
+chameleon-34b's backbone), deepseek-moe-16b, deepseek-v3-671b (MLA over
+its latent cache; at full depth it does not fit one card), hymba-1.5b and
+rwkv6-3b.  Runs on `cuda` unless `--device cpu` is given; without a GPU
+and without that flag it raises.  Weights and prompts are random, from
+fixed seeds.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ without that flag it raises.  On the GPU every attention call at
 Sq >= 2048 runs the flash forward and backward kernels, every RWKV6
 time-mix the wkv6 forward and backward kernels, and every SSM of the
 hybrid (Hymba) the selective-scan forward and backward kernels; the
-dense family, the hybrid and RWKV6 train there, as on the CPU.
+dense family, the MoE family without MTP (DeepSeek-MoE), the hybrid and
+RWKV6 train there, as on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +38,11 @@ def build_trainer(cfg, *, device, compression: str = "none",
     """(model, state, step, compressor): fp32 master params from seed 0 on
     `device`, their AdamW state, the train step (`schedule_for(cfg)`'s LR)
     and the gradient compressor.  As in the JAX driver, the compressor is
-    built and not applied: on one device no gradient crosses a link."""
+    built and not applied: on one device no gradient crosses a link.
+    Raises NotImplementedError for an MTP config (DeepSeek-V3), whose loss
+    term is not ported (`lm.MTP_NOT_PORTED`)."""
+    if cfg.mtp:
+        raise NotImplementedError(f"{cfg.name}: {lm_mod.MTP_NOT_PORTED}")
     dev = torch.device(device)
     model = lm_mod.build(cfg, remat=remat)
     step = make_train_step(model.loss, AdamWConfig(schedule=schedule_for(cfg)))

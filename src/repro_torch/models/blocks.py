@@ -1,7 +1,8 @@
 """Architecture blocks, ported from `repro.models.blocks`: the GShard
-mixture of experts (DeepSeek-MoE), the Mamba-style selective SSM of the
-Hymba hybrid block, and the RWKV6 (Finch) time-mix with its data-dependent
-decay and channel-mix.
+mixture of experts (DeepSeek-MoE), DeepSeek-V3's multi-head latent
+attention (MLA) with its latent cache, the Mamba-style selective SSM of
+the Hymba hybrid block, and the RWKV6 (Finch) time-mix with its
+data-dependent decay and channel-mix.
 
 Storage follows `layers`: matmul weights (the router and the experts too)
 and the `mu_*` token-shift mixes in bf16 for serving (the JAX package casts
@@ -27,7 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, _matmul
 
@@ -159,6 +160,113 @@ def moe(p: Params, dims: MoEDims, x: torch.Tensor):
     if "shared" in p:
         out = out + layers.mlp(p["shared"], x)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def init_mla(generator: torch.Generator, dims: MLADims,
+             dtype=torch.bfloat16) -> Params:
+    d, h = dims.d_model, dims.n_heads
+    r_q, r_kv = dims.q_lora_rank, dims.kv_lora_rank
+    tn, dev = layers.truncated_normal, generator.device
+    return {
+        "wq_a": tn((d, r_q), d ** -0.5, generator, dtype),
+        "q_norm": layers.init_rmsnorm(r_q, dev),
+        "wq_b": tn((r_q, h, dims.qk_dim), r_q ** -0.5, generator, dtype),
+        "wkv_a": tn((d, r_kv + dims.qk_rope_dim), d ** -0.5, generator,
+                    dtype),
+        "kv_norm": layers.init_rmsnorm(r_kv, dev),
+        "wk_b": tn((r_kv, h, dims.qk_nope_dim), r_kv ** -0.5, generator,
+                   dtype),
+        "wv_b": tn((r_kv, h, dims.v_head_dim), r_kv ** -0.5, generator,
+                   dtype),
+        "wo": tn((h, dims.v_head_dim, d), (h * dims.v_head_dim) ** -0.5,
+                 generator, dtype),
+    }
+
+
+def mla_attention(p: Params, dims: MLADims, x: torch.Tensor,
+                  positions: torch.Tensor, *, kv_cache: Params | None = None,
+                  cache_index: int | None = None,
+                  force: str | None = None) -> torch.Tensor:
+    """MLA over the compressed latent: x (B,S,d) -> (B,S,d).  With a cache
+    {"ckv": (B,S_max,kv_lora_rank), "krope": (B,S_max,rope)} (`init_mla_cache`)
+    the new latents are written in place from `cache_index` on and the
+    queries attend over the whole cache, masked causally.  Attention runs
+    in the absorbed form: q_nope is taken into the latent space through
+    `wk_b`, and every head attends against one shared key head [ckv, krope]
+    (576 features at DeepSeek-V3's widths) and value head ckv (512).  Below
+    `ops.FLASH_THRESHOLD` query positions (decode, short prefills) the
+    logits are fp32 and the probabilities are rounded to x's dtype before
+    the values; at or above it `ops.attention` (the flash kernel at the
+    MLA layout on CUDA tensors, its plain twin on CPU tensors; `force` as
+    there), with the scale qk_dim**-0.5."""
+    s = x.shape[1]
+    nope, r_kv = dims.qk_nope_dim, dims.kv_lora_rank
+    scale = dims.qk_dim ** -0.5
+    q_lat = layers.rmsnorm(p["q_norm"], _matmul(x, p["wq_a"]))
+    q = _matmul(q_lat, p["wq_b"])                        # (B,S,H,qk_dim)
+    q_rope = layers.apply_rope(q[..., nope:], positions, dims.rope_theta)
+    kv_a = _matmul(x, p["wkv_a"])
+    ckv = layers.rmsnorm(p["kv_norm"], kv_a[..., :r_kv])
+    krope = layers.apply_rope(kv_a[..., None, r_kv:], positions,
+                              dims.rope_theta)[:, :, 0]
+    q_offset = 0
+    if kv_cache is not None:
+        kv_cache["ckv"][:, cache_index:cache_index + s] = ckv
+        kv_cache["krope"][:, cache_index:cache_index + s] = krope
+        ckv, krope, q_offset = kv_cache["ckv"], kv_cache["krope"], cache_index
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q[..., :nope],
+                         p["wk_b"].to(x.dtype))
+    q_eff = torch.cat([q_abs, q_rope], dim=-1)           # (B,S,H,r_kv+rope)
+    k_eff = torch.cat([ckv, krope], dim=-1)[:, :, None]  # (B,S_kv,1,...)
+    if s < ops.FLASH_THRESHOLD:
+        logits = torch.einsum("bqhr,bkr->bhqk", q_eff.float(),
+                              k_eff[:, :, 0].float()) * scale
+        q_pos = torch.arange(s, device=x.device) + q_offset
+        k_pos = torch.arange(ckv.shape[1], device=x.device)
+        logits = logits.masked_fill(q_pos[:, None] < k_pos[None, :],
+                                    ref.NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        dt = torch.promote_types(probs.dtype, ckv.dtype)
+        ctx = torch.einsum("bhqk,bkr->bqhr", probs.to(dt), ckv.to(dt))
+    else:
+        dt = torch.promote_types(q_eff.dtype, k_eff.dtype)
+        k_eff = k_eff.to(dt)
+        ctx = ops.attention(q_eff.to(dt), k_eff, k_eff[..., :r_kv],
+                            causal=True, q_offset=q_offset, scale=scale,
+                            force=force).to(x.dtype)
+    v = torch.einsum("bqhr,rhd->bqhd", ctx,
+                     p["wv_b"].to(x.dtype).to(ctx.dtype))
+    return _matmul(v, p["wo"], n_in=2)
+
+
+def init_mla_cache(batch: int, max_seq: int, dims: MLADims, device,
+                   dtype=torch.bfloat16) -> Params:
+    """The latent cache, written in place by `mla_attention`."""
+    return {"ckv": torch.zeros((batch, max_seq, dims.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, dims.qk_rope_dim),
+                                 dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,11 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
                      dtype=torch.bfloat16) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times `scale`, drawn in fp32
     on the generator's device and stored in `dtype` (bf16: a matmul
-    weight)."""
+    weight).  Scaled in place: one fp32 copy at a time (DeepSeek-V3's
+    expert weights are 15 GB of it a tensor)."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """LM assembly, ported from `repro.models.lm`: the dense family (Chameleon's
 `vlm` backbone among it), DeepSeek-MoE (a leading dense segment, then MoE
-blocks with GQA attention), Hymba (hybrid blocks: attention and the
+blocks with GQA attention), DeepSeek-V3 (the same segments with MLA
+attention over a latent cache), Hymba (hybrid blocks: attention and the
 selective SSM side by side, global attention in a few layers and a
 sliding window, with a ring-buffer KV cache, in the others) and RWKV6.
 
@@ -8,13 +9,16 @@ The JAX package stacks each segment's layer params on a leading axis and
 `lax.scan`s over them; here a segment is a list of per-layer param dicts
 walked by a Python loop.  The JAX sharding constraints have no
 counterpart: with no mesh they are the identity.  `build` raises
-NotImplementedError for the families not ported: MLA attention and the
-MTP head (DeepSeek-V3) and the encoder-decoder (Whisper).
+NotImplementedError for the family not ported, the encoder-decoder
+(Whisper).
 
 Training: `LM.loss` is the next-token cross-entropy, plus 0.01 x the MoE
 blocks' load-balance loss summed over the layers for a MoE config, and
 `remat` recomputes each block in the backward as the JAX `jax.checkpoint`
-does.
+does.  DeepSeek-V3's multi-token-prediction (MTP) head is initialised, so
+the params match the JAX package's layout, but its loss term is not
+ported: `LM.loss` raises NotImplementedError for an MTP config
+(`MTP_NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
 from repro_torch.models.layers import AttnDims, Params
+
+MTP_NOT_PORTED = ("the MTP head (DeepSeek-V3's multi-token-prediction loss) "
+                  "is not ported: ROADMAP A11.3b, with the flash backward at "
+                  "the MLA layout")
 
 # ---------------------------------------------------------------------------
 # Layer plan
@@ -83,6 +91,20 @@ def moe_dims(cfg: ArchConfig) -> blocks.MoEDims:
                           capacity_factor=m.capacity_factor)
 
 
+def mla_dims(cfg: ArchConfig) -> blocks.MLADims:
+    m = cfg.mla
+    return blocks.MLADims(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                          q_lora_rank=m.q_lora_rank,
+                          kv_lora_rank=m.kv_lora_rank,
+                          qk_nope_dim=m.qk_nope_dim, qk_rope_dim=m.qk_rope_dim,
+                          v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta)
+
+
+def uses_mla(cfg: ArchConfig, seg: Segment) -> bool:
+    """Every dense-lead and MoE block of an MLA config attends by MLA."""
+    return cfg.mla is not None and seg.kind in ("moe", "dense_lead")
+
+
 def ssm_dims(cfg: ArchConfig) -> blocks.SSMDims:
     return blocks.SSMDims(d_model=cfg.d_model, d_inner=cfg.d_model,
                           state_dim=cfg.ssm.state_dim, conv_k=cfg.ssm.conv_k)
@@ -110,8 +132,9 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig,
                                               dtype)}
     p = {"ln_attn": layers.init_rmsnorm(d, dev),
          "ln_mlp": layers.init_rmsnorm(d, dev),
-         "attn": layers.init_attention(generator,
-                                       attn_dims(cfg, seg.window), dtype)}
+         "attn": (blocks.init_mla(generator, mla_dims(cfg), dtype)
+                  if uses_mla(cfg, seg) else layers.init_attention(
+                      generator, attn_dims(cfg, seg.window), dtype))}
     if seg.kind == "moe":
         p["ffn"] = blocks.init_moe(generator, moe_dims(cfg), dtype)
     else:
@@ -147,10 +170,15 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
         return x + c_out, None
     rs = layers.scalar_as(cfg.residual_scale, x.dtype)
     h = layers.rmsnorm(lp["ln_attn"], x)
-    attn_out = layers.attention(
-        lp["attn"], attn_dims(cfg, seg.window), h, positions,
-        kv_cache=None if cache is None else cache["kv"],
-        cache_index=cache_index, force=force)
+    kv = None if cache is None else cache["kv"]
+    if uses_mla(cfg, seg):
+        attn_out = blocks.mla_attention(
+            lp["attn"], mla_dims(cfg), h, positions, kv_cache=kv,
+            cache_index=cache_index, force=force)
+    else:
+        attn_out = layers.attention(
+            lp["attn"], attn_dims(cfg, seg.window), h, positions,
+            kv_cache=kv, cache_index=cache_index, force=force)
     if seg.kind == "hybrid":
         ssm_out, ssm_state = blocks.ssm(
             lp["ssm"], ssm_dims(cfg), h,
@@ -173,8 +201,9 @@ def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
                       max_seq: int, device) -> Params:
     if seg.kind == "rwkv":   # fixed-size state: max_seq plays no part
         return blocks.init_rwkv_state(batch, rwkv_dims(cfg), device)
-    cache = {"kv": layers.init_kv_cache(batch, max_seq,
-                                        attn_dims(cfg, seg.window), device)}
+    cache = {"kv": blocks.init_mla_cache(batch, max_seq, mla_dims(cfg), device)
+             if uses_mla(cfg, seg) else layers.init_kv_cache(
+                 batch, max_seq, attn_dims(cfg, seg.window), device)}
     if seg.kind == "hybrid":
         cache["ssm"] = blocks.init_ssm_state(batch, ssm_dims(cfg), device)
     return cache
@@ -197,7 +226,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class LM:
-    """Decoder LM: dense, MoE, hybrid or RWKV6.  `force` is handed to the kernel
+    """Decoder LM: dense, MoE (GQA or MLA attention), hybrid or RWKV6.  `force` is handed to the kernel
     dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` and
     `ops.ssm_scan` on every call (None: dispatch by length and device).
 
@@ -221,7 +250,10 @@ class LM:
         """Random params on the generator's device, with the scales of the
         JAX package's `truncated_normal` init (different draws).  Matmul
         weights (and RWKV's token-shift mixes) in `dtype`: bf16 for
-        serving, fp32 masters for training; norm scales are fp32."""
+        serving, fp32 masters for training; norm scales are fp32.  An MTP
+        config also gets the JAX package's MTP params ("mtp": the (2d, d)
+        projection, a dense-lead block, a norm), which serving never
+        reads."""
         cfg = self.cfg
         params: Params = {
             "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model,
@@ -231,6 +263,15 @@ class LM:
         for i, seg in enumerate(self.plan):
             params[f"seg{i}"] = [_init_block(generator, cfg, seg, dtype)
                                  for _ in range(seg.count)]
+        if cfg.mtp:
+            d = cfg.d_model
+            params["mtp"] = {
+                "proj": layers.truncated_normal((2 * d, d), (2 * d) ** -0.5,
+                                                generator, dtype),
+                "block": _init_block(generator, cfg, Segment(
+                    "dense_lead" if cfg.moe else "dense", 1), dtype),
+                "ln": layers.init_rmsnorm(d, generator.device),
+            }
         return params
 
     def _block(self, lp, seg, x, positions, cache, cache_index):
@@ -280,7 +321,10 @@ class LM:
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy (z-loss 1e-4) of batch["tokens"]
         against batch["labels"], both (B,S), plus 0.01 x the load-balance
-        loss for a MoE config."""
+        loss for a MoE config.  Raises NotImplementedError for an MTP
+        config (`MTP_NOT_PORTED`)."""
+        if self.cfg.mtp:
+            raise NotImplementedError(f"{self.cfg.name}: {MTP_NOT_PORTED}")
         x, aux = self._hidden(params, batch["tokens"])
         loss = layers.cross_entropy(self._logits(params, x), batch["labels"])
         return loss if aux is None else loss + 0.01 * aux
@@ -310,14 +354,11 @@ class LM:
 def build(cfg: ArchConfig, force: str | None = None,
           remat: str = "full") -> LM:
     """The LM for `cfg`; raises NotImplementedError, naming what is
-    missing, for a block not ported."""
-    missing = [what for absent, what in (
-        (cfg.mla is not None, "MLA attention"),
-        (cfg.mtp, "the MTP head"),
-        (cfg.encdec is not None, "the encoder-decoder")) if absent]
-    if missing:
+    missing, for a block not ported (the encoder-decoder).  An MTP config
+    builds for serving; its `loss` raises."""
+    if cfg.encdec is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported (ported: dense, "
-            "vlm (Chameleon), moe without MLA / MTP, hybrid (Hymba) and "
-            "rwkv)")
+            f"{cfg.name}: the encoder-decoder not ported (ported: dense, "
+            "vlm (Chameleon), moe with GQA or MLA attention (DeepSeek-MoE, "
+            "DeepSeek-V3 without its MTP loss), hybrid (Hymba) and rwkv)")
     return LM(cfg, force=force, remat=remat)

@@ -1,6 +1,6 @@
-"""The CUDA kernels (flash attention forward and backward, WKV6 forward and
-backward, the selective scan forward and backward) against their plain
-twins, and the float64 DeepNVM++ pipeline
+"""The CUDA kernels (flash attention forward and backward, the forward at
+DeepSeek-V3's MLA layout, WKV6 forward and backward, the selective scan
+forward and backward) against their plain twins, and the float64 DeepNVM++ pipeline
 (the engines, the golden specs, the DTCO analyses, the sweep service and
 the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
 relative, equal tuned organizations; the inverse designer's gradients
@@ -685,6 +685,131 @@ def test_moe_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
             :, -1].argmax(-1, keepdim=True)
     assert fa.flash_attention.launches == before
     assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MLA layout: q (B, Sq, H, 576), one shared k head of 576 and v
+# head of 512, through its own SIMT kernel
+# ---------------------------------------------------------------------------
+
+MLA_SCALE = 192 ** -0.5   # V3's qk_dim ** -0.5
+# (Sq, Skv, q_offset): one key; the kernel's 64-row blocks and 32-key tiles
+# at 127 / 129; a decode step at the end of a 2064-position cache and the
+# prefill into it
+MLA_EDGES = [(1, 1, 0), (127, 127, 0), (129, 129, 0), (1, 2064, 2063),
+             (2048, 2064, 0)]
+
+
+def _mla(dev, b, sq, skv, h, dtype, view=False, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn(b, sq, h, 576, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, skv, 1, 576, generator=g, device=dev).to(dtype)
+    v = (k[..., :512] if view else
+         torch.randn(b, skv, 1, 512, generator=g, device=dev).to(dtype))
+    return q, k, v
+
+
+def _mla_against_plain(q, k, v, dtype, q_offset):
+    """The kernel against the plain twin, causal at MLA_SCALE: one launch
+    at the MLA layout and none elsewhere, the output within TOL (max abs),
+    lse within 1e-4 (relative max)."""
+    kw = dict(causal=True, q_offset=q_offset, scale=MLA_SCALE)
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_mla)
+    got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.launches_mla - before[1]) == (0, 1)
+    want, want_lse = ref.flash_fwd(q, k, v, min(512, k.shape[1]), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (*q.shape[:3], 512)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert ((lse - want_lse).abs().max()
+            / want_lse.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 128])
+@pytest.mark.parametrize("sq,skv,q_offset", MLA_EDGES)
+def test_mla_kernel_matches_plain(dev, dtype, h, sq, skv, q_offset):
+    q, k, v = _mla(dev, 2, sq, skv, h, dtype)
+    _mla_against_plain(q, k, v, dtype, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_kernel_reads_v_as_a_view_of_k(dev, dtype):
+    """v as k's first 512 features (a strided view, as `mla_attention`
+    passes it), and a strided q: the caller's strides, uncopied."""
+    q, k, v = _mla(dev, 2, 300, 333, 3, dtype, view=True)
+    assert not v.is_contiguous()
+    _mla_against_plain(q, k, v, dtype, 33)
+    qw, _, _ = _mla(dev, 2, 300, 1, 6, dtype, seed=1)
+    _mla_against_plain(qw[:, :, ::2], k, v, dtype, 33)
+
+
+def test_mla_kernel_rejects_other_layouts(dev):
+    """Only (576, 512) with one shared k / v head is taken: a v of 576, a
+    q of 512, or two k heads under 128 q heads still raise."""
+    q, k, v = _mla(dev, 1, 8, 8, 128, torch.bfloat16)
+    for args in ((q, k, k), (q[..., :512], k[..., :512], v),
+                 (q, k.expand(-1, -1, 2, -1), v.expand(-1, -1, 2, -1))):
+        assert not fa.is_mla(*args)
+        with pytest.raises(ValueError):
+            fa.flash_attention(*args)
+
+
+def test_mla_under_grad_raises(dev):
+    """The backward at the MLA layout is not ported: a CUDA call that
+    would need a gradient raises NotImplementedError naming it, through
+    ops.attention, the raw forward and the backward wrapper, and never
+    hands back an output without a gradient; under no_grad it runs."""
+    q, k, v = _mla(dev, 1, 2048, 2048, 2, torch.bfloat16)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="A11.3b"):
+        ops.attention(q, k, v, scale=MLA_SCALE)
+    with pytest.raises(NotImplementedError, match="A11.3b"):
+        fa.flash_attention_fwd(q, k, v)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
+        assert ops.attention(q, k, v).grad_fn is None
+    with pytest.raises(NotImplementedError, match="A11.3b"):
+        fa.flash_attention_bwd(q.detach(), k, v, out, out, lse)
+
+
+def _mla_config():
+    """The reduced deepseek-v3-671b at the MLA layout's widths (kv rank
+    512, rope 64), so a 2048-token prefill reaches the kernel."""
+    import repro_torch.configs as configs
+    cfg = configs.get("deepseek-v3-671b", reduced=True)
+    return dataclasses.replace(cfg, d_model=256, n_heads=2,
+                               mla=dataclasses.replace(cfg.mla,
+                                                       kv_lora_rank=512,
+                                                       qk_rope_dim=64))
+
+
+def test_mla_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
+    """A 2048-token prefill of a narrow V3 (at the MLA layout's widths)
+    launches the MLA-layout kernel once per layer and matches the plain
+    twin (2e-2, as the reduced MoE's prefill); decode steps launch
+    none."""
+    cfg = _mla_config()
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    s = ops.FLASH_THRESHOLD
+    tokens = torch.randint(0, cfg.vocab, (2, s), device=dev)
+    with torch.no_grad():
+        cache = model.init_cache(2, s + 2, dev)
+        before = fa.flash_attention.launches_mla
+        got = model.prefill(params, tokens, cache)
+        assert fa.flash_attention.launches_mla - before == cfg.n_layers == 2
+        want = plain.prefill(params, tokens, plain.init_cache(2, s + 2, dev))
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+        before = (fa.flash_attention.launches, fa.flash_attention.launches_mla)
+        tok = got[:, -1].argmax(-1, keepdim=True)
+        for i in range(2):
+            tok = model.decode_step(params, tok, cache, s + i)[
+                :, -1].argmax(-1, keepdim=True)
+        assert (fa.flash_attention.launches,
+                fa.flash_attention.launches_mla) == before
+        assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
 
 
 # ---------------------------------------------------------------------------

@@ -138,14 +138,18 @@ def test_serve_main_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("arch,missing", [
-    ("deepseek-v3-671b", "MLA attention, the MTP head"),
+    # DeepSeek-V3 builds (MLA is ported); what it lacks is its MTP loss
+    pytest.param("deepseek-v3-671b", "the MTP head",
+                 id="deepseek-v3-671b-MLA attention, the MTP head"),
     ("whisper-small", "the encoder-decoder")])
 def test_build_refuses_the_families_not_ported(arch, missing):
-    """MLA + MTP and Whisper are not ported: `build` raises and names what
-    is missing; the ported families build, the Hymba hybrid among them."""
+    """Whisper is not ported: `build` raises and names what is missing.
+    DeepSeek-V3 builds and serves, and its loss raises naming the MTP
+    head; the ported families build, the Hymba hybrid among them."""
     for reduced in (False, True):
+        cfg = tconfigs.get(arch, reduced=reduced)
         with pytest.raises(NotImplementedError, match=missing):
-            tlm.build(tconfigs.get(arch, reduced=reduced))
-    for ported in ("chameleon-34b", "deepseek-moe-16b", "hymba-1.5b",
-                   "rwkv6-3b"):
+            tlm.build(cfg).loss({}, {})
+    for ported in ("chameleon-34b", "deepseek-moe-16b", "deepseek-v3-671b",
+                   "hymba-1.5b", "rwkv6-3b"):
         tlm.build(tconfigs.get(ported))
