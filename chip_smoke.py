@@ -9,7 +9,7 @@ Phases, each fatal on failure:
      and print ptxas's registers and spills per kernel and its warning and
      C75xx lines (fatal for a tensor-core kernel that spills or has its
      wgmma serialized, and for the wkv6 pair walk, a selective-scan
-     kernel or the MLA layout's kernel that spills);
+     kernel or an MLA-layout kernel that spills);
   2. each kernel against its plain PyTorch twin on the card, over the
      masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
      CASES (with the tile edges of the bf16 hd-256 kernel) and on strided
@@ -23,10 +23,13 @@ Phases, each fatal on failure:
      main shape, at hd 128 and at Gemma-7B's training shape (2, 2048, 16,
      256); the flash forward at DeepSeek-V3's MLA layout (q of head dim
      576, one shared k head of 576 and v head of 512) over MLA_CASES (1,
-     3 and 128 heads; Sq / Skv 1, 127, 129, a decode step at position 2063
-     of a 2064-position cache and the 2048-token prefill into it; v a view
-     of k's first 512 features) in fp32 and bf16 within the same bars, one
-     launch of its own a call, and a grad-mode call there raising
+     3 and 128 heads; Sq / Skv 1, 63, 64, 65, 127, 129, 191, a decode step
+     at position 2063 of a 2064-position cache, the 2048-token prefill
+     into it and a 100-token prefill at position 1900 of it; v a view of
+     k's first 512 features and a tensor of its own) in fp32 and bf16
+     within the same bars, one launch of its own a call, the kernel that
+     ran printed (every bf16 case the wgmma kernel, every fp32 case the
+     SIMT kernel), and a grad-mode call there raising
      NotImplementedError; wkv6 over WKV_CASES (one with rows that take the
      kernel's 4-byte copy path) and a state-carry case, y and the final
      state within |got - want| <= 1e-4 + 1e-4 |want| elementwise, the main
@@ -124,7 +127,8 @@ Phases, each fatal on failure:
      whose experts differ counted by MoE layer); then DeepSeek-V3: the
      MLA-layout kernel at its prefill shape (4, 2048 into 2064, 128 heads,
      576 / 512) bf16 beside its plain twin, SDPA given k and v expanded to
-     128 heads and its bound (`time_flash_mla`), one fp32 MLA block at
+     128 heads and its bound, and the fp32 SIMT kernel there, with both
+     kernels' registers and spills (`time_flash_mla`), one fp32 MLA block at
      full width (1 x 2048, then a decode step) card against CPU within
      V3_MLA_REL with its cache entries, the reduced V3 on the GPU against
      the CPU, and V3 served at every published width, its depth cut to
@@ -394,14 +398,19 @@ MLA_SCALE = (128 + 64) ** -0.5   # V3's qk_dim ** -0.5, not 576 ** -0.5
 # The flash forward at the MLA layout against its plain twin (phase 2):
 # (B, Sq, Skv, H, q_offset, v a view of k's first 512 features); q (B, Sq,
 # H, 576), one k head of 576 and one v head of 512, causal, MLA_SCALE.  One
-# head, three and V3's 128; a decode step at the end of the 2064-position
-# cache and the prefill into it; the kernel's 64-row blocks and 32-key
-# tiles at 127 / 129
-MLA_CASES = [(2, sq, skv, h, q_offset, h == 3)
-             for h in (1, 3, 128)
-             for sq, skv, q_offset in [(1, 1, 0), (127, 127, 0),
-                                       (129, 129, 0), (1, 2064, 2063),
-                                       (2048, 2064, 0)]]
+# head, three and V3's 128, v a view of k (as V3 serves it: the bf16
+# kernel's K tile is its V tile) and a tensor of its own; a decode step at
+# the end of the 2064-position cache, the prefill into it and a chunk
+# prefilled at position 1900 of it; the bf16 kernel's 64-key tiles at 63 /
+# 64 / 65 / 191 and the SIMT kernel's 32-key tiles at 127 / 129; both
+# kernels' 64-row blocks (1 x 63, 3 x 65, ... rows)
+MLA_CASES = [(2, sq, skv, h, q_offset, view)
+             for h in (1, 3, 128) for view in (True, False)
+             for sq, skv, q_offset in [(1, 1, 0), (63, 63, 0), (64, 64, 0),
+                                       (65, 65, 0), (127, 127, 0),
+                                       (129, 129, 0), (191, 191, 0),
+                                       (1, 2064, 2063), (2048, 2064, 0),
+                                       (100, 2064, 1900)]]
 MLA_MAIN = (BATCH, PROMPT, PROMPT + GEN, 128, 0, True)   # V3's prefill
 # Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
 # weights) at every published width and full depth, through the flash
@@ -1030,12 +1039,17 @@ def check_mla(fa, ref) -> None:
     """Phase 2 for the flash forward at the MLA layout, over MLA_CASES in
     fp32 and bf16: one launch of its own kernel a call, the output within
     TOL[dtype] (max abs) and lse within 1e-4 (relative max) of the plain
-    twin's; and a call that would need a gradient raising
-    NotImplementedError (its backward is not ported)."""
+    twin's, the kernel that ran (`fa.mla_kernel`) the SIMT kernel for fp32
+    and the wgmma kernel for bf16 (its K tile as V where v is a view of
+    k); and a call that would need a gradient raising NotImplementedError
+    (its backward is not ported)."""
     for case in MLA_CASES:
         kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = mla_qkv(case, dtype)
+            kernel = fa.mla_kernel(q, k, v)
+            meant = ("simt" if dtype == torch.float32
+                     else "wgmma_kv" if case[5] else "wgmma")
             before = fa.flash_attention.launches_mla
             got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
             launched = fa.flash_attention.launches_mla - before
@@ -1045,14 +1059,16 @@ def check_mla(fa, ref) -> None:
             lse_err = rel_err(lse, want_lse)
             ok = (launched == 1 and got.shape == want.shape
                   and torch.isfinite(got).all().item() and err <= TOL[dtype]
-                  and lse_err <= 1e-4)
+                  and lse_err <= 1e-4 and kernel == meant)
             print(json.dumps({"mla_case": list(case), "dtype": str(dtype),
+                              "kernel": kernel,
                               "max_abs_err": err, "tol": TOL[dtype],
                               "lse_rel_max_err": lse_err, "lse_tol": 1e-4,
                               "ok": ok}), flush=True)
             if not ok:
                 fail(f"flash_attention at the MLA layout {case} {dtype}: "
-                     f"error {err}, lse {lse_err}, launches {launched}")
+                     f"error {err}, lse {lse_err}, launches {launched}, "
+                     f"kernel {kernel} (want {meant})")
             del q, k, v, got, want
     q, k, v = mla_qkv(MLA_CASES[0], torch.bfloat16)
     try:
@@ -1081,8 +1097,15 @@ def time_flash_mla(fa, card) -> tuple:
     2e-2) and both timed, beside `scaled_dot_product_attention` given k
     and v expanded to 128 heads (a yardstick the port never calls; its
     output held to the kernel's within 0.1, a check of the mask), with the
-    bound.  Returns (ms, plain_ms, sdpa_ms or None, bound_ms, bound_by,
-    max abs err)."""
+    bound; then the fp32 SIMT kernel at the same shape against the bf16
+    kernel's inputs in fp32 (within 2e-2 of the bf16 output), timed; and
+    both kernels' registers and spills from ptxas.  Returns (ms, plain_ms,
+    sdpa_ms or None, bound_ms, bound_by, max abs err, fp32 ms)."""
+    from repro_torch.kernels import build
+    for row in ptxas_report(build.log("flash_attention")):
+        if "flash_fwd_mla" in row["kernel"]:
+            print(f"  {row['kernel']}: {row['registers']} registers, "
+                  f"{row['spill']} bytes spill stores", flush=True)
     q, k, v = mla_qkv(MLA_MAIN, torch.bfloat16)
     kw = dict(causal=True, q_offset=MLA_MAIN[4], scale=MLA_SCALE)
     with torch.no_grad():
@@ -1124,9 +1147,25 @@ def time_flash_mla(fa, card) -> tuple:
           f"{gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {how}, "
           f"bound {bound_ms:.4f} ms ({bound_by}); kernel vs plain max abs "
           f"err {err:.3e} [{card}]", flush=True)
-    del q, k, v, got, qt, kt, vt
+    del qt, kt, vt
+    q32, k32 = q.float(), k.float()
+    v32 = k32[..., :512]
+    del q, k, v
+    with torch.no_grad():
+        got32 = fa.flash_attention(q32, k32, v32, **kw)
+        err32 = (got32 - got.float()).abs().max().item()
+        if err32 > TOL[torch.bfloat16]:
+            fail(f"the fp32 MLA kernel at {MLA_MAIN} differs from the bf16 "
+                 f"kernel: {err32}")
+        ms32 = time_ms(lambda: fa.flash_attention(q32, k32, v32, **kw), 3,
+                       warmup=1)
+    print(f"flash_attention at the MLA layout {MLA_MAIN[:4]} fp32 causal "
+          f"(SIMT): {ms32:.4f} ms ({gflop / ms32:.1f} TFLOP/s; fp32 peak "
+          f"outside the tensor cores 67 TFLOP/s), vs the bf16 kernel max "
+          f"abs {err32:.3e} [{card}]", flush=True)
+    del q32, k32, v32, got32, got
     torch.cuda.empty_cache()
-    return ms, plain_ms, lib_ms, bound_ms, bound_by, err
+    return ms, plain_ms, lib_ms, bound_ms, bound_by, err, ms32
 
 
 def window_mask(case):
@@ -3803,7 +3842,8 @@ def main() -> int:
         "ms": gemma_t[0], "plain_ms": gemma_t[1], "bound_ms": gemma_t[3],
         "bound_by": gemma_t[4], "library_ms": gemma_t[2]}, {
         # the same wrapper and source at DeepSeek-V3's MLA layout (one
-        # shared k / v head, head dims 576 / 512: its own SIMT kernel)
+        # shared k / v head, head dims 576 / 512: its own wgmma kernel in
+        # bf16, the K tile read as V)
         "name": "flash_attention_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/models/blocks.py:195-200 "

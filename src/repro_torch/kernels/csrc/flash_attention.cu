@@ -82,26 +82,68 @@
 // Either kernel gives the plain version's result for a row that sees at
 // least one key.
 //
-// DeepSeek-V3's latent (MLA) layout, fp32 and bf16 (`flash_fwd_mla`,
-// entry `flash_attention_mla_fwd`): q (B, Sq, H, 576), one k head (B, Skv,
-// 1, 576) and one v head (B, Skv, 1, 512) shared by all of q's heads (the
-// absorbed form of src/repro/models/blocks.py:180-200, which the JAX
-// package sends to its chunked reference because the Pallas kernel cannot
-// take it).  Bound at the served shape (4, 2048, 128, 576 / 512), causal,
-// bf16: 2,098,176 causal pairs x 512 (b, h) x 2 x (576 + 512) = 2.34 TFLOP,
-// 2.363 ms at 989 TFLOP/s; its bytes (q, k, v, o ~2.3 GB) take 0.68 ms at
-// 3.35 TB/s.  Design, simple and right first (the products on the fp32
-// FMA units, 67 TFLOP/s, so ~35 ms at best): heads as rows, as FlashMLA
-// lays them out, since every head reads the same K and V.  A block holds
-// 64 rows (q position, head) of one sequence, their q (scaled, fp32)
-// resident in shared memory, and walks key tiles of 32: the K tile, then
-// the V tile in the same buffer (580-float rows: 222,720 bytes of dynamic
-// shared memory, one block an SM).  256 threads; a thread owns 4 rows and
-// keys tx, tx + 16 of S (so its 4 rows' q and 2 keys' k feed 8 products a
-// float4 of the 576 features), and the same 4 rows x 32 columns of O (128
-// fp32 accumulators), P passed between the 16 lanes of a row by shuffles.
-// The online softmax is the SIMT kernel's, per row, over the 16 lanes.
-// Row tiles are ordered heaviest first.
+// DeepSeek-V3's latent (MLA) layout (entry `flash_attention_mla_fwd`): q
+// (B, Sq, H, 576), one k head (B, Skv, 1, 576) and one v head (B, Skv, 1,
+// 512) shared by all of q's heads (the absorbed form of
+// src/repro/models/blocks.py:180-200, which the JAX package sends to its
+// chunked reference because the Pallas kernel cannot take it).  Bound at
+// the served shape (4, 2048, 128, 576 / 512), causal, bf16: 2,098,176
+// causal pairs x 512 (b, h) x 2 x (576 + 512) = 2.34 TFLOP, 2.363 ms at 989
+// TFLOP/s; its bytes (q, k, v, o ~2.3 GB) take 0.68 ms at 3.35 TB/s.  Both
+// kernels take heads as rows, as FlashMLA lays them out, since every head
+// reads the same K and V: a block holds 64 rows (q position, head) of one
+// sequence, so at H = 128 a block is 64 heads of one position, and walks
+// the key tiles of the causal `kv_range` of its positions, heaviest row
+// tiles first.
+//
+// bf16 (`flash_fwd_mla_bf16`): two consumer warpgroups, 256 threads, no
+// producer (as at hd 256).
+//  * Q (64 rows x 576, 9 swizzled 64-column boxes, 72 KB) is loaded once by
+//    TMA through a map over (576, Sq H, B): q's rows (position, head) at one
+//    stride, which the wrapper checks.  K tiles of 64 keys (72 KB) stream
+//    through a ring of 2 stages.  When v is a view of k's first 512 features
+//    (as `mla_attention` passes it), V is the K tile's first 8 boxes and is
+//    not loaded again (`kSharedKV`); a separate v takes one K stage and one
+//    V stage (64 KB) instead.  Q + 2 K stages + the exchange are 226 KB of
+//    the 227.  Thread 0 loads Q and the first tiles; the last of the 8
+//    warps to release a stage (`release_last`) refills it.
+//  * O (64 x 512 fp32) is split by columns: warpgroup w owns [256 w, 256 w
+//    + 256), 128 registers a thread.  S is split by keys: warpgroup w
+//    computes S for keys [32 w, 32 w + 32) of the tile over all 576
+//    features (36 k steps of m64n32k16, Q and K K-major in shared memory),
+//    so both products are halved evenly.  The row max crosses between the
+//    warpgroups through shared memory (each keeps its own partial sum l,
+//    added at the end); each splits its half of P into bf16 A fragments of
+//    its high part and of the rest (P to ~2^-17, as the fp32 plain twin
+//    has it: with P in bf16 alone, DeepSeek-V3's routing turned the
+//    rounding into other experts, and chip_smoke.py's 5-layer serve on an
+//    H100 put the logits 3.3e-2 from the twin's, past its 2e-2 bar; the
+//    split costs ~1.1 of ~7.2 ms at (4, 2048, 128), tools/mla_ablation.py)
+//    and hands them to the other in the fragment layout (both own the same 64
+//    rows, so a thread reads its twin's registers), and each runs O += P V
+//    over all 64 keys for its 256 columns: 2 x 4 k steps of m64n256k16, P
+//    from registers, V read MN-major from the K tile.
+//  * Per tile the block issues P V of the last tile and S of this one
+//    together, waits for the first (its stage is then free and refilled
+//    with the tile two ahead, under this tile's work) and then the second:
+//    every product is waited for on the path that issued it.  The softmax
+//    runs in base 2 on the accumulators, masked only on tiles that hold a
+//    masked pair: at H = 128 every row of a block has the same causal
+//    limit; for H < 64 or H not a multiple of 64 a tile spans positions
+//    and each row gets its own [lo, hi).  Rows past Sq H read TMA's zeros
+//    and are not stored; keys past Skv are zeros and masked; the causal
+//    `kv_range` never reads a tile past the block's last visible key (the
+//    unwritten end of a longer cache).
+// fp32 (`flash_fwd_mla`, SIMT; the tensor cores would round to tf32): the
+// products on the fp32 FMA units (67 TFLOP/s).  A block's q (scaled, fp32)
+// is resident in shared memory, and it walks key tiles of 32: the K tile,
+// then the V tile in the same buffer (580-float rows: 222,720 bytes of
+// dynamic shared memory, one block an SM).  256 threads; a thread owns 4
+// rows and keys tx, tx + 16 of S (so its 4 rows' q and 2 keys' k feed 8
+// products a float4 of the 576 features), and the same 4 rows x 32 columns
+// of O (128 fp32 accumulators), P passed between the 16 lanes of a row by
+// shuffles.  The online softmax is the SIMT kernel's, per row, over the 16
+// lanes.
 //
 // The TMA, mbarrier, descriptor and wgmma primitives and the host-side
 // tensor maps live in hopper.cuh, shared with the backward's wgmma kernels.
@@ -650,7 +692,7 @@ __global__ void __launch_bounds__(kFThreads)
 }
 
 // ---------------------------------------------------------------------------
-// SIMT kernel at the MLA layout: one k / v head shared by all of q's heads
+// fp32 SIMT kernel at the MLA layout: one k / v head shared by q's heads
 // ---------------------------------------------------------------------------
 
 namespace mla {
@@ -668,7 +710,6 @@ constexpr int kSmem = (kBM + kBN) * kStride * 4;  // Q rows, then K or V
 // Thread (ty, tx), ty = 2 warp + lane / 16, tx = lane % 16: rows 4 ty .. 4 ty
 // + 3 of the block, keys tx and tx + 16 of each S tile, float4 columns tx +
 // 16 c of O.  A row's 16 lanes are one half of a warp.
-template <typename T>
 __global__ void __launch_bounds__(mla::kThreads, 1)
     flash_fwd_mla(const Params p, int n_rt, int B) {
   using namespace mla;
@@ -683,10 +724,10 @@ __global__ void __launch_bounds__(mla::kThreads, 1)
   const int lane = threadIdx.x % 32;
   const int ty = 2 * (threadIdx.x / 32) + lane / 16, tx = lane % 16;
 
-  const T* Q = static_cast<const T*>(p.q) + b * p.sq.b;
-  const T* K = static_cast<const T*>(p.k) + b * p.sk.b;
-  const T* V = static_cast<const T*>(p.v) + b * p.sv.b;
-  T* O = static_cast<T*>(p.o) + b * p.so.b;
+  const float* Q = static_cast<const float*>(p.q) + b * p.sq.b;
+  const float* K = static_cast<const float*>(p.k) + b * p.sk.b;
+  const float* V = static_cast<const float*>(p.v) + b * p.sv.b;
+  float* O = static_cast<float*>(p.o) + b * p.so.b;
 
   // q, scaled as the plain version scales it, resident for every key tile
   for (int c = threadIdx.x; c < kBM * (kDK / 4); c += kThreads) {
@@ -821,7 +862,7 @@ __global__ void __launch_bounds__(mla::kThreads, 1)
     if (row >= n_rows) continue;
     const int qi = row / p.H, h = row % p.H;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = O + qi * p.so.s + h * p.so.h;
+    float* orow = O + qi * p.so.s + h * p.so.h;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       flash::store4(orow + 4 * (tx + 16 * c),
@@ -833,18 +874,400 @@ __global__ void __launch_bounds__(mla::kThreads, 1)
   }
 }
 
-template <typename T>
-int launch_mla(const Params& p, int B, cudaStream_t stream) {
-  const long long n_rt =
-      (static_cast<long long>(p.Sq) * p.H + mla::kBM - 1) / mla::kBM;
-  if (static_cast<long long>(p.Sq) * p.H > INT_MAX || n_rt * B > INT_MAX)
+// ---------------------------------------------------------------------------
+// bf16 at the MLA layout: TMA + wgmma, 64 heads of a position a block
+// ---------------------------------------------------------------------------
+
+namespace mla_tc {
+constexpr int kBM = 64;                         // rows (q position, head) a block
+constexpr int kBN = 64;                         // keys a tile
+constexpr int kThreads = 256;                   // two consumer warpgroups
+constexpr int kWarps = kThreads / 32;
+constexpr uint32_t kBoxBytes = 64 * 128;        // 64 rows of one 64-column box
+constexpr int kQKBoxes = mla::kDK / kBox;       // 9
+constexpr int kVBoxes = mla::kDV / kBox;        // 8
+constexpr uint32_t kQKBytes = kQKBoxes * kBoxBytes;  // Q or a K tile: 72 KB
+constexpr uint32_t kVBytes = kVBoxes * kBoxBytes;    // a V tile: 64 KB
+}  // namespace mla_tc
+
+// The shared-memory layout, in bytes from a 1024-byte-aligned base: Q, the
+// K stages, the V stage (a separate v only), the P exchange (8 uint32 a
+// thread), the row maxima and sums of both warpgroups, then the full
+// mbarriers and the release counters (8 bytes each).
+template <bool kSharedKV>
+struct MlaCfg {
+  static constexpr int kKStages = kSharedKV ? 2 : 1;
+  static constexpr uint32_t kK = mla_tc::kQKBytes;  // stage st: + st * kQKBytes
+  static constexpr uint32_t kV = kK + kKStages * mla_tc::kQKBytes;
+  static constexpr uint32_t kX = kV + (kSharedKV ? 0 : mla_tc::kVBytes);
+  static constexpr uint32_t kMax = kX + 2 * 8 * 128 * 4;
+  static constexpr uint32_t kSum = kMax + 2 * 64 * 4;
+  static constexpr uint32_t kQFull = kSum + 2 * 64 * 4;
+  static constexpr uint32_t kKFull = kQFull + 8;           // stage st: + 8 st
+  static constexpr uint32_t kVFull = kKFull + 8 * kKStages;
+  static constexpr uint32_t kKEmpty = kVFull + 8;          // stage st: + 8 st
+  static constexpr uint32_t kVEmpty = kKEmpty + 8 * kKStages;
+  static constexpr int kSmem = 1024 + kVEmpty + 8;         // + alignment
+};
+
+// NB boxes of 64 rows from row `row` of `map` (over (features, rows, 1,
+// B)) into `dst`, announced on `full`; by one thread.
+template <int NB>
+__device__ __forceinline__ void load_rows(const CUtensorMap* map, uint32_t dst,
+                                          uint32_t full, int row, int b) {
+  mbar_expect_tx(full, NB * mla_tc::kBoxBytes);
+  for (int c = 0; c < NB; ++c)
+    tma_load(dst + c * mla_tc::kBoxBytes, map, full, c * kBox, row, 0, b);
+}
+
+// S = Q K^T for warpgroup WG's keys [32 WG, 32 WG + 32) of the tile: 64 x
+// 32 over the 576 features, both operands K-major.  Issued, not waited for.
+// Each k step's descriptors are the first ones plus its offset (in 16-byte
+// units; no carry leaves the address field), and the addresses pass through
+// an opaque move: left to itself, ptxas keeps the 36 descriptors of an
+// address that does not change over the key loop (Q's; a single K stage's)
+// in registers across it and spills.
+template <int WG>
+__device__ __forceinline__ void issue_qk_mla(float (&s)[16], uint32_t q,
+                                             uint32_t k_tile) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(q));
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(k_tile));
+  const uint64_t dq = sw128_desc(q, 16, 1024);
+  const uint64_t dk = sw128_desc(k_tile + WG * 32 * 128, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * mla_tc::kQKBoxes; ++kk) {
+    const uint32_t off = ((kk / 4) * mla_tc::kBoxBytes + (kk % 4) * 32) >> 4;
+    wgmma_ss(s, dq + off, dk + off, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O[:, 256 WG + (0..255)] += P V over the tile's 64 keys, P as the sum of
+// its bf16 high and low parts (ph, pl): V is [key][512], read MN-major,
+// WG's four boxes from the tile's box 4 WG.  Issued, not waited for.
+template <int WG>
+__device__ __forceinline__ void issue_pv_mla(float (&o)[128],
+                                             const uint32_t (&ph)[4][4],
+                                             const uint32_t (&pl)[4][4],
+                                             uint32_t v_tile) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(v_tile));
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv =
+        sw128_desc(v_tile + 4 * WG * mla_tc::kBoxBytes + kk * 2048,
+                   mla_tc::kBoxBytes, 1024);
+    wgmma_rs(o, ph[kk], dv);
+    wgmma_rs(o, pl[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// Warpgroup WG of a block of rows [r0, r0 + 64): S for its 32 keys of each
+// tile, the softmax of those with the row max shared, O for its 256
+// columns.  Thread tid of either warpgroup holds rows row_l and row_l + 8.
+template <bool kSharedKV, int WG>
+__device__ __forceinline__ void consume_mla(const Params& p,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv,
+                                            uint32_t base, uint8_t* smem,
+                                            int b, int r0, int lo,
+                                            int n_tiles, int q_first,
+                                            int q_last) {
+  using C = MlaCfg<kSharedKV>;
+  using namespace mla_tc;
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4;
+  const int row_l = 16 * (tid / 32) + lane / 4;
+  const int n_rows = p.Sq * p.H;
+  float* smax = reinterpret_cast<float*>(smem + C::kMax);   // [WG][64]
+  float* ssum = reinterpret_cast<float*>(smem + C::kSum);   // [WG][64]
+  uint32_t* xch = reinterpret_cast<uint32_t*>(smem + C::kX);  // [WG][8][128]
+  auto k_tile = [&](int it) {
+    return base + C::kK + (it % C::kKStages) * kQKBytes;
+  };
+  auto v_tile = [&](int it) { return kSharedKV ? k_tile(it) : base + C::kV; };
+  // The warp is done with tile it's K stage (with P V, where it is also V):
+  // the last of the 8 warps loads the tile kKStages ahead into it.
+  auto release_k = [&](int it) {
+    const int st = it % C::kKStages;
+    __syncwarp();
+    if (release_last<kWarps>(base + C::kKEmpty + 8 * st) &&
+        it + C::kKStages < n_tiles && lane == 0)
+      load_rows<kQKBoxes>(tk, k_tile(it), base + C::kKFull + 8 * st,
+                          (lo + it + C::kKStages) * kBN, b);
+  };
+  // A separate v: the warp is done with V tile it; the last loads it + 1.
+  auto release_v = [&](int it) {
+    __syncwarp();
+    if (release_last<kWarps>(base + C::kVEmpty) && it + 1 < n_tiles &&
+        lane == 0)
+      load_rows<kVBoxes>(tv, base + C::kV, base + C::kVFull,
+                         (lo + it + 1) * kBN, b);
+  };
+
+  const float scale_log2 = p.scale * kLog2e;  // softmax in base 2
+
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  // P of the tile as A fragments, 16 keys a k step: its bf16 high part and
+  // the bf16 rounding of the rest, so P V sees P to ~2^-17 (as the fp32
+  // plain twin computes it) and not to bf16's 2^-9
+  uint32_t ph[4][4], pl[4][4];
+
+  // The softmax of S tile `it` (this warpgroup's 32 keys) in place, the row
+  // max of all 64 keys through shared memory, corr the factor that rescales
+  // O; then P into ph and pl, both halves.  The halves cross in the
+  // fragment layout through one 8 KB buffer, high parts then low parts.
+  auto softmax = [&](float (&s)[16], int it) {
+    const int k0 = (lo + it) * kBN;
+    const bool masked = k0 + kBN > p.Skv ||
+                        (p.causal && k0 + kBN - 1 > q_first) ||
+                        (p.window > 0 && q_last - k0 >= p.window);
+    if (masked) {
+      // keys visible to rows row_l and row_l + 8: [klo, khi); a row past
+      // Sq H (zeros, not stored) takes the last row's
+      int klo[2], khi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos =
+            min(r0 + row_l + 8 * r, n_rows - 1) / p.H + p.q_offset;
+        khi[r] = p.causal ? min(qpos + 1, p.Skv) : p.Skv;
+        klo[r] = p.window > 0 ? qpos - p.window + 1 : 0;
+      }
+      const int c0 = k0 + 32 * WG + 2 * t;  // this thread's first column
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + (e & 1), r = e >> 1;
+          s[4 * j + e] = col >= klo[r] && col < khi[r]
+                             ? s[4 * j + e] * scale_log2
+                             : -INFINITY;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] *= scale_log2;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row lives on the 4 lanes of a quad
+      float mx = fmaxf(fmaxf(s[2 * r], s[2 * r + 1]),
+                       fmaxf(s[4 + 2 * r], s[5 + 2 * r]));
+      mx = fmaxf(mx, fmaxf(fmaxf(s[8 + 2 * r], s[9 + 2 * r]),
+                           fmaxf(s[12 + 2 * r], s[13 + 2 * r])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (t == 0) smax[64 * WG + row_l + 8 * r] = mx;
+    }
+    bar_sync(1);  // both halves' maxima are in
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the same order in both warpgroups
+      const int row = row_l + 8 * r;
+      const float mx = fmaxf(m[r], fmaxf(smax[row], smax[64 + row]));
+      corr[r] = exp2_approx(m[r] - mx);
+      m[r] = mx;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)  // per-lane partial sums; quad-reduced at the end
+      l[r] = l[r] * corr[r] +
+             ((s[2 * r] + s[2 * r + 1]) + (s[4 + 2 * r] + s[5 + 2 * r]) +
+              ((s[8 + 2 * r] + s[9 + 2 * r]) + (s[12 + 2 * r] + s[13 + 2 * r])));
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
+        const uint32_t h = pack_bf16(a, c);
+        ph[2 * WG + kk][i] = h;
+        pl[2 * WG + kk][i] = pack_bf16(a - __uint_as_float(h << 16),
+                                       c - __uint_as_float(h & 0xffff0000u));
+        xch[(8 * WG + 4 * kk + i) * 128 + tid] = h;
+      }
+    bar_sync(1);  // both halves' high parts are in
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ph[2 * (1 - WG) + kk][i] = xch[(8 * (1 - WG) + 4 * kk + i) * 128 + tid];
+    bar_sync(1);  // both are read: the buffer takes the low parts
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xch[(8 * WG + 4 * kk + i) * 128 + tid] = pl[2 * WG + kk][i];
+    bar_sync(1);  // both halves' low parts are in
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pl[2 * (1 - WG) + kk][i] = xch[(8 * (1 - WG) + 4 * kk + i) * 128 + tid];
+  };
+  auto rescale = [&] {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] *= corr[(i >> 1) & 1];
+  };
+
+  mbar_wait(base + C::kQFull, 0);
+  if (n_tiles > 0) {
+    {  // tile 0: S only
+      float s[16];
+      mbar_wait(base + C::kKFull, 0);
+      issue_qk_mla<WG>(s, base, k_tile(0));
+      wgmma_wait<0>();
+      reg_fence(s);
+      if (!kSharedKV) release_k(0);
+      softmax(s, 0);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      float s[16];
+      mbar_wait(base + C::kKFull + 8 * (it % C::kKStages),
+                (it / C::kKStages) & 1);
+      if (!kSharedKV) mbar_wait(base + C::kVFull, (it - 1) & 1);
+      issue_pv_mla<WG>(o, ph, pl, v_tile(it - 1));
+      issue_qk_mla<WG>(s, base, k_tile(it));
+      wgmma_wait<1>();  // P V of tile it - 1: its V, ph and pl are free
+      reg_fence(o);
+      if (kSharedKV)
+        release_k(it - 1);
+      else
+        release_v(it - 1);
+      wgmma_wait<0>();  // S of tile it
+      reg_fence(s);
+      if (!kSharedKV) release_k(it);
+      softmax(s, it);
+      rescale();
+    }
+    if (!kSharedKV) mbar_wait(base + C::kVFull, (n_tiles - 1) & 1);
+    issue_pv_mla<WG>(o, ph, pl, v_tile(n_tiles - 1));  // the last tile's P V
+    wgmma_wait<0>();
+    reg_fence(o);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (t == 0) ssum[64 * WG + row_l + 8 * r] = l[r];
+  }
+  bar_sync(1);  // both halves' sums are in
+  auto* O = static_cast<__nv_bfloat16*>(p.o) + b * p.so.b;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + row_l + 8 * r;
+    if (row >= n_rows) continue;
+    const int qi = row / p.H, h = row % p.H;
+    const float lt = ssum[row_l + 8 * r] + ssum[64 + row_l + 8 * r];
+    if (p.lse != nullptr && WG == 0 && t == 0)  // m is in base 2
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+          m[r] * kLn2 + logf(fmaxf(lt, 1e-30f));
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    __nv_bfloat16* orow = O + qi * p.so.s + h * p.so.h + 256 * WG + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <bool kSharedKV>
+__global__ void __launch_bounds__(mla_tc::kThreads, 1)
+    flash_fwd_mla_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const Params p,
+                       int n_rt, int B) {
+  using C = MlaCfg<kSharedKV>;
+  using namespace mla_tc;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+
+  const int b = blockIdx.x % B;
+  const int r0 = (n_rt - 1 - blockIdx.x / B) * kBM;  // heaviest row tiles first
+  const int n_rows = p.Sq * p.H;
+  const int i_first = r0 / p.H, i_last = (min(r0 + kBM, n_rows) - 1) / p.H;
+  int lo, hi;
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, i_first,
+                  i_last - i_first + 1, kBN, lo, hi);
+  const int n_tiles = max(hi - lo, 0);  // tile it is key tile lo + it
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kQFull, 1);
+    mbar_init(base + C::kVFull, 1);
+    *reinterpret_cast<uint32_t*>(smem + C::kVEmpty) = 0;
+    for (int st = 0; st < C::kKStages; ++st) {
+      mbar_init(base + C::kKFull + 8 * st, 1);
+      *reinterpret_cast<uint32_t*>(smem + C::kKEmpty + 8 * st) = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q and the first tiles; the consumers refill
+    load_rows<kQKBoxes>(&tq, base, base + C::kQFull, r0, b);
+    for (int it = 0; it < min(n_tiles, C::kKStages); ++it)
+      load_rows<kQKBoxes>(&tk, base + C::kK + it * kQKBytes,
+                          base + C::kKFull + 8 * it, (lo + it) * kBN, b);
+    if (!kSharedKV && n_tiles > 0)
+      load_rows<kVBoxes>(&tv, base + C::kV, base + C::kVFull, lo * kBN, b);
+  }
+  // the role from a warp-uniform warp index, so the branches are uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int q_first = i_first + p.q_offset, q_last = i_last + p.q_offset;
+  if (warp < 4)
+    consume_mla<kSharedKV, 0>(p, &tk, &tv, base, smem, b, r0, lo, n_tiles,
+                              q_first, q_last);
+  else
+    consume_mla<kSharedKV, 1>(p, &tk, &tv, base, smem, b, r0, lo, n_tiles,
+                              q_first, q_last);
+}
+
+// The fp32 SIMT kernel, or the bf16 wgmma kernel whose K tile serves as V
+// (shared_kv: v is k's first 512 features, as the wrapper checks) or which
+// loads its own V tiles.  q's rows (position, head) must lie at one stride
+// for the bf16 kernel's map: H times the head stride apart a position.
+int launch_mla(const Params& p, int dtype, int shared_kv, int B,
+               cudaStream_t stream) {
+  const long long n_rows = static_cast<long long>(p.Sq) * p.H;
+  const long long n_rt = (n_rows + mla::kBM - 1) / mla::kBM;
+  if (n_rows > INT_MAX || n_rt * B > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(n_rt * B);
+  if (dtype == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&flash_fwd_mla),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, mla::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_mla<<<blocks, mla::kThreads, mla::kSmem, stream>>>(
+        p, static_cast<int>(n_rt), B);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 1 || (p.H > 1 && p.Sq > 1 && p.sq.s != p.H * p.sq.h) ||
+      (shared_kv && (p.v != p.k || p.sv.b != p.sk.b || p.sv.s != p.sk.s)))
+    return (int)cudaErrorInvalidValue;
+  const flash::Strides rows = {p.sq.b, p.H > 1 ? p.sq.h : p.sq.s, 0};
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, mla::kDK, static_cast<int>(n_rows), 1, B, rows,
+                mla_tc::kBM) ||
+      !make_map(&tk, p.k, mla::kDK, p.Skv, 1, B, p.sk, mla_tc::kBN) ||
+      !make_map(&tv, p.v, mla::kDV, p.Skv, 1, B, p.sv, mla_tc::kBN))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = shared_kv
+                       ? reinterpret_cast<const void*>(&flash_fwd_mla_bf16<true>)
+                       : reinterpret_cast<const void*>(&flash_fwd_mla_bf16<false>);
+  const int smem = shared_kv ? MlaCfg<true>::kSmem : MlaCfg<false>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&flash_fwd_mla<T>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, mla::kSmem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_mla<T><<<static_cast<unsigned>(n_rt * B), mla::kThreads,
-                     mla::kSmem, stream>>>(p, static_cast<int>(n_rt), B);
+  if (shared_kv)
+    flash_fwd_mla_bf16<true><<<blocks, mla_tc::kThreads, smem, stream>>>(
+        tq, tk, tv, p, static_cast<int>(n_rt), B);
+  else
+    flash_fwd_mla_bf16<false><<<blocks, mla_tc::kThreads, smem, stream>>>(
+        tq, tk, tv, p, static_cast<int>(n_rt), B);
   return (int)cudaGetLastError();
 }
 
@@ -928,16 +1351,21 @@ extern "C" int flash_attention_fwd(
   }
 }
 
-// The MLA layout (flash_fwd_mla): q (B, Sq, H, 576), k (B, Skv, 1, 576), v
-// (B, Skv, 1, 512) (v may be a view of k's first 512 features), o (B, Sq, H,
-// 512); strides in elements as above, without k's and v's head strides.
-// dtype, masks, scale, lse and the return value as flash_attention_fwd.
+// The MLA layout: q (B, Sq, H, 576), k (B, Skv, 1, 576), v (B, Skv, 1,
+// 512), o (B, Sq, H, 512); strides in elements as above, without k's and
+// v's head strides.  dtype 0 (float32) runs the SIMT kernel flash_fwd_mla,
+// 1 (bfloat16) flash_fwd_mla_bf16: with shared_kv, v must be k's first 512
+// features (the same pointer and strides) and the K tile serves as V, and
+// q's position stride must be H times its head stride (where H > 1 and Sq
+// > 1).  Masks, scale, lse and the return value as flash_attention_fwd;
+// cudaErrorInvalidValue where the layout does not hold.
 extern "C" int flash_attention_mla_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int dtype, int B, int H, int Sq, int Skv, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long v_sb,
-    long long v_ss, long long o_sb, long long o_ss, long long o_sh,
-    int causal, int window, int q_offset, float scale, void* stream) {
+    int dtype, int shared_kv, int B, int H, int Sq, int Skv, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long o_sb, long long o_ss,
+    long long o_sh, int causal, int window, int q_offset, float scale,
+    void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -955,10 +1383,7 @@ extern "C" int flash_attention_mla_fwd(
   p.window = window;
   p.q_offset = q_offset;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_mla<float>(p, B, st);
-  if (dtype == 1) return launch_mla<__nv_bfloat16>(p, B, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_mla(p, dtype, shared_kv, B, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -16,10 +16,11 @@ raises.  `flash_attention.launches` counts forward launches and
 The forward also takes DeepSeek-V3's latent (MLA) layout, `is_mla`: one k
 and one v head shared by all of q's heads, q and k of head dim 576, v of 512
 (the JAX package runs it through `ref.flash_attention_ref`, since its Pallas
-kernel cannot take it).  Its kernel is a SIMT kernel of its own in the same
-source, counted in `flash_attention.launches_mla`; its backward is not
-ported (ROADMAP A11.3b), so a CUDA call at this layout that would need a
-gradient raises NotImplementedError.
+kernel cannot take it).  Its kernels are their own in the same source, a
+wgmma kernel for bfloat16 and a SIMT kernel for float32 (`mla_kernel` says
+which a call runs), counted in `flash_attention.launches_mla`; its backward
+is not ported (ROADMAP A11.3b), so a CUDA call at this layout that would
+need a gradient raises NotImplementedError.
 
 `FlashAttention` is the way to differentiate through the kernels, and the
 one that `ops.attention` calls: its forward asks the kernel for lse and
@@ -62,15 +63,20 @@ def _fwd():
     return bind(build.library("flash_attention"))
 
 
-@functools.cache
-def _fwd_mla():
-    lib = build.library("flash_attention")
+def bind_mla(lib: ctypes.CDLL):
+    """(flash_attention_mla_fwd, flash_attention_error_string) of a library
+    built from `csrc/flash_attention.cu`, with their ctypes signatures."""
     fn = lib.flash_attention_mla_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn, lib.flash_attention_error_string
+    return fn, bind(lib)[1]
+
+
+@functools.cache
+def _fwd_mla():
+    return bind_mla(build.library("flash_attention"))
 
 
 def is_mla(q, k, v) -> bool:
@@ -78,6 +84,31 @@ def is_mla(q, k, v) -> bool:
     return (q.dim() == k.dim() == v.dim() == 4 and k.shape[2] == v.shape[2] == 1
             and (q.shape[-1], k.shape[-1], v.shape[-1])
             == (MLA_DIMS[0], MLA_DIMS[0], MLA_DIMS[1]))
+
+
+def mla_kernel(q, k, v) -> str:
+    """The kernel that a CUDA call at the MLA layout (`is_mla`, dtypes
+    as `_check` takes them) runs: "simt" for float32 (the tensor cores
+    would round to tf32); for bfloat16 the wgmma kernel, "wgmma_kv" where v
+    is k's first 512 features (the same storage and batch and position
+    strides: the K tile then serves as V) and "wgmma" where it loads v's
+    own tiles.  Raises ValueError for a bfloat16 q whose (position, head)
+    rows do not lie at one stride, a position stride other than H times
+    the head stride (the kernel reads q as one matrix of Sq H rows).
+    Depends on shapes, strides and storage only, so it answers for CPU
+    tensors as well."""
+    if q.dtype == torch.float32:
+        return "simt"
+    _, sq, h, _ = q.shape
+    if h > 1 and sq > 1 and q.stride(1) != h * q.stride(2):
+        raise ValueError(
+            f"flash_attention: q strides {q.stride()}; the bf16 kernel at "
+            "the MLA layout reads q's (position, head) rows at one stride, "
+            f"so its position stride must be H x its head stride ({h} x "
+            f"{q.stride(2)})")
+    shared = (v.data_ptr() == k.data_ptr()
+              and v.stride()[:2] == k.stride()[:2])
+    return "wgmma_kv" if shared else "wgmma"
 
 
 def _no_mla_grad(what: str):
@@ -186,6 +217,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
             "would carry none; differentiate through FlashAttention.apply "
             "(ops.attention does), or call under torch.no_grad()")
     _check(q, k, v, window, q_offset, mla=mla)
+    kernel = mla_kernel(q, k, v) if mla else None
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5 if scale is None else float(scale)
@@ -200,7 +232,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
              torch.cuda.current_stream(q.device).cuda_stream)
     if mla:
         fwd, errstr = _fwd_mla()
-        err = fwd(*ptrs, _DTYPES[q.dtype], b, h, sq, skv, *q.stride()[:3],
+        err = fwd(*ptrs, _DTYPES[q.dtype], int(kernel == "wgmma_kv"), b, h,
+                  sq, skv, *q.stride()[:3],
                   *k.stride()[:2], *v.stride()[:2], *out.stride()[:3], *masks)
     else:
         fwd, errstr = _fwd()

@@ -689,15 +689,18 @@ def test_moe_model_prefill_launches_one_kernel_per_layer_decode_none(dev):
 
 # ---------------------------------------------------------------------------
 # DeepSeek-V3's MLA layout: q (B, Sq, H, 576), one shared k head of 576 and v
-# head of 512, through its own SIMT kernel
+# head of 512, through its own kernels (wgmma for bf16, SIMT for fp32)
 # ---------------------------------------------------------------------------
 
 MLA_SCALE = 192 ** -0.5   # V3's qk_dim ** -0.5
-# (Sq, Skv, q_offset): one key; the kernel's 64-row blocks and 32-key tiles
-# at 127 / 129; a decode step at the end of a 2064-position cache and the
-# prefill into it
-MLA_EDGES = [(1, 1, 0), (127, 127, 0), (129, 129, 0), (1, 2064, 2063),
-             (2048, 2064, 0)]
+# (Sq, Skv, q_offset): one key; the bf16 kernel's 64-key tiles at 63 / 64 /
+# 65 / 191 and the SIMT kernel's 32-key tiles at 127 / 129 (both kernels'
+# 64-row blocks: 63, 65, 189 ... rows); a decode step at the end of a
+# 2064-position cache, the prefill into it and a chunk prefilled at
+# position 1900 of it
+MLA_EDGES = [(1, 1, 0), (63, 63, 0), (64, 64, 0), (65, 65, 0), (127, 127, 0),
+             (129, 129, 0), (191, 191, 0), (1, 2064, 2063), (2048, 2064, 0),
+             (100, 2064, 1900)]
 
 
 def _mla(dev, b, sq, skv, h, dtype, view=False, seed=0):
@@ -713,6 +716,9 @@ def _mla_against_plain(q, k, v, dtype, q_offset):
     """The kernel against the plain twin, causal at MLA_SCALE: one launch
     at the MLA layout and none elsewhere, the output within TOL (max abs),
     lse within 1e-4 (relative max)."""
+    assert fa.mla_kernel(q, k, v) == (
+        "simt" if dtype == torch.float32 else "wgmma_kv"
+        if v.data_ptr() == k.data_ptr() else "wgmma")
     kw = dict(causal=True, q_offset=q_offset, scale=MLA_SCALE)
     before = (fa.flash_attention.launches, fa.flash_attention.launches_mla)
     got, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
@@ -732,6 +738,30 @@ def _mla_against_plain(q, k, v, dtype, q_offset):
 def test_mla_kernel_matches_plain(dev, dtype, h, sq, skv, q_offset):
     q, k, v = _mla(dev, 2, sq, skv, h, dtype)
     _mla_against_plain(q, k, v, dtype, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 128])
+@pytest.mark.parametrize("sq,skv,q_offset", MLA_EDGES)
+def test_mla_kernel_with_v_a_view_of_k_matches_plain(dev, dtype, h, sq, skv,
+                                                     q_offset):
+    """v as k's first 512 features, as `mla_attention` passes it: the
+    bf16 kernel's K tile serves as its V tile."""
+    q, k, v = _mla(dev, 2, sq, skv, h, dtype, view=True)
+    _mla_against_plain(q, k, v, dtype, q_offset)
+
+
+def test_mla_bf16_kernel_rejects_a_q_it_cannot_flatten(dev):
+    """The bf16 kernel reads q's (position, head) rows at one stride: a q
+    whose position stride is not H times its head stride raises before
+    any launch; the same q in fp32 runs the SIMT kernel."""
+    q, k, v = _mla(dev, 2, 40, 40, 3, torch.bfloat16, view=True)
+    bad = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = fa.flash_attention.launches_mla
+    with pytest.raises(ValueError, match="position stride"):
+        fa.flash_attention(bad, k, v, scale=MLA_SCALE)
+    assert fa.flash_attention.launches_mla == before
+    _mla_against_plain(bad.float(), k.float(), v.float(), torch.float32, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

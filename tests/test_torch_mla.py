@@ -173,7 +173,10 @@ def _mla_inputs(sq, skv, h=3, seed=0):
 
 
 @pytest.mark.parametrize("sq,skv,q_offset", [
-    (1, 1, 0), (127, 127, 0), (129, 129, 0), (2048, 2048, 0), (64, 129, 65)])
+    (1, 1, 0), (127, 127, 0), (129, 129, 0), (2048, 2048, 0), (64, 129, 65),
+    # the bf16 kernel's 64-key tiles, and 189 / 66 rows of 3 heads (not a
+    # multiple of its 64-row blocks)
+    (63, 63, 0), (65, 65, 0), (191, 191, 0), (22, 191, 169)])
 def test_plain_twin_at_mla_layout_matches_jax(sq, skv, q_offset):
     """`flash_attention_plain` and its VJP (the plain backward, which sums
     dK and dV over q's heads) against `jax.vjp` of the reference's
@@ -212,6 +215,53 @@ def test_plain_forward_lse_at_mla_layout():
     assert _rel(lse, m + jnp.log(jnp.maximum(l, 1e-30))) <= 1e-6
     assert torch.equal(out, fa.flash_attention_plain(
         tq, tk, tk[..., :512], q_offset=20, scale=0.05))
+
+
+def _dispatch_case(name):
+    """(q, k, v) on the CPU for a `test_mla_kernel_dispatch` case."""
+    dtype = torch.float32 if name.startswith("fp32") else torch.bfloat16
+    q = torch.zeros(2, 6, 3, 576, dtype=dtype)
+    k = torch.zeros(2, 9, 1, 576, dtype=dtype)
+    v = torch.zeros(2, 9, 1, 512, dtype=dtype)
+    heads_outer = q.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros(2, 6, 6, 576, dtype=dtype)
+    return {
+        "fp32": (q, k, v),
+        "fp32_view": (q, k, k[..., :512]),
+        "fp32_heads_outer": (heads_outer, k, v),
+        "bf16": (q, k, v),
+        "bf16_view": (q, k, k[..., :512]),
+        "bf16_tail_view": (q, k, k[..., 64:]),
+        "bf16_copy_of_view": (q, k, k[..., :512].clone()),
+        "bf16_every_other_head": (wide[:, :, ::2], k, v),
+        "bf16_one_head_strided": (q[:, ::2, :1], k, v),
+        "bf16_one_position": (heads_outer[:, :1], k, v),
+        "bf16_heads_outer": (heads_outer, k, v),
+        "bf16_every_other_position": (q[:, ::2], k, v),
+    }[name]
+
+
+@pytest.mark.parametrize("name,want", [
+    ("fp32", "simt"), ("fp32_view", "simt"), ("fp32_heads_outer", "simt"),
+    ("bf16", "wgmma"), ("bf16_view", "wgmma_kv"), ("bf16_tail_view", "wgmma"),
+    ("bf16_copy_of_view", "wgmma"), ("bf16_every_other_head", "wgmma"),
+    ("bf16_one_head_strided", "wgmma"), ("bf16_one_position", "wgmma"),
+    ("bf16_heads_outer", ValueError),
+    ("bf16_every_other_position", ValueError)])
+def test_mla_kernel_dispatch(name, want):
+    """`fa.mla_kernel`, the rule the wrapper follows at the MLA layout on
+    CUDA tensors: float32 takes the SIMT kernel whatever its strides;
+    bfloat16 the wgmma kernel, reading the K tile as V only where v is k's
+    first 512 features (not its last 512, nor a copy); a bf16 q whose
+    position stride is not H times its head stride raises (where H > 1
+    and Sq > 1: one head, or one position, has a single row stride)."""
+    q, k, v = _dispatch_case(name)
+    assert fa.is_mla(q, k, v)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="position stride"):
+            fa.mla_kernel(q, k, v)
+    else:
+        assert fa.mla_kernel(q, k, v) == want
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 SRC = (build.CSRC / "flash_attention.cu").read_text()
+# The edits reach only the bf16 kernel at hd 64 / 128 / 256, which ends
+# where the SIMT kernels begin; the rest of the source is kept as it is.
+TAIL_MARK = "// SIMT kernel: fp32 at every head dim"
 OUT = build.BUILD_DIR / "ablation"
 SHAPES = [(4, 2048, 32, 64), (4, 2048, 40, 128), (2, 2048, 16, 256)]
 REFILL = "it + C::kStages < n_tiles && lane == 0"   # hd 256's consumers
@@ -61,18 +64,20 @@ def edit(src: str, pattern: str, repl: str, count: int) -> str:
 
 def variants() -> dict[str, str]:
     lit = re.escape
-    no_softmax = edit(SRC, r"softmax\(s, m, l, corr, [^;]*\);",
+    cut = SRC.index(TAIL_MARK)
+    head, tail = SRC[:cut], SRC[cut:]
+    no_softmax = edit(head, r"softmax\(s, m, l, corr, [^;]*\);",
                       "corr[0] = corr[1] = 1.f;", 2)
     gemm_only = edit(no_softmax, lit(PRODUCER_LOOP),
                      PRODUCER_LOOP.replace("it < n_tiles", "it < 0"), 1)
     gemm_only = edit(gemm_only, r"\n\s*mbar_wait\(base \+ C::k[KV]Full[^\n]*",
                      "", 4)
     gemm_only = edit(gemm_only, lit(REFILL), "false", 1)
-    no_pingpong = edit(SRC, r"\n\s*(if \([^\n]*\) )?bar_(sync|arrive)\([^\n]*",
+    no_pingpong = edit(head, r"\n\s*(if \([^\n]*\) )?bar_(sync|arrive)\([^\n]*",
                        "", 5)
-    no_exp2 = edit(SRC, lit("s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);"),
+    no_exp2 = edit(head, lit("s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);"),
                    "s[i] = fmaf(s[i] - m[(i >> 1) & 1], 0.0625f, 1.f);", 1)
-    double = edit(SRC, lit(PRODUCER_LOOP), PRODUCER_LOOP.replace(
+    double = edit(head, lit(PRODUCER_LOOP), PRODUCER_LOOP.replace(
         "it < n_tiles", "it < 2 * n_tiles").replace(
         "(lo + it)", "(lo + it % n_tiles)"), 1)
     for old, new in [
@@ -95,8 +100,9 @@ def variants() -> dict[str, str]:
             ("(lo + it + C::kStages) * kBK",
              "(lo + (it + C::kStages) % n_tiles) * kBK")]:
         double = edit(double, lit(old), new, 1)
-    return {"kernel": SRC, "no_softmax": no_softmax, "gemm_only": gemm_only,
-            "no_pingpong": no_pingpong, "no_exp2": no_exp2, "double": double}
+    return {"kernel": SRC, "no_softmax": no_softmax + tail,
+            "gemm_only": gemm_only + tail, "no_pingpong": no_pingpong + tail,
+            "no_exp2": no_exp2 + tail, "double": double + tail}
 
 
 def compile_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
