@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel)
      and print ptxas's registers and spills per kernel and its warning and
-     C75xx lines (fatal for a tensor-core kernel that spills or has its
-     wgmma serialized, and for the wkv6 pair walk, a selective-scan
-     kernel or an MLA-layout kernel that spills);
+     C75xx lines (fatal for a tensor-core kernel or an MLA-layout
+     backward kernel that spills or has a C75xx line, and for the wkv6
+     pair walk, a selective-scan kernel or an MLA-layout forward kernel
+     that spills);
   2. each kernel against its plain PyTorch twin on the card, over the
      masks, dtypes, head dims (16, 32, 64, 128, 256) and shapes listed in
      CASES (with the tile edges of the bf16 hd-256 kernel) and on strided
@@ -29,8 +30,14 @@ Phases, each fatal on failure:
      k's first 512 features and a tensor of its own) in fp32 and bf16
      within the same bars, one launch of its own a call, the kernel that
      ran printed (every bf16 case the wgmma kernel, every fp32 case the
-     SIMT kernel), and a grad-mode call there raising
-     NotImplementedError; wkv6 over WKV_CASES (one with rows that take the
+     SIMT kernel); the flash backward at the MLA layout over the same
+     cases and MLA_BWD_EXTRA (20 heads: ragged head groups) in fp32 and
+     bf16, dq, dk and dv against autograd of the plain twin within the
+     backward's bars, one launch of its own a call, two calls bitwise
+     equal at V3's training shape (1, 2048, 128) and at a ragged fp32
+     case, and `ops.attention` under grad at 2048 positions (v a view of
+     k) giving an output whose backward launches it once, q's and k's
+     gradients within the bf16 bar; wkv6 over WKV_CASES (one with rows that take the
      kernel's 4-byte copy path) and a state-carry case, y and the final
      state within |got - want| <= 1e-4 + 1e-4 |want| elementwise, the main
      shape included; the wkv6 backward over WKV_CASES with a random
@@ -137,7 +144,18 @@ Phases, each fatal on failure:
      the plain twin; the logits within max(2e-2, 1.5 x the naive oracle's
      distance), the tokens whose experts differ counted, one sequence at a
      time; prefill ms, decode ms/token, the MLA kernel's share of a
-     profiled prefill, the weights' bytes and peak memory);
+     profiled prefill, the weights' bytes and peak memory); then the MLA
+     backward alone in bf16 at V3's training shape (1, 2048, 128, 576 /
+     512) and at batch 4 beside its plain twin, SDPA's backward given k
+     and v expanded to 128 heads and its bound, with each of its four
+     launches by profiler at batch 1 (`time_flash_mla_bwd`), and V3
+     trained at every published width, cut to V3_TRAIN_LAYERS layers and
+     V3_TRAIN_EXPERTS routed experts with its MTP head (`v3_train`: batch
+     1 x 2048, fp32 masters, remat full, exactly 5 MLA-layout forwards and
+     3 backwards a step and nothing else, every router bias bitwise
+     unchanged; params, step ms, tokens/s, peak memory, the MLA kernels'
+     shares of the step), its step through the kernels against the plain
+     twins at the same cut held by the naive oracle, leaf by leaf;
   5c. last of the models, Hymba-1.5B: one `blocks.ssm` call at its full
      width (d_inner 1600, state 16) in fp32 on the 4 x 2048 tokens of its
      prefill, card (the scan kernel) against CPU (the loop) from the same
@@ -223,7 +241,8 @@ Phases, each fatal on failure:
      seconds, start-steps/s, ms and host ms a step, device kernels a
      step, peak memory and the profiler's device-busy share of the
      descent, printed as an `{"inverse": ...}` line.
-Prints one `{"kernels": [...]}` line, the `{"served": ...}`,
+Prints one `{"kernels": [...]}` line (the MLA backward as
+`flash_attention_bwd_mla`), the `{"served": ...}` (with `v3_train`),
 `{"pipeline": ...}`, `{"service": ...}` and `{"inverse": ...}` lines, the
 card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
@@ -412,6 +431,31 @@ MLA_CASES = [(2, sq, skv, h, q_offset, view)
                                        (1, 2064, 2063), (2048, 2064, 0),
                                        (100, 2064, 1900)]]
 MLA_MAIN = (BATCH, PROMPT, PROMPT + GEN, 128, 0, True)   # V3's prefill
+# The flash backward at the MLA layout, timed in bf16 at V3's training shape
+# (batch 1 x 2048, 128 heads, v a view of k) and at batch 4
+MLA_TRAIN = (1, PROMPT, PROMPT, 128, 0, True)
+MLA_TRAIN_B4 = (BATCH, PROMPT, PROMPT, 128, 0, True)
+# The backward's ragged head groups (it sums dK / dV over groups of 16
+# heads): 20 heads, a group of 16 and one of 4, as MLA_CASES' tuples
+MLA_BWD_EXTRA = [(2, 129, 191, 20, 62, False), (1, 300, 333, 20, 33, True)]
+MLA_BWD_PARTS = ("flash_bwd_delta", "flash_bwd_mla_dkdv", "flash_bwd_mla_sum",
+                 "flash_bwd_mla_dq")
+# DeepSeek-V3 trained at every published width (as V3_SERVE_LAYERS says),
+# batch 1 x 2048, its MTP head included, cut to what one 80 GB card holds
+# for fp32 masters with grads and AdamW's m and v (16 B a param): 2 layers
+# (1 dense-lead, 1 MoE; `first_dense_layers` set to 1, since a cut below
+# V3's 3 would give the MoE segment a negative count) and the routed
+# experts cut from 256 (11.27 B params a MoE layer, ~180 GB of state) to
+# V3_TRAIN_EXPERTS: 1.853 B of embedding and unembedding, 0.584 B the
+# dense-lead layer, 0.584 B the MoE layer, 0.686 B the MTP head, 3.707 B
+# in all, 59.3 GB of state.  (At 16 experts, 4.059 B and 64.9 GB, AdamW's
+# unfused temporaries for the 3.7 GB embedding table ran the H100 out of
+# memory.)  Its step through the kernels is held against the plain twins
+# at the same cut by the naive oracle's distance, leaf by leaf
+# (`train_vs_plain`)
+V3_TRAIN_LAYERS = 2
+V3_TRAIN_EXPERTS = 8
+V3_TRAIN_BATCH = 1
 # Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
 # weights) at every published width and full depth, through the flash
 # forward at hd 64 and 25 heads, one launch per layer (32, 29 of them with
@@ -463,7 +507,8 @@ SCAN_BWD_BAR = "|got - want| <= 1e-4 x max(max |want|, 1), each gradient"
 PEAK_MUFU = 16 * 132 * 1.98e9
 # Every launch counter, in the order the script reports them
 COUNTERS = ("flash_attention", "flash_attention_mla", "flash_attention_bwd",
-            "wkv6", "wkv6_bwd", "selective_scan", "selective_scan_bwd")
+            "flash_attention_bwd_mla", "wkv6", "wkv6_bwd", "selective_scan",
+            "selective_scan_bwd")
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -1035,14 +1080,52 @@ def mla_qkv(case, dtype, seed=0) -> tuple:
     return q, k, v
 
 
-def check_mla(fa, ref) -> None:
-    """Phase 2 for the flash forward at the MLA layout, over MLA_CASES in
-    fp32 and bf16: one launch of its own kernel a call, the output within
-    TOL[dtype] (max abs) and lse within 1e-4 (relative max) of the plain
-    twin's, the kernel that ran (`fa.mla_kernel`) the SIMT kernel for fp32
-    and the wgmma kernel for bf16 (its K tile as V where v is a view of
-    k); and a call that would need a gradient raising NotImplementedError
-    (its backward is not ported)."""
+def check_mla_backward(fa, case, dtype, q, k, v) -> float:
+    """Phase 2 for the backward at the MLA layout at one case: one launch
+    of its own (and no other backward) a call; dq, dk and dv against
+    autograd of the plain twin on the same q, k, v (v's values, as a
+    tensor of its own) and dO, within TOL[dtype] of max(max |want|, 1), as
+    `check_backward` holds the other backwards.  Returns the worst
+    relative max error."""
+    kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
+    g = torch.Generator("cuda").manual_seed(7)
+    do = torch.randn(*q.shape[:3], 512, generator=g, device="cuda").to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.launches_mla)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    launched = (fa.flash_attention_bwd.launches - before[0],
+                fa.flash_attention_bwd.launches_mla - before[1])
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_plain(qr, kr, vr, **kw).backward(do)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b.grad, floor=1.0) for a, b in zip(got, (qr, kr, vr))]
+    ok = (launched == (0, 1) and all(torch.isfinite(t).all().item()
+                                     for t in got)
+          and max(errs) <= TOL[dtype])
+    print(json.dumps({"mla_bwd_case": list(case), "dtype": str(dtype),
+                      "rel_max_err_dq_dk_dv": errs, "tol": TOL[dtype],
+                      "launches": launched, "ok": ok}), flush=True)
+    if not ok:
+        fail(f"flash_attention_bwd at the MLA layout {case} {dtype}: errors "
+             f"{errs}, launches {launched}")
+    return max(errs)
+
+
+def check_mla(fa, ref, ops) -> None:
+    """Phase 2 for the flash forward and backward at the MLA layout, over
+    MLA_CASES in fp32 and bf16: the forward's one launch of its own kernel
+    a call, its output within TOL[dtype] (max abs) and lse within 1e-4
+    (relative max) of the plain twin's, the kernel that ran
+    (`fa.mla_kernel`) the SIMT kernel for fp32 and the wgmma kernel for
+    bf16 (its K tile as V where v is a view of k); the backward as
+    `check_mla_backward` says, also at MLA_BWD_EXTRA's 20 heads; two
+    backward calls bitwise equal at V3's training shape (bf16, v a view of
+    k) and at a ragged fp32 case of 20 heads; and
+    `ops.attention` under grad at 2048 positions (v a view of k, as
+    `mla_attention` passes it) giving an output whose backward launches
+    the MLA backward once, with q's and k's gradients (dv added into k's
+    by autograd) within the bf16 bar of autograd of the plain twin."""
     for case in MLA_CASES:
         kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1069,15 +1152,53 @@ def check_mla(fa, ref) -> None:
                 fail(f"flash_attention at the MLA layout {case} {dtype}: "
                      f"error {err}, lse {lse_err}, launches {launched}, "
                      f"kernel {kernel} (want {meant})")
-            del q, k, v, got, want
-    q, k, v = mla_qkv(MLA_CASES[0], torch.bfloat16)
-    try:
-        fa.FlashAttention.apply(q.requires_grad_(), k, v, True, None, 0,
-                                MLA_SCALE, True)
-    except NotImplementedError as err:
-        print(f"the MLA layout under grad: {err}", flush=True)
-    else:
-        fail("a grad-mode call at the MLA layout did not raise")
+            del got, want, lse, want_lse
+            check_mla_backward(fa, case, dtype, q, k, v)
+            del q, k, v
+    for case in MLA_BWD_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_mla_backward(fa, case, dtype, *mla_qkv(case, dtype))
+    for case, dtype in ((MLA_TRAIN, torch.bfloat16),
+                        (MLA_BWD_EXTRA[0], torch.float32)):
+        q, k, v = mla_qkv(case, dtype)
+        kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
+        do = torch.randn(*q.shape[:3], 512, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(7)
+                         ).to(dtype)
+        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        first = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        second = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(json.dumps({"mla_bwd_deterministic": list(case),
+                          "dtype": str(dtype),
+                          "bitwise_equal_dq_dk_dv": same}), flush=True)
+        if not all(same):
+            fail(f"flash_attention_bwd at the MLA layout {case}: two calls "
+                 f"differ ({same})")
+        del q, k, v, do, out, lse, first, second
+    q, k, _ = mla_qkv((2, PROMPT, PROMPT + GEN, 3, 0, True), torch.bfloat16)
+    q.requires_grad_()
+    k.requires_grad_()
+    out = ops.attention(q, k, k[..., :512], scale=MLA_SCALE)
+    do = torch.randn(out.shape, device="cuda", dtype=out.dtype,
+                     generator=torch.Generator("cuda").manual_seed(7))
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.launches_mla)
+    got = torch.autograd.grad(out, (q, k), do)
+    launched = (fa.flash_attention_bwd.launches - before[0],
+                fa.flash_attention_bwd.launches_mla - before[1])
+    want = torch.autograd.grad(fa.flash_attention_plain(
+        q, k, k[..., :512], scale=MLA_SCALE), (q, k), do)
+    errs = [rel_err(a, b, floor=1.0) for a, b in zip(got, want)]
+    print(f"the MLA layout under grad through ops.attention: grad_fn "
+          f"{type(out.grad_fn).__name__}, backward launches (other, MLA) "
+          f"{launched}, dq / dk (dv added) vs the plain twin's "
+          f"{errs}", flush=True)
+    if (out.grad_fn is None or launched != (0, 1)
+            or max(errs) > TOL[torch.bfloat16]):
+        fail(f"ops.attention at the MLA layout under grad: grad_fn "
+             f"{out.grad_fn}, launches {launched}, errors {errs}")
+    del q, k, out, do, got, want
 
 
 def mla_bound(case) -> tuple[float, str]:
@@ -1166,6 +1287,100 @@ def time_flash_mla(fa, card) -> tuple:
     del q32, k32, v32, got32, got
     torch.cuda.empty_cache()
     return ms, plain_ms, lib_ms, bound_ms, bound_by, err, ms32
+
+
+def mla_bwd_bound(case) -> tuple[float, str]:
+    """Least time (ms) of the MLA-layout backward in bf16: q, k, v, o, dO
+    and lse read and dq, dk, dv written once, against the five products
+    over each visible pair, head and sequence (S 576, dP 512, dQ 576, dK
+    576, dV 512 multiply-adds)."""
+    b, sq, skv, h, q_offset, _ = case
+    flops = (2.0 * 2752 * b * h
+             * visible_pairs(sq, skv, True, None, q_offset))
+    nbytes = 2 * (b * sq * h * 2176 + b * skv * 2176) + 4 * b * h * sq
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+def time_flash_mla_bwd(fa, ref, card) -> dict:
+    """Phase 4a for the backward at the MLA layout, bf16 causal, v a view
+    of k, at V3's training shape MLA_TRAIN and at MLA_TRAIN_B4: the kernel
+    (its four launches) by CUDA events, against its plain twin (max abs
+    of dq, dk, dv, held to the backward's bar) and timed, beside SDPA's
+    backward given k and v expanded to 128 heads (forward and backward
+    less its forward; a yardstick the port never calls), with the bound and
+    the achieved TFLOP/s of the bound's five products; then each launch's
+    device time by profiler at MLA_TRAIN.  Returns {case: (ms, plain_ms,
+    sdpa_ms or None, bound_ms, bound_by, max abs err)}."""
+    out_rows = {}
+    for case, iters in ((MLA_TRAIN, 5), (MLA_TRAIN_B4, 3)):
+        q, k, v = mla_qkv(case, torch.bfloat16)
+        kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
+        do = torch.randn(*q.shape[:3], 512, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(7)
+                         ).bfloat16()
+        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        args = (q, k, v, out, do, lse)
+        got = fa.flash_attention_bwd(*args, **kw)
+        want = ref.flash_attention_bwd_plain(*args, min(512, case[2]), **kw)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        rel = max(rel_err(a, b, floor=1.0) for a, b in zip(got, want))
+        del got, want
+        if rel > TOL[torch.bfloat16]:
+            fail(f"flash_attention_bwd at the MLA layout {case}: {rel}")
+        ms = time_ms(lambda: fa.flash_attention_bwd(*args, **kw), iters,
+                     warmup=1)
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
+            *args, min(512, case[2]), **kw), 2, warmup=1)
+        b, sq, skv, h, q_offset, _ = case
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kb = k.detach().requires_grad_()
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            kt = kb.expand(-1, -1, h, -1).transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, kt[..., :512], is_causal=True, scale=MLA_SCALE)
+        try:
+            both = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kb), dot),
+                           iters, warmup=1)
+            lib_ms = both - time_ms(sdpa, iters, warmup=1)
+            how = f"sdpa backward {lib_ms:.4f} ms (forward + backward {both:.4f})"
+        except RuntimeError as ex:
+            lib_ms, how = None, f"sdpa backward: none ({str(ex)[:200]})"
+        del qt, kb, dot
+        bound_ms, bound_by = mla_bwd_bound(case)
+        tflop = (2 * 2752 * b * h
+                 * visible_pairs(sq, skv, True, None, q_offset) / 1e12)
+        print(f"flash_attention_bwd at the MLA layout {case[:4]} (576 / 512, "
+              f"v a view of k) bf16 causal: kernel {ms:.4f} ms "
+              f"({tflop * 1e3 / ms:.1f} TFLOP/s of the bound's {tflop:.3f} "
+              f"TFLOP), plain {plain_ms:.4f} ms, {how}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); kernel vs plain max abs err "
+              f"{err:.3e}, relative {rel:.3e} [{card}]", flush=True)
+        if case == MLA_TRAIN:
+            # a profile late in a long run can come back without the
+            # launches (seen once in the full script): up to three windows
+            for _ in range(3):
+                rows = [e for e in device_kernels(
+                    lambda: [fa.flash_attention_bwd(*args, **kw)
+                             for _ in range(3)]) if "flash_bwd" in e.key]
+                if rows:
+                    break
+            parts = []
+            for name in MLA_BWD_PARTS:
+                hit = [e for e in rows if name in e.key]
+                part_ms = (sum(e.self_device_time_total for e in hit) / 1e3
+                           / max(1, sum(e.count for e in hit)))
+                parts.append(f"{name} {part_ms:.4f} ms" if hit
+                             else f"{name} not measured")
+            print(f"flash_attention_bwd at the MLA layout {case[:4]} bf16, "
+                  f"device time per launch (profiler): {', '.join(parts)} "
+                  f"[{card}]", flush=True)
+        out_rows[case] = (ms, plain_ms, lib_ms, bound_ms, bound_by, err)
+        del q, k, v, do, out, lse, args
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def window_mask(case):
@@ -1315,14 +1530,17 @@ def read_counts(counters) -> dict:
 def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
     """Phase 3 for training: `build_trainer` on `cfg` at batch x PROMPT, a
     warm-up step, then TRAIN_STEPS steps, each with the counts set to 0
-    just before it and read just after (and checked).  `fixed(params)`, if
-    given, lists leaves that every step must leave bitwise where they
-    were.  Returns the numbers for the report: the median step time and
-    one step's launches, as the serve phases report one serve's, and the
-    peak memory."""
+    just before it and read just after (and checked: a flash forward per
+    layer and its recompute and a backward per layer; at the MLA layout
+    also one forward and one backward for the MTP block, which is not
+    recomputed).  `fixed(params)`, if given, lists leaves that every step
+    must leave bitwise where they were.  Returns the numbers for the
+    report: the median step time and one step's launches, as the serve
+    phases report one serve's, the params and the peak memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, step, _ = train.build_trainer(cfg, device="cuda", remat="full")
+    n_params = sum(t.numel() for t in tree_leaves(state.params)) / 1e9
     held = ([t.detach().clone() for t in fixed(state.params)]
             if fixed is not None else [])
     batches = train_batches(cfg, TRAIN_STEPS + 2, batch)
@@ -1339,20 +1557,25 @@ def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
         per_step.append(read_counts(counters))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = sorted(times)[len(times) // 2]
-    print(f"train {cfg.name} ({cfg.n_layers} layers) batch {batch} x seq "
+    print(f"train {cfg.name} ({cfg.n_layers} layers, {n_params:.3f} B "
+          f"params) batch {batch} x seq "
           f"{PROMPT}, fp32 masters, remat full: setup and warm-up step "
           f"{setup_s:.3f}s; steps {', '.join(f'{t:.3f}' for t in times)} ms "
           f"(median {step_ms:.3f} ms, {batch * PROMPT * 1e3 / step_ms:.1f} "
           f"tokens/s); peak memory {peak_gb:.3f} GB; losses {losses}; "
           f"launches per step {per_step} [{card}]", flush=True)
     n = cfg.n_layers
+    mtp = int(cfg.mtp)
     want = (counts(wkv6=2 * n, wkv6_bwd=n) if cfg.rwkv else counts(
+        flash_attention_mla=2 * n + mtp, flash_attention_bwd_mla=n + mtp)
+        if cfg.mla is not None else counts(
         flash_attention=2 * n, flash_attention_bwd=n,
         **({"selective_scan": 2 * n, "selective_scan_bwd": n}
            if cfg.ssm is not None else {})))
     if any(c != want for c in per_step):
         fail(f"train {cfg.name} launched {per_step}; want {want} a step (a "
-             "forward per layer, its recompute, and a backward per layer)")
+             "forward per layer, its recompute, and a backward per layer, "
+             "and the MTP block's forward and backward)")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train {cfg.name}: a loss is not finite: {losses}")
     if fixed is not None:
@@ -1400,7 +1623,8 @@ def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "launches": per_step[0], "peak_gb": peak_gb,
-            "tokens_per_s": batch * PROMPT * 1e3 / step_ms, "losses": losses}
+            "tokens_per_s": batch * PROMPT * 1e3 / step_ms, "losses": losses,
+            "params_b": n_params}
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -1504,22 +1728,33 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     for p in leaves:
         p.requires_grad_(True)
     batch = train_batches(cfg, 1, batch_size)[0]
-    got, picks = {}, {}
+    losses, dist, picks = {}, {}, {}
     oracle = cfg.moe is not None
-    for force in (None, "plain") + (("naive",) if oracle else ()):
+    # the plain step first; each other step is held against it and dropped
+    # (the kernels' kept for a hybrid's fp32 distances), so at most two
+    # sets of gradients share the card
+    for force in ("plain", None) + (("naive",) if oracle else ()):
         with routing_picks(picks.setdefault(force, [])):
             loss = lm.build(cfg, force=force, remat="full").loss(params,
                                                                  batch)
-        got[force] = (loss.item(), torch.autograd.grad(
-            loss, leaves, materialize_grads=True))
+        losses[force] = loss.item()
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         del loss
-    (loss_k, gk), (loss_p, gp) = got[None], got["plain"]
+        if force == "plain":
+            gp = grads
+            continue
+        dist[force] = [rel_l2(a, b) for a, b in zip(grads, gp)]
+        if force is None:
+            worst_max = max(rel_err(a, b) for a, b in zip(grads, gp))
+            gk = grads if cfg.ssm is not None else None
+        del grads
+    loss_k, loss_p = losses[None], losses["plain"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    l2 = [rel_l2(a, b) for a, b in zip(gk, gp)]
+    l2 = dist[None]
     if oracle:
-        loss_n, gn = got["naive"]
+        loss_n = losses["naive"]
         loss_bar = max(2e-2, 1.5 * abs(loss_n - loss_p) / abs(loss_p))
-        bars = [max(GRAD_BAR, 1.5 * rel_l2(a, b)) for a, b in zip(gn, gp)]
+        bars = [max(GRAD_BAR, 1.5 * d) for d in dist["naive"]]
     else:
         loss_bar, bars = 2e-2, [GRAD_BAR] * len(l2)
     worst = max(range(len(l2)), key=lambda i: l2[i] / bars[i])
@@ -1529,8 +1764,7 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
           f"relative L2 error against its bar {l2[worst]:.3e} (leaf {worst} "
           f"of {len(l2)}, {names[worst]}, bar {bars[worst]:.3e}), median "
           f"{sorted(l2)[len(l2) // 2]:.3e}, worst "
-          f"relative max error {max(rel_err(a, b) for a, b in zip(gk, gp)):.3e} "
-          f"[{card}]", flush=True)
+          f"relative max error {worst_max:.3e} [{card}]", flush=True)
     if oracle:
         nearest = sorted(range(len(l2)), key=lambda i: -l2[i] / bars[i])[:5]
         print(f"{cfg.name} train step: naive oracle vs plain loss "
@@ -1542,12 +1776,13 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
               f"{moved_tokens(picks[None], picks['plain'])} [{card}]",
               flush=True)
     if cfg.ssm is not None:
-        fp32_distances(card, cfg, lm, params, batch, got[None], got["plain"])
+        fp32_distances(card, cfg, lm, params, batch, (loss_k, gk),
+                       (loss_p, gp))
     if loss_rel > loss_bar or l2[worst] > bars[worst]:
         fail(f"a {cfg.name} training step through the kernels differs from "
              f"the plain twins: loss {loss_rel} (bar {loss_bar}), gradient "
              f"leaf {names[worst]} {l2[worst]} (bar {bars[worst]})")
-    del params, leaves, gk, gp, got
+    del params, leaves, gk, gp
     torch.cuda.empty_cache()
 
 
@@ -2174,6 +2409,36 @@ def v3_serve(card, configs, lm, serve, counters) -> dict:
             "weights_gb": weights_gb, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "mla_device_ms": mla_ms,
             "logits_rel": rel, "logits_bar": bar, "moved_tokens": moved}
+
+
+def v3_train(card, configs, lm, train, counters) -> dict:
+    """Phases 3-5 for DeepSeek-V3 training (5b, after its serve, the card's
+    memory released): `train_path` at every published width, cut as
+    V3_TRAIN_LAYERS / V3_TRAIN_EXPERTS say (batch 1 x 2048, fp32 masters,
+    AdamW, remat full, the MTP loss: exactly 2 MLA-layout flash forwards a
+    trunk layer and 1 for the MTP block, and 1 MLA-layout backward a MLA
+    block, a step, nothing else; every router bias bitwise unchanged),
+    then its step through the kernels against the plain twins at the same
+    cut, held by the naive oracle (`train_vs_plain`).  Returns
+    `train_path`'s numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    full = configs.get(V3_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=V3_TRAIN_LAYERS, moe=dataclasses.replace(
+            full.moe, first_dense_layers=1, n_experts=V3_TRAIN_EXPERTS))
+    print(f"train {V3_ARCH}: every published width, depth cut to "
+          f"{V3_TRAIN_LAYERS} of {full.n_layers} layers "
+          f"({[(g.kind, g.count) for g in lm.layer_plan(cfg)]}) and the "
+          f"routed experts to {V3_TRAIN_EXPERTS} of {full.moe.n_experts}, "
+          f"the MTP head included; batch {V3_TRAIN_BATCH} x {PROMPT}",
+          flush=True)
+    trained = train_path(card, cfg, V3_TRAIN_BATCH, train, counters,
+                         fixed=router_biases)
+    train_vs_plain(card, cfg, V3_TRAIN_BATCH, lm)
+    print(f"{V3_ARCH} training phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return trained
 
 
 def bf16_state_close(got, want) -> tuple:
@@ -3672,7 +3937,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch.configs as configs
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import wkv6 as wkv
@@ -3696,10 +3961,12 @@ def main() -> int:
         for row in ptxas_report(log):
             print(f"  {name}: {row['kernel']}: {row['registers']} registers,"
                   f" {row['spill']} bytes spill stores", flush=True)
-            # the tensor-core kernels: no spills, no serialized wgmma; the
-            # wkv6 backward's span walk, the scan kernels and the MLA
-            # layout's kernel: no spills
-            if "_bf16<" in row["kernel"] and (row["spill"] or row["c75"]):
+            # the tensor-core kernels and the MLA layout's backward: no
+            # spills, no serialized wgmma; the wkv6 backward's span walk,
+            # the scan kernels and the MLA layout's forward: no spills
+            if (("_bf16<" in row["kernel"]
+                 or "flash_bwd_mla" in row["kernel"])
+                    and (row["spill"] or row["c75"])):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled, "
                      f"{row['c75']}")
             if (("wkv6_pair_kernel" in row["kernel"]
@@ -3709,7 +3976,7 @@ def main() -> int:
 
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)
-    check_mla(fa, ref)
+    check_mla(fa, ref, ops)
     wkv_main_err = check_wkv6(wkv)
     wkv_bwd_err = check_wkv6_bwd(wkv, ref)
     scan_errs = check_scan(ss, ref)
@@ -3718,6 +3985,8 @@ def main() -> int:
     counters = {"flash_attention": (fa.flash_attention, "launches"),
                 "flash_attention_mla": (fa.flash_attention, "launches_mla"),
                 "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
+                "flash_attention_bwd_mla": (fa.flash_attention_bwd,
+                                            "launches_mla"),
                 "wkv6": (wkv.wkv6, "launches"),
                 "wkv6_bwd": (wkv.wkv6_bwd, "launches"),
                 "selective_scan": (ss.selective_scan, "launches"),
@@ -3800,6 +4069,12 @@ def main() -> int:
     v3_block = v3_mla_check(card, configs, lm, fa)
     reduced_on_gpu(card, configs, lm, V3_ARCH)
     served[V3_ARCH] = v3_serve(card, configs, lm, serve, counters)
+    # A11.3b: the MLA-layout backward alone beside its twin and SDPA's
+    # backward, then DeepSeek-V3 trained at every published width, cut to
+    # V3_TRAIN_LAYERS layers and V3_TRAIN_EXPERTS routed experts, its MTP
+    # loss through the MLA-layout forward and backward
+    mla_bwd_t = time_flash_mla_bwd(fa, ref, card)
+    v3_trained = v3_train(card, configs, lm, train, counters)
 
     # 5c. Hymba-1.5B, last of the models: the SSM block, the windowed
     # flash forward at 25 heads, the serve at full width and depth, then
@@ -3876,7 +4151,22 @@ def main() -> int:
         "launches": hymba_step["flash_attention_bwd"],
         "max_abs_err": errs[HYMBA_WINDOW][1], "ms": hymba_bwd[0],
         "plain_ms": hymba_bwd[1], "bound_ms": hymba_bwd[3],
-        "bound_by": hymba_bwd[4], "library_ms": hymba_bwd[2]},
+        "bound_by": hymba_bwd[4], "library_ms": hymba_bwd[2]}, {
+        # the same wrapper and source at DeepSeek-V3's MLA layout (its own
+        # SIMT kernels, dK and dV summed over the heads): V3's training at
+        # MLA_TRAIN; the library time is SDPA's backward with k and v
+        # expanded to 128 heads
+        "name": "flash_attention_bwd_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:106 (the jnp VJP of "
+                    "flash_attention_ref at the MLA layout, "
+                    "src/repro/models/blocks.py:195-200)",
+        "launches": v3_trained["launches"]["flash_attention_bwd_mla"],
+        "max_abs_err": mla_bwd_t[MLA_TRAIN][5], "ms": mla_bwd_t[MLA_TRAIN][0],
+        "plain_ms": mla_bwd_t[MLA_TRAIN][1],
+        "bound_ms": mla_bwd_t[MLA_TRAIN][3],
+        "bound_by": mla_bwd_t[MLA_TRAIN][4],
+        "library_ms": mla_bwd_t[MLA_TRAIN][2]},
         wkv_entry, wkv_bwd_entry, {
         "name": "selective_scan", **scan_src,
         "launches": served[HYMBA_ARCH]["scan_launches"],
@@ -3893,6 +4183,9 @@ def main() -> int:
                       "moe_train": {k: moe_trained[k] for k in (
                           "step_ms", "tokens_per_s", "peak_gb", "launches",
                           "losses")},
+                      "v3_train": {k: v3_trained[k] for k in (
+                          "step_ms", "tokens_per_s", "peak_gb", "launches",
+                          "losses", "params_b")},
                       "v3_mla_block": v3_block}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))

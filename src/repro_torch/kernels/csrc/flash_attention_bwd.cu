@@ -127,6 +127,52 @@
 //  3. dQ: one block per (b*h, tile of kRows q rows), heaviest first; q, dO
 //     and dq of a row in registers across TPR threads, the forward's
 //     kv_range over kTile-key tiles of k and v staged in shared memory.
+//
+// DeepSeek-V3's latent (MLA) layout (entry `flash_attention_mla_bwd`): q
+// (B, Sq, H, 576) over one k head (B, Skv, 1, 576) and one v head (B, Skv,
+// 1, 512) shared by all of q's heads, o and dO (B, Sq, H, 512).  The same
+// function, with dK and dV summed over the heads (the plain twin's
+// `flash_attention_bwd_plain` sums a shared head likewise).  Bound at V3's
+// training shape (B, 2048, 128, 576 / 512), causal: five products over
+// 2,098,176 visible pairs a head and sequence, S 576 + dP 512 + dQ 576 +
+// dK 576 + dV 512 = 2752 multiply-adds a pair, B x 1.478 TFLOP: 1.494 ms
+// at B = 1 on the bf16 tensor cores; q, o, dO read and dq written are ~1.1
+// GB a sequence (0.34 ms), so operations bound it.  This first design is
+// SIMT (fp32 arithmetic on the FMA units, fp32 or bf16 in and out): simple
+// and right, not fast; its tensor-core redesign, on the forward's layout,
+// is later work.  Four launches, no atomics, so two calls are bitwise
+// equal:
+//  1. delta = rowsum(dO * o): the kernel above at 512 features.
+//  2. Partial dK / dV (flash_bwd_mla_dkdv): the fp32 dK and dV of a 16-key
+//     tile take 16 x 1088 x 4 = 69.6 KB, of 64 keys 278.5 KB, more than an
+//     SM's register file; so a block owns 16 keys and one group of 16
+//     heads (kHG), and the 8 groups of V3's 128 heads run in parallel.
+//     256 threads: a key's 16 lanes hold its k, v, dk and dv at float4
+//     chunks t + 16 c (136 fp32 registers a thread), and the block walks
+//     the rows (position, head) of its group that see a key of the tile
+//     (q_range), 16 rows a stage, q and dO staged raw (T) through two
+//     cp.async stages (139.5 KB in fp32, 69.9 KB in bf16) with their lse
+//     and delta.  Per row: the 16 lanes' partial S and dP summed by
+//     shuffles, p = exp(s scale - lse) and ds = p (dP - delta) scale, then
+//     dK += ds q and dV += p dO from the staged row, read again (holding
+//     it beside the key's registers spilled).  Each lane's q
+//     read serves the two keys of its warp.  The block writes its fp32
+//     partials to scratch (B, ceil(H / 16), Skv, 1088).
+//  3. dK / dV (flash_bwd_mla_sum): the head groups' partials summed in
+//     order, stored in T.
+//  4. dQ (flash_bwd_mla_dq): 16 rows a block, heads as rows as the forward
+//     lays them out (at H = 128 a block is 16 heads of one position),
+//     heaviest first; a row's 16 lanes hold its q, dO and dq (104 fp32
+//     registers) and walk 16-key tiles of K and V over the forward's
+//     kv_range through two cp.async stages; where v is k's first 512
+//     features (`shared_kv`, as `mla_attention` passes it) V is read from
+//     the K tile and not loaded.  One staged tile serves the 16 rows.
+//  S and dP are computed in both 2 and 4: 3840 multiply-adds a pair, ~2.06
+//  TFLOP at (1, 2048, 128), where the call takes ~143 ms on an H100 (dK /
+//  dV ~91, dQ ~52; PERF.md), far below the FMA units' rate (the bf16
+//  unpacking and the rows' second read are reckoned to bound it; not
+//  measured).  A row that sees no key gets dq = 0 and adds nothing to dK
+//  and dV, as above.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1156,21 +1202,366 @@ int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
     return launch_simt<HD, __nv_bfloat16>(p, B, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The MLA layout: q (B, Sq, H, 576) over one k head (B, Skv, 1, 576) and one
+// v head (B, Skv, 1, 512) shared by q's heads; SIMT, fp32 arithmetic
+// ---------------------------------------------------------------------------
+
+namespace mla {
+constexpr int kDK = 576;                // q / k head dim
+constexpr int kDV = 512;                // v / o head dim
+constexpr int kTPR = 16;                // threads a row (a key in dK / dV)
+constexpr int kRows = kThreads / kTPR;  // rows a block, keys a tile: 16
+constexpr int kCK = kDK / 4 / kTPR;     // four-element chunks a thread: 9
+constexpr int kCV = kDV / 4 / kTPR;     // 8
+constexpr int kHG = 16;                 // heads a dK / dV block walks
+constexpr int kPart = kDK + kDV;        // floats of a key's partial dK, dV
+
+// A stage in shared memory: kRows rows of 576 elements (q or K), kRows of
+// 512 (dO or V), then kRows lse and kRows delta (dK / dV only).
+template <typename T>
+struct Stage {
+  static constexpr int kB = kRows * kDK;  // elements before the 512 rows
+  static constexpr int kF = kRows * (kDK + kDV) * sizeof(T);  // bytes
+  static constexpr int kBytes = kF + 2 * kRows * 4;
+};
+}  // namespace mla
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [0, rows) of W elements of T into shared memory, W elements a row,
+// by 16-byte cp.async copies from row(r) (zeros where it is null; `any` is
+// a valid global address that a zero fill names and does not read).
+template <int W, typename T, typename RowFn>
+__device__ __forceinline__ void stage_rows(T* dst, int rows, const T* any,
+                                           RowFn row) {
+  constexpr int kPer = W * static_cast<int>(sizeof(T)) / 16;
+  for (int c = threadIdx.x; c < rows * kPer; c += kThreads) {
+    const int r = c / kPer, x = c % kPer;
+    const T* src = row(r);
+    cp_async16(reinterpret_cast<char*>(dst + r * W) + 16 * x,
+               reinterpret_cast<const char*>(src ? src : any) + 16 * x,
+               src != nullptr);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
+__device__ __forceinline__ float4 axpy4(float s, float4 x, float4 y) {
+  return make_float4(fmaf(s, x.x, y.x), fmaf(s, x.y, y.y), fmaf(s, x.z, y.z),
+                     fmaf(s, x.w, y.w));
+}
+
+// 2m. Partial dK and dV of kRows keys over the kHG heads of one head group:
+// thread (key jj, lane t) holds k, v, dk and dv of its key at the chunks t
+// + 16 c (136 fp32 registers) and walks the rows (position, head) of the
+// group that see a key of the tile, kRows at a time through two cp.async
+// stages.  Writes fp32 partials (B, n_hg, Skv, 1088): dK, then dV.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_mla_dkdv(const Params p, int n_hg, int B, float* part) {
+  using namespace mla;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kt = blockIdx.x / (n_hg * B);  // the longest causal walks first
+  const int hg = (blockIdx.x / B) % n_hg, b = blockIdx.x % B;
+  const int k0 = kt * kRows, jj = threadIdx.x / kTPR, t = threadIdx.x % kTPR;
+  const int j = k0 + jj, h0 = hg * kHG, nh = min(kHG, p.H - h0);
+  const T* Q = static_cast<const T*>(p.q) + b * p.sq.b;
+  const T* dO = static_cast<const T*>(p.dout) + b * p.sdo.b;
+  const float* L = p.lse + static_cast<long long>(b) * p.H * p.Sq;
+  const float* D = p.delta + static_cast<long long>(b) * p.H * p.Sq;
+
+  float4 k[kCK], v[kCV], dk[kCK], dv[kCV];
+  {
+    const bool key = j < p.Skv;
+    const T* K = static_cast<const T*>(p.k) + b * p.sk.b + j * p.sk.s;
+    const T* V = static_cast<const T*>(p.v) + b * p.sv.b + j * p.sv.s;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kCK; ++c) {
+      k[c] = key ? flash::load4(K + 4 * (t + kTPR * c)) : z;
+      dk[c] = z;
+    }
+#pragma unroll
+    for (int c = 0; c < kCV; ++c) {
+      v[c] = key ? flash::load4(V + 4 * (t + kTPR * c)) : z;
+      dv[c] = z;
+    }
+  }
+
+  int qlo, qhi;
+  flash::q_range(p.Sq, p.causal, p.window, p.q_offset, k0, kRows, qlo, qhi);
+  const int n_rows = max(0, qhi - qlo) * nh;  // (position, head) rows
+  const int n_chunks = (n_rows + kRows - 1) / kRows;
+  auto stage = [&](int s) { return smem + s * Stage<T>::kBytes; };
+  auto issue = [&](int n) {
+    unsigned char* st = stage(n & 1);
+    T* sq = reinterpret_cast<T*>(st);
+    float* sl = reinterpret_cast<float*>(st + Stage<T>::kF);
+    const int r0 = n * kRows;
+    stage_rows<kDK>(sq, kRows, Q, [&](int r) -> const T* {
+      const int m = r0 + r;
+      return m < n_rows ? Q + (qlo + m / nh) * p.sq.s + (h0 + m % nh) * p.sq.h
+                        : nullptr;
+    });
+    stage_rows<kDV>(sq + Stage<T>::kB, kRows, dO, [&](int r) -> const T* {
+      const int m = r0 + r;
+      return m < n_rows
+                 ? dO + (qlo + m / nh) * p.sdo.s + (h0 + m % nh) * p.sdo.h
+                 : nullptr;
+    });
+    if (threadIdx.x < kRows) {  // rows past the walk: lse = delta = 0
+      const int m = r0 + threadIdx.x;
+      const long long at = static_cast<long long>(h0 + m % nh) * p.Sq +
+                           qlo + m / nh;
+      sl[threadIdx.x] = m < n_rows ? L[at] : 0.f;
+      sl[kRows + threadIdx.x] = m < n_rows ? D[at] : 0.f;
+    }
+  };
+
+  if (n_chunks > 0) issue(0);
+  cp_commit();
+  for (int n = 0; n < n_chunks; ++n) {
+    if (n + 1 < n_chunks) issue(n + 1);
+    cp_commit();
+    cp_wait_prior();  // chunk n has landed
+    __syncthreads();
+    const unsigned char* st = stage(n & 1);
+    const T* sq = reinterpret_cast<const T*>(st) + 4 * t;
+    const T* so = sq + Stage<T>::kB;
+    const float* sl = reinterpret_cast<const float*>(st + Stage<T>::kF);
+    const int r0 = n * kRows;
+    for (int r = 0; r < min(kRows, n_rows - r0); ++r) {
+      const T* qr = sq + r * kDK;
+      const T* orow = so + r * kDV;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCK; ++c)
+        s = dot4(flash::load4(qr + 4 * kTPR * c), k[c], s);
+#pragma unroll
+      for (int c = 0; c < kCV; ++c)
+        dp = dot4(flash::load4(orow + 4 * kTPR * c), v[c], dp);
+      s = flash::row_sum<kTPR>(s);
+      dp = flash::row_sum<kTPR>(dp);
+      const float pr =
+          flash::visible(p.Skv, p.causal, p.window,
+                         qlo + (r0 + r) / nh + p.q_offset, j)
+              ? expf(s * p.scale - sl[r])
+              : 0.f;
+      const float ds = pr * (dp - sl[kRows + r]) * p.scale;
+      // the row's second read comes after ds: holding its first read
+      // beside the key's 136 registers would spill
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < kCK; ++c)
+        dk[c] = axpy4(ds, flash::load4(qr + 4 * kTPR * c), dk[c]);
+#pragma unroll
+      for (int c = 0; c < kCV; ++c)
+        dv[c] = axpy4(pr, flash::load4(orow + 4 * kTPR * c), dv[c]);
+    }
+    __syncthreads();  // the stage is read before chunk n + 2 refills it
+  }
+  if (j < p.Skv) {
+    float* out = part + ((static_cast<long long>(b) * n_hg + hg) * p.Skv + j) *
+                            kPart + 4 * t;
+#pragma unroll
+    for (int c = 0; c < kCK; ++c)
+      *reinterpret_cast<float4*>(out + 4 * kTPR * c) = dk[c];
+#pragma unroll
+    for (int c = 0; c < kCV; ++c)
+      *reinterpret_cast<float4*>(out + kDK + 4 * kTPR * c) = dv[c];
+  }
+}
+
+// 3m. dK and dV: the head groups' partials summed in order, one block per
+// key, a thread per four features, stored in T.
+constexpr int kSumThreads = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+    flash_bwd_mla_sum(const Params p, const float* part, int n_hg) {
+  using namespace mla;
+  const int j = blockIdx.x % p.Skv, b = blockIdx.x / p.Skv;
+  for (int f = 4 * threadIdx.x; f < kPart; f += 4 * kSumThreads) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < n_hg; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + ((static_cast<long long>(b) * n_hg + g) * p.Skv + j) * kPart +
+          f);
+      acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
+    }
+    T* out = f < kDK ? static_cast<T*>(p.dk) + b * p.sdk.b + j * p.sdk.s + f
+                     : static_cast<T*>(p.dv) + b * p.sdv.b + j * p.sdv.s + f -
+                           kDK;
+    flash::store4(out, acc);
+  }
+}
+
+// 4m. dQ of kRows rows (position, head), heaviest first, as the forward lays
+// them out: thread (row rr, lane t) holds q, dO and dq of its row at the
+// chunks t + 16 c (104 fp32 registers) and walks the key tiles of the
+// causal kv_range, kRows keys at a time through two cp.async stages (K,
+// and V unless `shared_kv`: v is k's first 512 features, read from the K
+// tile).  Tiles stay in T: a warp's LDS.64 of bf16 takes half the
+// shared-memory wavefronts of an LDS.128 of fp32, so widening each tile to
+// fp32 once, to spare the per-row unpacking, made dQ slower.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_mla_dq(const Params p, int n_rt, int B, int shared_kv) {
+  using namespace mla;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x % B;
+  const int r0 = (n_rt - 1 - blockIdx.x / B) * kRows;
+  const int n_rows = p.Sq * p.H;
+  const int t = threadIdx.x % kTPR, row = r0 + threadIdx.x / kTPR;
+  const bool exists = row < n_rows;
+  const int qi = exists ? row / p.H : 0, h = exists ? row % p.H : 0;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const T* K = static_cast<const T*>(p.k) + b * p.sk.b;
+  const T* V = static_cast<const T*>(p.v) + b * p.sv.b;
+
+  float4 q[kCK], o[kCV], dq[kCK];
+  {
+    const T* Q = static_cast<const T*>(p.q) + b * p.sq.b + qi * p.sq.s +
+                 h * p.sq.h;
+    const T* dO = static_cast<const T*>(p.dout) + b * p.sdo.b +
+                  qi * p.sdo.s + h * p.sdo.h;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kCK; ++c) {
+      q[c] = exists ? flash::load4(Q + 4 * (t + kTPR * c)) : z;
+      dq[c] = z;
+    }
+#pragma unroll
+    for (int c = 0; c < kCV; ++c)
+      o[c] = exists ? flash::load4(dO + 4 * (t + kTPR * c)) : z;
+  }
+  const float lse = exists ? p.lse[bh * p.Sq + qi] : 0.f;
+  const float delta = exists ? p.delta[bh * p.Sq + qi] : 0.f;
+  const int qpos = qi + p.q_offset;
+
+  int lo, hi;
+  const int i_first = r0 / p.H, i_last = (min(r0 + kRows, n_rows) - 1) / p.H;
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, i_first,
+                  i_last - i_first + 1, kRows, lo, hi);
+  auto stage = [&](int s) {
+    return reinterpret_cast<T*>(smem + s * Stage<T>::kBytes);
+  };
+  auto issue = [&](int kt) {
+    T* sk = stage((kt - lo) & 1);
+    const int k0 = kt * kRows;
+    stage_rows<kDK>(sk, kRows, K, [&](int r) -> const T* {
+      return k0 + r < p.Skv ? K + (k0 + r) * p.sk.s : nullptr;
+    });
+    if (!shared_kv)
+      stage_rows<kDV>(sk + Stage<T>::kB, kRows, V, [&](int r) -> const T* {
+        return k0 + r < p.Skv ? V + (k0 + r) * p.sv.s : nullptr;
+      });
+  };
+
+  if (lo < hi) issue(lo);
+  cp_commit();
+  for (int kt = lo; kt < hi; ++kt) {
+    if (kt + 1 < hi) issue(kt + 1);
+    cp_commit();
+    cp_wait_prior();  // tile kt has landed
+    __syncthreads();
+    const T* sk = stage((kt - lo) & 1) + 4 * t;
+    const T* sv = shared_kv ? sk : sk + Stage<T>::kB;
+    const int vstride = shared_kv ? kDK : kDV;
+    for (int jj = 0; jj < kRows; ++jj) {
+      float4 kc[kCK];
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCK; ++c) {
+        kc[c] = flash::load4(sk + jj * kDK + 4 * kTPR * c);
+        s = dot4(q[c], kc[c], s);
+      }
+#pragma unroll
+      for (int c = 0; c < kCV; ++c)
+        dp = dot4(o[c], flash::load4(sv + jj * vstride + 4 * kTPR * c), dp);
+      s = flash::row_sum<kTPR>(s);
+      dp = flash::row_sum<kTPR>(dp);
+      const float pr = exists && flash::visible(p.Skv, p.causal, p.window,
+                                                qpos, kt * kRows + jj)
+                           ? expf(s * p.scale - lse)
+                           : 0.f;
+      const float ds = pr * (dp - delta) * p.scale;
+#pragma unroll
+      for (int c = 0; c < kCK; ++c) dq[c] = axpy4(ds, kc[c], dq[c]);
+    }
+    __syncthreads();  // the stage is read before tile kt + 2 refills it
+  }
+  if (exists) {
+    T* out = static_cast<T*>(p.dq) + b * p.sdq.b + qi * p.sdq.s + h * p.sdq.h;
+#pragma unroll
+    for (int c = 0; c < kCK; ++c) flash::store4(out + 4 * (t + kTPR * c), dq[c]);
+  }
+}
+
+// delta (the dense path's kernel at 512 features), dK / dV partials, their
+// sum, dQ.
+template <typename T>
+int launch_mla(const Params& p, float* part, int shared_kv, int B,
+               cudaStream_t stream) {
+  using namespace mla;
+  const long long n_rows = static_cast<long long>(p.Sq) * p.H;
+  const long long n_rt = (n_rows + kRows - 1) / kRows;
+  const long long n_kt = (p.Skv + kRows - 1) / kRows;
+  const int n_hg = (p.H + kHG - 1) / kHG;
+  const long long sums = static_cast<long long>(B) * p.Skv;
+  if (n_rows > INT_MAX || n_rt * B > INT_MAX || n_kt * n_hg * B > INT_MAX ||
+      sums > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  int err = launch_delta<kDV, T>(p, B, stream);
+  if (err != 0) return err;
+  constexpr int smem = 2 * Stage<T>::kBytes;
+  err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_mla_dkdv<T>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  flash_bwd_mla_dkdv<T><<<static_cast<unsigned>(n_kt * n_hg * B), kThreads,
+                          smem, stream>>>(p, n_hg, B, part);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  flash_bwd_mla_sum<T><<<static_cast<unsigned>(sums), kSumThreads, 0,
+                         stream>>>(p, part, n_hg);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_mla_dq<T>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  flash_bwd_mla_dq<T><<<static_cast<unsigned>(n_rt * B), kThreads, smem,
+                        stream>>>(p, static_cast<int>(n_rt), B, shared_kv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk and dv
-// alike; lse is fp32 (B, H, Sq), delta fp32 scratch of the same shape.
-// hd: 16, 32, 64, 128 or 256; Sq, Skv >= 1.  strides: 24 element strides,
-// (batch, seq, head) of q, k, v, o, dout, dq, dk, dv in that order; every
-// head_dim stride is 1.  window <= 0 means no window.  Returns
-// cudaGetLastError() after the launches (0 = success), or
-// cudaErrorInvalidValue for an unsupported dtype / head dim.
-extern "C" int flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int dtype, int B, int H, int Sq, int Skv, int hd,
-    const long long* strides, int causal, int window, int q_offset,
-    float scale, void* stream) {
+namespace {
+
+Params make_params(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* delta, void* dq,
+                   void* dk, void* dv, int H, int Sq, int Skv,
+                   const long long* strides, int causal, int window,
+                   int q_offset, float scale) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1193,6 +1584,27 @@ extern "C" int flash_attention_bwd(
   p.window = window;
   p.q_offset = q_offset;
   p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk and dv
+// alike; lse is fp32 (B, H, Sq), delta fp32 scratch of the same shape.
+// hd: 16, 32, 64, 128 or 256; Sq, Skv >= 1.  strides: 24 element strides,
+// (batch, seq, head) of q, k, v, o, dout, dq, dk, dv in that order; every
+// head_dim stride is 1.  window <= 0 means no window.  Returns
+// cudaGetLastError() after the launches (0 = success), or
+// cudaErrorInvalidValue for an unsupported dtype / head dim.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int dtype, int B, int H, int Sq, int Skv, int hd,
+    const long long* strides, int causal, int window, int q_offset,
+    float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, dout, lse, delta, dq, dk, dv, H,
+                               Sq, Skv, strides, causal, window, q_offset,
+                               scale);
   if ((dtype != 0 && dtype != 1) || Sq < 1 || Skv < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1204,6 +1616,37 @@ extern "C" int flash_attention_bwd(
     case 256: return launch<256>(p, dtype, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The fp32 floats of `part`, the MLA backward's scratch for the head
+// groups' partial dK and dV: (B, ceil(H / 16), Skv, 576 + 512).
+extern "C" long long flash_attention_mla_bwd_scratch(int B, int H, int Skv) {
+  return static_cast<long long>(B) * ((H + mla::kHG - 1) / mla::kHG) * Skv *
+         mla::kPart;
+}
+
+// The MLA layout: q (B, Sq, H, 576), k (B, Skv, 1, 576), v (B, Skv, 1,
+// 512), o and dout (B, Sq, H, 512), lse fp32 (B, H, Sq); dq, dk and dv
+// shaped as q, k and v; delta fp32 (B, H, Sq) and part (see above) scratch.
+// dtype, strides (k's, v's, dk's and dv's head strides unread), masks and
+// the return value as flash_attention_bwd.  shared_kv: v is k's first 512
+// features (the same pointer and batch and position strides), and dQ
+// reads V from its K tiles.
+extern "C" int flash_attention_mla_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, float* part, void* dq,
+    void* dk, void* dv, int dtype, int shared_kv, int B, int H, int Sq,
+    int Skv, const long long* strides, int causal, int window, int q_offset,
+    float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, dout, lse, delta, dq, dk, dv, H,
+                               Sq, Skv, strides, causal, window, q_offset,
+                               scale);
+  if ((dtype != 0 && dtype != 1) || Sq < 1 || Skv < 1 || H < 1 ||
+      (shared_kv && (v != k || p.sv.b != p.sk.b || p.sv.s != p.sk.s)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_mla<float>(p, part, shared_kv, B, st)
+                    : launch_mla<__nv_bfloat16>(p, part, shared_kv, B, st);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {

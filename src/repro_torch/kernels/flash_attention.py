@@ -13,14 +13,15 @@ ctypes.  On CPU tensors each wrapper runs its plain twin (`ref.flash_fwd`,
 raises.  `flash_attention.launches` counts forward launches and
 `flash_attention_bwd.launches` backward calls (three kernels each).
 
-The forward also takes DeepSeek-V3's latent (MLA) layout, `is_mla`: one k
-and one v head shared by all of q's heads, q and k of head dim 576, v of 512
-(the JAX package runs it through `ref.flash_attention_ref`, since its Pallas
-kernel cannot take it).  Its kernels are their own in the same source, a
-wgmma kernel for bfloat16 and a SIMT kernel for float32 (`mla_kernel` says
-which a call runs), counted in `flash_attention.launches_mla`; its backward
-is not ported (ROADMAP A11.3b), so a CUDA call at this layout that would
-need a gradient raises NotImplementedError.
+Both also take DeepSeek-V3's latent (MLA) layout, `is_mla`: one k and one
+v head shared by all of q's heads, q and k of head dim 576, v of 512 (the
+JAX package runs it through `ref.flash_attention_ref` and its VJP, since
+its Pallas kernel cannot take it).  Its kernels are their own in the same
+sources: forward, a wgmma kernel for bfloat16 and a SIMT kernel for
+float32 (`mla_kernel` says which a call runs), counted in
+`flash_attention.launches_mla`; backward, a SIMT kernel for both dtypes
+that sums dK and dV over the heads (four launches a call), counted in
+`flash_attention_bwd.launches_mla`.
 
 `FlashAttention` is the way to differentiate through the kernels, and the
 one that `ops.attention` calls: its forward asks the kernel for lse and
@@ -106,16 +107,15 @@ def mla_kernel(q, k, v) -> str:
             "the MLA layout reads q's (position, head) rows at one stride, "
             f"so its position stride must be H x its head stride ({h} x "
             f"{q.stride(2)})")
-    shared = (v.data_ptr() == k.data_ptr()
-              and v.stride()[:2] == k.stride()[:2])
-    return "wgmma_kv" if shared else "wgmma"
+    return "wgmma_kv" if v_in_k(k, v) else "wgmma"
 
 
-def _no_mla_grad(what: str):
-    return NotImplementedError(
-        f"flash_attention: {what} at the MLA layout (one shared k / v head, "
-        "head dims 576 / 512) is not ported (ROADMAP A11.3b: the flash "
-        "backward at the MLA layout); call under torch.no_grad()")
+def v_in_k(k, v) -> bool:
+    """v is k's first features: the same storage, batch and position
+    strides (as `mla_attention` passes k_eff[..., :512]).  The kernels
+    then read V from the K tiles."""
+    return (v.data_ptr() == k.data_ptr()
+            and v.stride()[:2] == k.stride()[:2])
 
 
 @functools.cache
@@ -131,12 +131,28 @@ def _bwd():
     return fn, lib.flash_attention_bwd_error_string
 
 
+@functools.cache
+def _bwd_mla():
+    """(flash_attention_mla_bwd, flash_attention_mla_bwd_scratch)."""
+    lib = build.library("flash_attention_bwd")
+    fn = lib.flash_attention_mla_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    scratch = lib.flash_attention_mla_bwd_scratch
+    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
 def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
     """Raise on what the kernels do not take: q (B,Sq,H,hd), k and v
     (B,Skv,H,hd), and the tensors of `like_q` shaped as q, all on one CUDA
     device, in one of _DTYPES, hd in HEAD_DIMS, with a contiguous head_dim
     and 16-byte aligned rows and strides.  With `mla`, the MLA layout
-    instead of the equal heads and head dims (`is_mla`)."""
+    instead of the equal heads and head dims (`is_mla`), and `like_q`
+    shaped as the output, (B,Sq,H,512)."""
     ts = {"q": q, "k": k, "v": v, **like_q}
     if not all(t.is_cuda and t.device == q.device for t in ts.values()):
         raise ValueError(f"flash_attention: {', '.join(ts)} must lie on one "
@@ -152,6 +168,10 @@ def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
                              f"{tuple(k.shape)}, v {tuple(v.shape)}; want "
                              f"(B,Sq,H,{MLA_DIMS[0]}), (B,Skv,1,"
                              f"{MLA_DIMS[0]}) and (B,Skv,1,{MLA_DIMS[1]})")
+        for name, t in like_q.items():
+            if t.shape != (*q.shape[:3], MLA_DIMS[1]):
+                raise ValueError(f"flash_attention: {name} {tuple(t.shape)}; "
+                                 f"want {(*q.shape[:3], MLA_DIMS[1])}")
     else:
         if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
             raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -210,8 +230,6 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return out, lse if want_lse else None
     mla = is_mla(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if mla:
-            raise _no_mla_grad("the gradient")
         raise RuntimeError(
             "flash_attention: an input requires grad, and the kernel's output "
             "would carry none; differentiate through FlashAttention.apply "
@@ -270,17 +288,18 @@ flash_attention.launches_mla = 0   # the forwards at the MLA layout
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
                         scale: float | None = None):
-    """The backward: q, k, v as the forward took them, its output o, the
-    output's gradient do (shaped as q) and its lse (fp32 (B,H,Sq), from
-    `flash_attention_fwd(..., want_lse=True)`).  Returns (dq, dk, dv) in
-    the inputs' dtype."""
+    """The backward: q, k, v as the forward took them (the MLA layout too),
+    its output o, the output's gradient do (both shaped as the output) and
+    its lse (fp32 (B,H,Sq), from `flash_attention_fwd(..., want_lse=True)`).
+    Returns (dq, dk, dv) in the inputs' dtype; at the MLA layout dk and dv
+    are summed over q's heads, and where v is a view of k autograd adds dv
+    into k's gradient."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              min(512, k.shape[1]), causal,
                                              window, q_offset, scale)
-    if is_mla(q, k, v):
-        raise _no_mla_grad("the backward")
-    _check(q, k, v, window, q_offset, o=o, do=do)
+    mla = is_mla(q, k, v)
+    _check(q, k, v, window, q_offset, mla=mla, o=o, do=do)
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
@@ -297,20 +316,33 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
-    fn, errstr = _bwd()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, sq, skv,
-             hd, strides, int(causal), window or 0, q_offset, scale,
+    masks = (int(causal), window or 0, q_offset, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    fn, errstr = _bwd()
+    if mla:
+        fn_mla, scratch = _bwd_mla()
+        part = torch.empty(scratch(b, h, skv), dtype=torch.float32,
+                           device=q.device)
+        err = fn_mla(*ptrs, part.data_ptr(), *outs, _DTYPES[q.dtype],
+                     int(v_in_k(k, v)), b, h, sq, skv, strides, *masks)
+    else:
+        err = fn(*ptrs, *outs, _DTYPES[q.dtype], b, h, sq, skv, hd, strides,
+                 *masks)
     if err:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    flash_attention_bwd.launches += 1
+    if mla:
+        flash_attention_bwd.launches_mla += 1
+    else:
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_mla = 0   # the backwards at the MLA layout
 
 
 class FlashAttention(torch.autograd.Function):
@@ -326,8 +358,6 @@ class FlashAttention(torch.autograd.Function):
                 scale=None, grad=True):
         opts = dict(causal=causal, window=window, q_offset=q_offset,
                     scale=scale)
-        if grad and q.is_cuda and is_mla(q, k, v):
-            raise _no_mla_grad("a call that needs a gradient")
         out, lse = flash_attention_fwd(q, k, v, want_lse=grad, **opts)
         if grad:
             ctx.save_for_backward(q, k, v, out, lse)

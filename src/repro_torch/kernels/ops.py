@@ -41,9 +41,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """q: (B,Sq,H,hd); k,v: (B,Skv,H,hd), H equal (expand GQA upstream),
     or the MLA layout (`flash_attention.is_mla`: one k and one v head shared
     by q's heads, head dims 576 / 512; the output then (B,Sq,H,512)).
-    `force` picks one of IMPLS; "kernel" needs CUDA tensors, and at the MLA
-    layout raises NotImplementedError where a gradient is needed (its
-    backward is not ported)."""
+    `force` picks one of IMPLS; "kernel" needs CUDA tensors.  Every path
+    is differentiable, the kernels at the MLA layout too (its backward
+    kernel sums dK and dV over q's heads)."""
     impl = force or ("naive" if q.shape[1] < FLASH_THRESHOLD
                      else ("kernel" if q.is_cuda else "plain"))
     if impl == "naive":

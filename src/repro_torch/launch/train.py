@@ -10,9 +10,11 @@ runs on `cuda` unless `--device cpu` is given, and without a GPU and
 without that flag it raises.  On the GPU every attention call at
 Sq >= 2048 runs the flash forward and backward kernels, every RWKV6
 time-mix the wkv6 forward and backward kernels, and every SSM of the
-hybrid (Hymba) the selective-scan forward and backward kernels; the
-dense family, the MoE family without MTP (DeepSeek-MoE), the hybrid and
-RWKV6 train there, as on the CPU.
+hybrid (Hymba) the selective-scan forward and backward kernels; at
+DeepSeek-V3's latent (MLA) layout the attention runs the MLA-layout flash
+forward and backward kernels.  Every family `models.lm.build` builds
+trains there, as on the CPU: dense, MoE (DeepSeek-MoE, and DeepSeek-V3
+with its MTP loss), the hybrid and RWKV6.
 """
 
 from __future__ import annotations
@@ -38,11 +40,7 @@ def build_trainer(cfg, *, device, compression: str = "none",
     """(model, state, step, compressor): fp32 master params from seed 0 on
     `device`, their AdamW state, the train step (`schedule_for(cfg)`'s LR)
     and the gradient compressor.  As in the JAX driver, the compressor is
-    built and not applied: on one device no gradient crosses a link.
-    Raises NotImplementedError for an MTP config (DeepSeek-V3), whose loss
-    term is not ported (`lm.MTP_NOT_PORTED`)."""
-    if cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: {lm_mod.MTP_NOT_PORTED}")
+    built and not applied: on one device no gradient crosses a link."""
     dev = torch.device(device)
     model = lm_mod.build(cfg, remat=remat)
     step = make_train_step(model.loss, AdamWConfig(schedule=schedule_for(cfg)))

@@ -13,12 +13,11 @@ NotImplementedError for the family not ported, the encoder-decoder
 (Whisper).
 
 Training: `LM.loss` is the next-token cross-entropy, plus 0.01 x the MoE
-blocks' load-balance loss summed over the layers for a MoE config, and
-`remat` recomputes each block in the backward as the JAX `jax.checkpoint`
-does.  DeepSeek-V3's multi-token-prediction (MTP) head is initialised, so
-the params match the JAX package's layout, but its loss term is not
-ported: `LM.loss` raises NotImplementedError for an MTP config
-(`MTP_NOT_PORTED`).
+blocks' load-balance loss summed over the layers for a MoE config, plus
+0.3 x the multi-token-prediction (MTP) loss for an MTP config
+(DeepSeek-V3: `LM._mtp_loss`), and `remat` recomputes each trunk block in
+the backward as the JAX `jax.checkpoint` does (the MTP block is not
+recomputed, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -32,10 +31,6 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
 from repro_torch.models.layers import AttnDims, Params
-
-MTP_NOT_PORTED = ("the MTP head (DeepSeek-V3's multi-token-prediction loss) "
-                  "is not ported: ROADMAP A11.3b, with the flash backward at "
-                  "the MLA layout")
 
 # ---------------------------------------------------------------------------
 # Layer plan
@@ -252,8 +247,8 @@ class LM:
         weights (and RWKV's token-shift mixes) in `dtype`: bf16 for
         serving, fp32 masters for training; norm scales are fp32.  An MTP
         config also gets the JAX package's MTP params ("mtp": the (2d, d)
-        projection, a dense-lead block, a norm), which serving never
-        reads."""
+        projection, a dense-lead block, a norm), which `loss` reads and
+        serving never does."""
         cfg = self.cfg
         params: Params = {
             "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model,
@@ -321,13 +316,38 @@ class LM:
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy (z-loss 1e-4) of batch["tokens"]
         against batch["labels"], both (B,S), plus 0.01 x the load-balance
-        loss for a MoE config.  Raises NotImplementedError for an MTP
-        config (`MTP_NOT_PORTED`)."""
+        loss for a MoE config and 0.3 x `_mtp_loss` for an MTP config."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        x, aux = self._hidden(params, tokens)
+        loss = layers.cross_entropy(self._logits(params, x), labels)
+        if aux is not None:
+            loss = loss + 0.01 * aux
         if self.cfg.mtp:
-            raise NotImplementedError(f"{self.cfg.name}: {MTP_NOT_PORTED}")
-        x, aux = self._hidden(params, batch["tokens"])
-        loss = layers.cross_entropy(self._logits(params, x), batch["labels"])
-        return loss if aux is None else loss + 0.01 * aux
+            loss = loss + 0.3 * self._mtp_loss(params, tokens, labels)
+        return loss
+
+    def _mtp_loss(self, params: Params, tokens: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3's MTP term, as the JAX package computes it
+        (`repro.models.lm.LM._mtp_loss`): the embeddings of the tokens
+        (not the trunk's hidden states) and of the labels, concatenated and
+        projected by mtp.proj (2d -> d), one dense-lead block (MLA
+        attention) without remat, rmsnorm(mtp.ln), the shared unembedding,
+        and the cross-entropy against the labels shifted by one more (the
+        last label repeated)."""
+        cfg, mtp = self.cfg, params["mtp"]
+        scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
+        x = layers.embed(params["embed"], tokens, scale)
+        h = torch.cat([x, layers.embed(params["embed"], labels, scale)],
+                      dim=-1)
+        h = layers._matmul(h, mtp["proj"])
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        seg = Segment("dense_lead" if cfg.moe else "dense", 1)
+        h, _ = _apply_block(mtp["block"], cfg, seg, h, positions,
+                            force=self.force)
+        logits = self._logits(params, layers.rmsnorm(mtp["ln"], h))
+        return layers.cross_entropy(
+            logits, torch.cat([labels[:, 1:], labels[:, -1:]], dim=1))
 
     def init_cache(self, batch: int, max_seq: int, device) -> Params:
         return {f"seg{i}": [_init_block_cache(self.cfg, seg, batch, max_seq,
@@ -354,11 +374,10 @@ class LM:
 def build(cfg: ArchConfig, force: str | None = None,
           remat: str = "full") -> LM:
     """The LM for `cfg`; raises NotImplementedError, naming what is
-    missing, for a block not ported (the encoder-decoder).  An MTP config
-    builds for serving; its `loss` raises."""
+    missing, for a block not ported (the encoder-decoder)."""
     if cfg.encdec is not None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder not ported (ported: dense, "
             "vlm (Chameleon), moe with GQA or MLA attention (DeepSeek-MoE, "
-            "DeepSeek-V3 without its MTP loss), hybrid (Hymba) and rwkv)")
+            "DeepSeek-V3 with its MTP loss), hybrid (Hymba) and rwkv)")
     return LM(cfg, force=force, remat=remat)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention forward and backward, the forward at
-DeepSeek-V3's MLA layout, WKV6 forward and backward, the selective scan
+"""The CUDA kernels (flash attention forward and backward, both at
+DeepSeek-V3's MLA layout too, WKV6 forward and backward, the selective scan
 forward and backward) against their plain twins, and the float64 DeepNVM++ pipeline
 (the engines, the golden specs, the DTCO analyses, the sweep service and
 the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
@@ -786,22 +786,95 @@ def test_mla_kernel_rejects_other_layouts(dev):
             fa.flash_attention(*args)
 
 
+def _mla_bwd_against_plain(q, k, v, dtype, q_offset):
+    """The MLA backward against autograd of the plain twin on the same q,
+    k, v (v's values as a tensor of its own) and dO, causal at MLA_SCALE:
+    one launch at the MLA layout and none elsewhere, dq, dk and dv in the
+    inputs' dtype within TOL of max(max |want|, 1), as chip_smoke holds
+    the backwards.  Returns (dq, dk, dv)."""
+    kw = dict(causal=True, q_offset=q_offset, scale=MLA_SCALE)
+    do = torch.randn(*q.shape[:3], 512, device=q.device,
+                     generator=torch.Generator(q.device).manual_seed(7)
+                     ).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.launches_mla)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert (fa.flash_attention_bwd.launches - before[0],
+            fa.flash_attention_bwd.launches_mla - before[1]) == (0, 1)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_plain(qr, kr, vr, **kw).backward(do)
+    torch.cuda.synchronize()
+    for a, want in zip(got, (qr.grad, kr.grad, vr.grad)):
+        assert a.shape == want.shape and a.dtype == dtype
+        assert torch.isfinite(a).all()
+        assert (a.float() - want.float()).abs().max().item() <= TOL[dtype] \
+            * max(want.float().abs().max().item(), 1.0)
+    return got
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 20, 128])
+@pytest.mark.parametrize("sq,skv,q_offset", MLA_EDGES)
+def test_mla_backward_matches_plain(dev, view, dtype, h, sq, skv, q_offset):
+    """The backward at the MLA layout at its 16-key and 16-row tile edges
+    (63 / 64 / 65 / 127 / 129 / 191), a decode step, a 2048-token prefill
+    into 2064 keys and a chunk at position 1900; one head, 20 (a head
+    group of 16 and one of 4: dK / dV sums ragged groups) and V3's 128;
+    v a tensor of its own and a view of k (dQ then reads V from its K
+    tiles)."""
+    q, k, v = _mla(dev, 2, sq, skv, h, dtype, view=view)
+    _mla_bwd_against_plain(q, k, v, dtype, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_backward_is_deterministic(dev, dtype):
+    """Two backward calls at V3's training shape (1, 2048, 128), v a view
+    of k, are bitwise equal (no atomics: the head groups' partial dK / dV
+    are summed in order); a strided q (every other head of a wider
+    tensor) is read at its own strides."""
+    q, k, v = _mla(dev, 1, 2048, 2048, 128, dtype, view=True)
+    kw = dict(causal=True, scale=MLA_SCALE)
+    out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    do = torch.randn(out.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(5)).to(dtype)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    second = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    qw, _, _ = _mla(dev, 2, 300, 1, 6, dtype, seed=1)
+    _, k, v = _mla(dev, 2, 300, 333, 3, dtype, view=True)
+    _mla_bwd_against_plain(qw[:, :, ::2], k, v, dtype, 33)
+
+
 def test_mla_under_grad_raises(dev):
-    """The backward at the MLA layout is not ported: a CUDA call that
-    would need a gradient raises NotImplementedError naming it, through
-    ops.attention, the raw forward and the backward wrapper, and never
-    hands back an output without a gradient; under no_grad it runs."""
-    q, k, v = _mla(dev, 1, 2048, 2048, 2, torch.bfloat16)
+    """The MLA layout under grad: `ops.attention` returns an output with a
+    grad_fn whose backward launches the MLA backward kernel once (and no
+    other backward), its gradients within TOL of autograd of the plain
+    twin; the raw forward still raises rather than hand back an output
+    without a gradient; under no_grad nothing is saved."""
+    q, k, _ = _mla(dev, 1, 2048, 2048, 2, torch.bfloat16)
     q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="A11.3b"):
-        ops.attention(q, k, v, scale=MLA_SCALE)
-    with pytest.raises(NotImplementedError, match="A11.3b"):
+    k.requires_grad_()
+    v = k[..., :512]
+    out = ops.attention(q, k, v, scale=MLA_SCALE)
+    assert out.grad_fn is not None
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.launches_mla)
+    do = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(3),
+                     device=dev).to(out.dtype)
+    got = torch.autograd.grad(out, (q, k), do)
+    assert (fa.flash_attention_bwd.launches - before[0],
+            fa.flash_attention_bwd.launches_mla - before[1]) == (0, 1)
+    want = torch.autograd.grad(fa.flash_attention_plain(
+        q, k, v, scale=MLA_SCALE), (q, k), do)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= TOL[
+            torch.bfloat16] * max(b.float().abs().max().item(), 1.0)
+    with pytest.raises(RuntimeError, match="requires grad"):
         fa.flash_attention_fwd(q, k, v)
     with torch.no_grad():
-        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True)
         assert ops.attention(q, k, v).grad_fn is None
-    with pytest.raises(NotImplementedError, match="A11.3b"):
-        fa.flash_attention_bwd(q.detach(), k, v, out, out, lse)
 
 
 def _mla_config():

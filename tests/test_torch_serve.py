@@ -138,14 +138,11 @@ def test_serve_main_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("arch,missing", [
-    # DeepSeek-V3 builds (MLA is ported); what it lacks is its MTP loss
-    pytest.param("deepseek-v3-671b", "the MTP head",
-                 id="deepseek-v3-671b-MLA attention, the MTP head"),
     ("whisper-small", "the encoder-decoder")])
 def test_build_refuses_the_families_not_ported(arch, missing):
     """Whisper is not ported: `build` raises and names what is missing.
-    DeepSeek-V3 builds and serves, and its loss raises naming the MTP
-    head; the ported families build, the Hymba hybrid among them."""
+    The ported families build, the Hymba hybrid and DeepSeek-V3 (which
+    also trains, its MTP loss included) among them."""
     for reduced in (False, True):
         cfg = tconfigs.get(arch, reduced=reduced)
         with pytest.raises(NotImplementedError, match=missing):

@@ -275,17 +275,13 @@ def test_train_main_needs_a_gpu_without_device_cpu(tmp_path):
 
 
 def test_build_trainer_refuses_non_dense_on_cuda():
-    """A family whose training the port lacks (DeepSeek-V3: it builds and
-    serves, but its MTP loss is not ported) is refused on cuda; RWKV6 and
-    the Hymba hybrid are not, since they train through the wkv6 and
-    selective-scan kernels: on a machine without CUDA each gets as far as
-    the device, and there it raises RuntimeError, not
-    NotImplementedError."""
-    with pytest.raises(NotImplementedError, match="MTP head.*not ported"):
-        train.build_trainer(configs.get("deepseek-v3-671b", reduced=True),
-                            device="cuda")
+    """No family the port builds is refused: RWKV6, the Hymba hybrid and
+    DeepSeek-V3 (its MTP loss included) train through the wkv6, the
+    selective-scan and the MLA-layout flash kernels, so on a machine
+    without CUDA each gets as far as the device, and there it raises
+    RuntimeError, not NotImplementedError."""
     if not torch.cuda.is_available():
-        for arch in ("rwkv6-3b", "hymba-1.5b"):
+        for arch in ("rwkv6-3b", "hymba-1.5b", "deepseek-v3-671b"):
             with pytest.raises(RuntimeError) as err:
                 train.build_trainer(configs.get(arch, reduced=True),
                                     device="cuda")
