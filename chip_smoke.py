@@ -33,7 +33,11 @@ Phases, each fatal on failure:
      SIMT kernel); the flash backward at the MLA layout over the same
      cases and MLA_BWD_EXTRA (20 heads: ragged head groups) in fp32 and
      bf16, dq, dk and dv against autograd of the plain twin within the
-     backward's bars, one launch of its own a call, two calls bitwise
+     backward's bars, and where v is a view of k the fused form (dq and
+     k's whole gradient dk + [dv, 0], as `FlashAttention` asks for it)
+     within the same bars, one launch of its own a call, the kernels that
+     ran printed (`fa.mla_bwd_kernel`: every bf16 case the wgmma kernels,
+     every fp32 case the SIMT kernels), two calls bitwise
      equal at V3's training shape (1, 2048, 128) and at a ragged fp32
      case, and `ops.attention` under grad at 2048 positions (v a view of
      k) giving an output whose backward launches it once, q's and k's
@@ -438,8 +442,8 @@ MLA_TRAIN_B4 = (BATCH, PROMPT, PROMPT, 128, 0, True)
 # The backward's ragged head groups (it sums dK / dV over groups of 16
 # heads): 20 heads, a group of 16 and one of 4, as MLA_CASES' tuples
 MLA_BWD_EXTRA = [(2, 129, 191, 20, 62, False), (1, 300, 333, 20, 33, True)]
-MLA_BWD_PARTS = ("flash_bwd_delta", "flash_bwd_mla_dkdv", "flash_bwd_mla_sum",
-                 "flash_bwd_mla_dq")
+MLA_BWD_PARTS = ("flash_bwd_delta", "flash_bwd_mla_dk_bf16",
+                 "flash_bwd_mla_sum", "flash_bwd_mla_dq_bf16")
 # DeepSeek-V3 trained at every published width (as V3_SERVE_LAYERS says),
 # batch 1 x 2048, its MTP head included, cut to what one 80 GB card holds
 # for fp32 masters with grads and AdamW's m and v (16 B a param): 2 layers
@@ -762,7 +766,7 @@ def ptxas_report(log: str) -> list:
         if m:
             mangled = m.group(1)
             name = re.search(
-                r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)I"
+                r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)[IE]"
                 r"|(?<=\d)(ssm_scan_[a-z_]*kernel)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
@@ -1082,34 +1086,54 @@ def mla_qkv(case, dtype, seed=0) -> tuple:
 
 def check_mla_backward(fa, case, dtype, q, k, v) -> float:
     """Phase 2 for the backward at the MLA layout at one case: one launch
-    of its own (and no other backward) a call; dq, dk and dv against
-    autograd of the plain twin on the same q, k, v (v's values, as a
-    tensor of its own) and dO, within TOL[dtype] of max(max |want|, 1), as
-    `check_backward` holds the other backwards.  Returns the worst
-    relative max error."""
+    of its own (and no other backward) a call, the kernels that ran
+    (`fa.mla_bwd_kernel`: SIMT for fp32, wgmma for bf16, reading V from
+    the K tiles where v is a view of k); dq, dk and dv against autograd of
+    the plain twin on the same q, k, v (v's values, as a tensor of its
+    own) and dO, within TOL[dtype] of max(max |want|, 1), as
+    `check_backward` holds the other backwards; where v is a view of k,
+    the fused call (`dv_into_dk`, as `FlashAttention` makes it) too: dq
+    and k's whole gradient against the twin's dq and dk + [dv, 0] within
+    the same bar, and no dv.  Returns the worst relative max error."""
     kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
     g = torch.Generator("cuda").manual_seed(7)
     do = torch.randn(*q.shape[:3], 512, generator=g, device="cuda").to(dtype)
+    kernel = fa.mla_bwd_kernel(q, k, v, do)
+    meant = ("simt" if dtype == torch.float32
+             else "wgmma_kv" if case[5] else "wgmma")
     out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
     before = (fa.flash_attention_bwd.launches,
               fa.flash_attention_bwd.launches_mla)
     got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    fused = (fa.flash_attention_bwd(q, k, v, out, do, lse, dv_into_dk=True,
+                                    **kw) if case[5] else None)
     launched = (fa.flash_attention_bwd.launches - before[0],
                 fa.flash_attention_bwd.launches_mla - before[1])
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     fa.flash_attention_plain(qr, kr, vr, **kw).backward(do)
     torch.cuda.synchronize()
     errs = [rel_err(a, b.grad, floor=1.0) for a, b in zip(got, (qr, kr, vr))]
-    ok = (launched == (0, 1) and all(torch.isfinite(t).all().item()
-                                     for t in got)
-          and max(errs) <= TOL[dtype])
+    fused_errs = []
+    if fused is not None:
+        whole = kr.grad.clone()
+        whole[..., :512] += vr.grad
+        fused_errs = [rel_err(fused[0], qr.grad, floor=1.0),
+                      rel_err(fused[1], whole, floor=1.0)]
+    ok = (launched == (0, 1 + (fused is not None)) and kernel == meant
+          and all(torch.isfinite(t).all().item() for t in got)
+          and (fused is None or (fused[2] is None and all(
+              torch.isfinite(t).all().item() for t in fused[:2])))
+          and max(errs + fused_errs) <= TOL[dtype])
     print(json.dumps({"mla_bwd_case": list(case), "dtype": str(dtype),
-                      "rel_max_err_dq_dk_dv": errs, "tol": TOL[dtype],
-                      "launches": launched, "ok": ok}), flush=True)
+                      "kernel": kernel, "rel_max_err_dq_dk_dv": errs,
+                      "fused_rel_max_err_dq_dk": fused_errs,
+                      "tol": TOL[dtype], "launches": launched, "ok": ok}),
+          flush=True)
     if not ok:
         fail(f"flash_attention_bwd at the MLA layout {case} {dtype}: errors "
-             f"{errs}, launches {launched}")
-    return max(errs)
+             f"{errs}, fused {fused_errs}, launches {launched}, kernel "
+             f"{kernel} (want {meant})")
+    return max(errs + fused_errs)
 
 
 def check_mla(fa, ref, ops) -> None:
@@ -1303,28 +1327,34 @@ def mla_bwd_bound(case) -> tuple[float, str]:
 
 def time_flash_mla_bwd(fa, ref, card) -> dict:
     """Phase 4a for the backward at the MLA layout, bf16 causal, v a view
-    of k, at V3's training shape MLA_TRAIN and at MLA_TRAIN_B4: the kernel
-    (its four launches) by CUDA events, against its plain twin (max abs
-    of dq, dk, dv, held to the backward's bar) and timed, beside SDPA's
-    backward given k and v expanded to 128 heads (forward and backward
-    less its forward; a yardstick the port never calls), with the bound and
-    the achieved TFLOP/s of the bound's five products; then each launch's
-    device time by profiler at MLA_TRAIN.  Returns {case: (ms, plain_ms,
-    sdpa_ms or None, bound_ms, bound_by, max abs err)}."""
+    of k, at V3's training shape MLA_TRAIN and at MLA_TRAIN_B4: the call as
+    the main path makes it (`FlashAttention` asks for k's whole gradient,
+    `dv_into_dk`: its four launches) by CUDA events, against its plain
+    twin's fused form (max abs of dq and dk + [dv, 0], held to the
+    backward's bar) and timed, beside SDPA's backward given k and v
+    expanded to 128 heads (forward and backward less its forward; a
+    yardstick the port never calls), with the bound and the achieved
+    TFLOP/s of the bound's five products; at MLA_TRAIN also the call that
+    returns dk and dv apart (five launches), and each launch's device time
+    by profiler.  Returns {case: (ms, plain_ms, sdpa_ms or None, bound_ms,
+    bound_by, max abs err)}."""
     out_rows = {}
     for case, iters in ((MLA_TRAIN, 5), (MLA_TRAIN_B4, 3)):
         q, k, v = mla_qkv(case, torch.bfloat16)
-        kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE)
+        kw = dict(causal=True, q_offset=case[4], scale=MLA_SCALE,
+                  dv_into_dk=True)
         do = torch.randn(*q.shape[:3], 512, device="cuda",
                          generator=torch.Generator("cuda").manual_seed(7)
                          ).bfloat16()
-        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True,
+                                          causal=True, q_offset=case[4],
+                                          scale=MLA_SCALE)
         args = (q, k, v, out, do, lse)
         got = fa.flash_attention_bwd(*args, **kw)
         want = ref.flash_attention_bwd_plain(*args, min(512, case[2]), **kw)
         err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(got, want))
-        rel = max(rel_err(a, b, floor=1.0) for a, b in zip(got, want))
+                  for a, b in zip(got[:2], want[:2]))
+        rel = max(rel_err(a, b, floor=1.0) for a, b in zip(got[:2], want[:2]))
         del got, want
         if rel > TOL[torch.bfloat16]:
             fail(f"flash_attention_bwd at the MLA layout {case}: {rel}")
@@ -1332,6 +1362,12 @@ def time_flash_mla_bwd(fa, ref, card) -> dict:
                      warmup=1)
         plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
             *args, min(512, case[2]), **kw), 2, warmup=1)
+        apart = ""
+        if case == MLA_TRAIN:
+            kw_apart = {**kw, "dv_into_dk": False}
+            apart_ms = time_ms(lambda: fa.flash_attention_bwd(
+                *args, **kw_apart), iters, warmup=1)
+            apart = f", dk and dv apart (five launches) {apart_ms:.4f} ms"
         b, sq, skv, h, q_offset, _ = case
         qt = q.transpose(1, 2).detach().requires_grad_()
         kb = k.detach().requires_grad_()
@@ -1355,7 +1391,7 @@ def time_flash_mla_bwd(fa, ref, card) -> dict:
         print(f"flash_attention_bwd at the MLA layout {case[:4]} (576 / 512, "
               f"v a view of k) bf16 causal: kernel {ms:.4f} ms "
               f"({tflop * 1e3 / ms:.1f} TFLOP/s of the bound's {tflop:.3f} "
-              f"TFLOP), plain {plain_ms:.4f} ms, {how}, bound "
+              f"TFLOP){apart}, plain {plain_ms:.4f} ms, {how}, bound "
               f"{bound_ms:.4f} ms ({bound_by}); kernel vs plain max abs err "
               f"{err:.3e}, relative {rel:.3e} [{card}]", flush=True)
         if case == MLA_TRAIN:
@@ -4153,9 +4189,10 @@ def main() -> int:
         "plain_ms": hymba_bwd[1], "bound_ms": hymba_bwd[3],
         "bound_by": hymba_bwd[4], "library_ms": hymba_bwd[2]}, {
         # the same wrapper and source at DeepSeek-V3's MLA layout (its own
-        # SIMT kernels, dK and dV summed over the heads): V3's training at
-        # MLA_TRAIN; the library time is SDPA's backward with k and v
-        # expanded to 128 heads
+        # wgmma kernels in bf16, dK and dV summed over the heads and dV
+        # into dK, as the main path calls it): V3's training at MLA_TRAIN;
+        # the library time is SDPA's backward with k and v expanded to 128
+        # heads
         "name": "flash_attention_bwd_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/ref.py:106 (the jnp VJP of "

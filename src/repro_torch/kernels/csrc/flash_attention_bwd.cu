@@ -132,17 +132,85 @@
 // (B, Sq, H, 576) over one k head (B, Skv, 1, 576) and one v head (B, Skv,
 // 1, 512) shared by all of q's heads, o and dO (B, Sq, H, 512).  The same
 // function, with dK and dV summed over the heads (the plain twin's
-// `flash_attention_bwd_plain` sums a shared head likewise).  Bound at V3's
-// training shape (B, 2048, 128, 576 / 512), causal: five products over
-// 2,098,176 visible pairs a head and sequence, S 576 + dP 512 + dQ 576 +
-// dK 576 + dV 512 = 2752 multiply-adds a pair, B x 1.478 TFLOP: 1.494 ms
-// at B = 1 on the bf16 tensor cores; q, o, dO read and dq written are ~1.1
-// GB a sequence (0.34 ms), so operations bound it.  This first design is
-// SIMT (fp32 arithmetic on the FMA units, fp32 or bf16 in and out): simple
-// and right, not fast; its tensor-core redesign, on the forward's layout,
-// is later work.  Four launches, no atomics, so two calls are bitwise
-// equal:
+// `flash_attention_bwd_plain` sums a shared head likewise).  Where v is k's
+// first 512 features (`shared_kv`, as `mla_attention` passes k_eff[...,
+// :512]) the caller may ask for k's whole gradient, dK + [dV, 0]
+// (`dv_into_dk`), which autograd would form anyway; `FlashAttention` does.
+// Bound at V3's training shape (B, 2048, 128, 576 / 512), causal: five
+// products over 2,098,176 visible pairs a head and sequence, S 576 + dP
+// 512 + dQ 576 + dK 576 + dV 512 = 2752 multiply-adds a pair, B x 1.478
+// TFLOP: 1.494 ms at B = 1 on the bf16 tensor cores; q, o, dO read and dq
+// written are ~1.1 GB a sequence (0.34 ms), so operations bound it.  Four
+// launches (five where dV is wanted apart in bf16), no atomics, so two
+// calls are bitwise equal:
 //  1. delta = rowsum(dO * o): the kernel above at 512 features.
+//  2. Partial dK (and dV) of a key tile over one head group, to fp32
+//     scratch (B, ceil(H / 16), Skv, width).
+//  3. flash_bwd_mla_sum: the groups' partials summed in order, stored in T
+//     (with dv_into_dk, dK + [dV, 0] into dk alone).
+//  4. dQ.
+//
+// bf16 (flash_bwd_mla_dk_bf16, flash_bwd_mla_dq_bf16): TMA, mbarriers and
+// wgmma, two warpgroups and no producer (256 threads), one block an SM.
+// Both kernels have one shape: a resident operand of 64 rows (the dK
+// kernel's 64 keys; the dQ kernel's 64 rows (position, head), as the
+// forward lays them out) and a streamed one of 32 rows a step (a step's
+// rows (position, head); a tile's keys), in 128-byte-swizzled boxes of 64
+// features.  Per step warpgroup 0 computes S^T = K Q^T (dK) or S = Q K^T
+// (dQ), 36 k steps of m64n32k16 (SS), and warpgroup 1 dP^T = V dO^T or
+// dP = dO V^T, 32 k steps, at once; warpgroup 0 turns S into P (exp2 of
+// S scale log2(e) - lse2, 0 outside the mask) and hands it to warpgroup 1
+// in fp32 (8 KB), which forms dS = P (dP - delta) and hands back its bf16
+// A fragments (4 KB), behind named barriers 1 and 2; then each warpgroup
+// adds its share of the register-operand products (RS, m64n256k16 and
+// m64n64k16), the streamed operand read MN-major: warpgroup 0 column
+// boxes [0, 4) (256 columns, 128 fp32 a thread), warpgroup 1 boxes [4, 9)
+// (320 columns, 160).  The 256 | 320 split, not 288 | 288, balances the
+// dK kernel's work once its P^T dO half is counted (S^T 576 + 256 + 256
+// against dP^T 512 + 320 + 256 multiply-adds a pair), keeps every
+// operand box-aligned and needs only the n256 and n64 shapes.  P, dS and
+// their transposes are rounded to bf16 for the products that take them,
+// as in the dense bf16 backward.
+//  * dK (kFused): a block owns a 64-key tile (K, 72 KB, resident; V its
+//    first 8 boxes) and one group of hg = min(16, H rounded up to a power
+//    of 2) heads, and walks the group's rows that see the tile (q_range)
+//    in steps of 32 rows, 32 / hg positions x hg heads (one TMA box over
+//    (576, H, Sq, B) a step and 64-feature column: no gather), from the
+//    top position down and aligned to multiples of 32 / hg positions, so
+//    the resident blocks of a head group read the same Q and dO rows at
+//    about the same time (at batch 1 the rows a call streams total 9.4 GB,
+//    ~2.8 ms from HBM alone).  Q (36 KB) and dO (32 KB) of a step stream
+//    through 2 stages with their rows' lse2 and delta (a row outside the
+//    walk or past H gets lse2 = +inf: P = 0 without a mask), the last of
+//    the 8 warps to release a stage refilling it: 226.9 KB of shared
+//    memory.  The fp32 dK and dV of 64 keys would be 272 KB, more than the
+//    register file, so the block accumulates their sum, dS^T Q over all
+//    576 columns plus P^T dO into the first 512 (one 64 x 576
+//    accumulator, split as above), the gradient autograd forms for k_eff;
+//    dS^T is scaled before its rounding.  A head group keeps 256 blocks at
+//    (1, 2048, 128) for 132 SMs, and the causal walks, 32x apart in length,
+//    run longest first.  Where dV is wanted apart, or v is a tensor of its
+//    own, the same kernel runs a dK pass (kDK) and a dV pass (kDV: S^T
+//    and P^T alone) into a 1088-wide scratch; with a separate v one stage
+//    and a 64 KB V tile.
+//  * dQ: a block owns 64 rows (position, head), heaviest first; Q (72 KB)
+//    and dO (64 KB) are resident and 32-key K tiles (36 KB) stream through
+//    2 stages (V the K stage's first 8 boxes; a separate v: one stage of
+//    K and V), 226.3 KB.  Of the two layouts that fit, one 64-key stage or
+//    two 32-key stages, it takes the second: a single stage is read to the
+//    end of each tile (S, dP and dS K), so its refill could not overlap
+//    any product (these kernels with one 32-key stage took dQ 1.86 ->
+//    2.53 ms and dK 2.53 -> 3.52 at (1, 2048, 128) on an H100:
+//    tools/mla_bwd_ablation.py's one_stage).  dQ is 64 x 576 fp32, split
+//    as above, stored once, times scale.
+//  Registers (ptxas, sm_90a): dK 216 (kFused and the passes with V from
+//  K; 226 with a separate V), dQ 216-217, 0 spilled, no C75xx.  Products:
+//  dK 2176 and dQ 1664 multiply-adds a pair, 3840 against the bound's
+//  2752.  At (1, 2048, 128) causal the fused call took 4.65 ms on an H100
+//  (dK 2.52, dQ 1.85, delta 0.18, sum 0.01 ms; PERF.md), 3.1x its bound.
+//
+// fp32 (SIMT: the tensor cores would round to tf32): fp32 arithmetic on
+// the FMA units.
 //  2. Partial dK / dV (flash_bwd_mla_dkdv): the fp32 dK and dV of a 16-key
 //     tile take 16 x 1088 x 4 = 69.6 KB, of 64 keys 278.5 KB, more than an
 //     SM's register file; so a block owns 16 keys and one group of 16
@@ -150,29 +218,23 @@
 //     256 threads: a key's 16 lanes hold its k, v, dk and dv at float4
 //     chunks t + 16 c (136 fp32 registers a thread), and the block walks
 //     the rows (position, head) of its group that see a key of the tile
-//     (q_range), 16 rows a stage, q and dO staged raw (T) through two
-//     cp.async stages (139.5 KB in fp32, 69.9 KB in bf16) with their lse
-//     and delta.  Per row: the 16 lanes' partial S and dP summed by
-//     shuffles, p = exp(s scale - lse) and ds = p (dP - delta) scale, then
-//     dK += ds q and dV += p dO from the staged row, read again (holding
-//     it beside the key's registers spilled).  Each lane's q
-//     read serves the two keys of its warp.  The block writes its fp32
-//     partials to scratch (B, ceil(H / 16), Skv, 1088).
-//  3. dK / dV (flash_bwd_mla_sum): the head groups' partials summed in
-//     order, stored in T.
+//     (q_range), 16 rows a stage, q and dO staged raw through two cp.async
+//     stages (139.5 KB) with their lse and delta.  Per row: the 16 lanes'
+//     partial S and dP summed by shuffles, p = exp(s scale - lse) and ds =
+//     p (dP - delta) scale, then dK += ds q and dV += p dO from the staged
+//     row, read again (holding it beside the key's registers spilled).
+//     Each lane's q read serves the two keys of its warp.  The block writes
+//     its fp32 partials to scratch (B, ceil(H / 16), Skv, 1088).
 //  4. dQ (flash_bwd_mla_dq): 16 rows a block, heads as rows as the forward
 //     lays them out (at H = 128 a block is 16 heads of one position),
 //     heaviest first; a row's 16 lanes hold its q, dO and dq (104 fp32
 //     registers) and walk 16-key tiles of K and V over the forward's
 //     kv_range through two cp.async stages; where v is k's first 512
-//     features (`shared_kv`, as `mla_attention` passes it) V is read from
-//     the K tile and not loaded.  One staged tile serves the 16 rows.
-//  S and dP are computed in both 2 and 4: 3840 multiply-adds a pair, ~2.06
-//  TFLOP at (1, 2048, 128), where the call takes ~143 ms on an H100 (dK /
-//  dV ~91, dQ ~52; PERF.md), far below the FMA units' rate (the bf16
-//  unpacking and the rows' second read are reckoned to bound it; not
-//  measured).  A row that sees no key gets dq = 0 and adds nothing to dK
-//  and dV, as above.
+//     features V is read from the K tile and not loaded.
+//  S and dP are computed in both 2 and 4.  At (1, 2048, 128) in bf16 the
+//  SIMT design (then run for bf16 too) took ~143 ms on an H100 (PERF.md).
+//  A row that sees no key gets dq = 0 and adds nothing to dK and dV, as
+//  above.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1204,7 +1266,8 @@ int launch(const Params& p, int dtype, int B, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // The MLA layout: q (B, Sq, H, 576) over one k head (B, Skv, 1, 576) and one
-// v head (B, Skv, 1, 512) shared by q's heads; SIMT, fp32 arithmetic
+// v head (B, Skv, 1, 512) shared by q's heads; SIMT for fp32 (the kernels
+// are instantiated for fp32 alone: bf16 runs the wgmma kernels below)
 // ---------------------------------------------------------------------------
 
 namespace mla {
@@ -1217,12 +1280,11 @@ constexpr int kCV = kDV / 4 / kTPR;     // 8
 constexpr int kHG = 16;                 // heads a dK / dV block walks
 constexpr int kPart = kDK + kDV;        // floats of a key's partial dK, dV
 
-// A stage in shared memory: kRows rows of 576 elements (q or K), kRows of
+// A stage in shared memory: kRows rows of 576 floats (q or K), kRows of
 // 512 (dO or V), then kRows lse and kRows delta (dK / dV only).
-template <typename T>
 struct Stage {
-  static constexpr int kB = kRows * kDK;  // elements before the 512 rows
-  static constexpr int kF = kRows * (kDK + kDV) * sizeof(T);  // bytes
+  static constexpr int kB = kRows * kDK;  // floats before the 512 rows
+  static constexpr int kF = kRows * (kDK + kDV) * 4;  // bytes
   static constexpr int kBytes = kF + 2 * kRows * 4;
 };
 }  // namespace mla
@@ -1273,7 +1335,6 @@ __device__ __forceinline__ float4 axpy4(float s, float4 x, float4 y) {
 // + 16 c (136 fp32 registers) and walks the rows (position, head) of the
 // group that see a key of the tile, kRows at a time through two cp.async
 // stages.  Writes fp32 partials (B, n_hg, Skv, 1088): dK, then dV.
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_mla_dkdv(const Params p, int n_hg, int B, float* part) {
   using namespace mla;
@@ -1282,16 +1343,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hg = (blockIdx.x / B) % n_hg, b = blockIdx.x % B;
   const int k0 = kt * kRows, jj = threadIdx.x / kTPR, t = threadIdx.x % kTPR;
   const int j = k0 + jj, h0 = hg * kHG, nh = min(kHG, p.H - h0);
-  const T* Q = static_cast<const T*>(p.q) + b * p.sq.b;
-  const T* dO = static_cast<const T*>(p.dout) + b * p.sdo.b;
+  const float* Q = static_cast<const float*>(p.q) + b * p.sq.b;
+  const float* dO = static_cast<const float*>(p.dout) + b * p.sdo.b;
   const float* L = p.lse + static_cast<long long>(b) * p.H * p.Sq;
   const float* D = p.delta + static_cast<long long>(b) * p.H * p.Sq;
 
   float4 k[kCK], v[kCV], dk[kCK], dv[kCV];
   {
     const bool key = j < p.Skv;
-    const T* K = static_cast<const T*>(p.k) + b * p.sk.b + j * p.sk.s;
-    const T* V = static_cast<const T*>(p.v) + b * p.sv.b + j * p.sv.s;
+    const float* K = static_cast<const float*>(p.k) + b * p.sk.b + j * p.sk.s;
+    const float* V = static_cast<const float*>(p.v) + b * p.sv.b + j * p.sv.s;
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int c = 0; c < kCK; ++c) {
@@ -1309,18 +1370,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   flash::q_range(p.Sq, p.causal, p.window, p.q_offset, k0, kRows, qlo, qhi);
   const int n_rows = max(0, qhi - qlo) * nh;  // (position, head) rows
   const int n_chunks = (n_rows + kRows - 1) / kRows;
-  auto stage = [&](int s) { return smem + s * Stage<T>::kBytes; };
+  auto stage = [&](int s) { return smem + s * Stage::kBytes; };
   auto issue = [&](int n) {
     unsigned char* st = stage(n & 1);
-    T* sq = reinterpret_cast<T*>(st);
-    float* sl = reinterpret_cast<float*>(st + Stage<T>::kF);
+    float* sq = reinterpret_cast<float*>(st);
+    float* sl = reinterpret_cast<float*>(st + Stage::kF);
     const int r0 = n * kRows;
-    stage_rows<kDK>(sq, kRows, Q, [&](int r) -> const T* {
+    stage_rows<kDK>(sq, kRows, Q, [&](int r) -> const float* {
       const int m = r0 + r;
       return m < n_rows ? Q + (qlo + m / nh) * p.sq.s + (h0 + m % nh) * p.sq.h
                         : nullptr;
     });
-    stage_rows<kDV>(sq + Stage<T>::kB, kRows, dO, [&](int r) -> const T* {
+    stage_rows<kDV>(sq + Stage::kB, kRows, dO, [&](int r) -> const float* {
       const int m = r0 + r;
       return m < n_rows
                  ? dO + (qlo + m / nh) * p.sdo.s + (h0 + m % nh) * p.sdo.h
@@ -1343,13 +1404,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_wait_prior();  // chunk n has landed
     __syncthreads();
     const unsigned char* st = stage(n & 1);
-    const T* sq = reinterpret_cast<const T*>(st) + 4 * t;
-    const T* so = sq + Stage<T>::kB;
-    const float* sl = reinterpret_cast<const float*>(st + Stage<T>::kF);
+    const float* sq = reinterpret_cast<const float*>(st) + 4 * t;
+    const float* so = sq + Stage::kB;
+    const float* sl = reinterpret_cast<const float*>(st + Stage::kF);
     const int r0 = n * kRows;
     for (int r = 0; r < min(kRows, n_rows - r0); ++r) {
-      const T* qr = sq + r * kDK;
-      const T* orow = so + r * kDV;
+      const float* qr = sq + r * kDK;
+      const float* orow = so + r * kDV;
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int c = 0; c < kCK; ++c)
@@ -1389,22 +1450,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// 3m. dK and dV: the head groups' partials summed in order, one block per
-// key, a thread per four features, stored in T.
+// 3m. dK and dV: the head groups' partials (B, n_hg, Skv, width) summed in
+// order, one block per key, a thread per four features, stored in T.
+// width 1088 holds dK then dV (the SIMT kernel's and the wgmma dK and dV
+// passes'); 576 holds their sum, dK + [dV, 0] (the fused wgmma kernel's).
+// dv_into_dk stores dK + [dV, 0] into dk alone (summing the two halves of
+// a 1088-wide partial, dK's groups first), else dK and dV apart.
 constexpr int kSumThreads = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-    flash_bwd_mla_sum(const Params p, const float* part, int n_hg) {
+    flash_bwd_mla_sum(const Params p, const float* part, int n_hg, int width,
+                      int dv_into_dk) {
   using namespace mla;
   const int j = blockIdx.x % p.Skv, b = blockIdx.x / p.Skv;
-  for (int f = 4 * threadIdx.x; f < kPart; f += 4 * kSumThreads) {
+  const float* row = part + (static_cast<long long>(b) * n_hg * p.Skv + j) *
+                                width;
+  const long long group = static_cast<long long>(p.Skv) * width;
+  const int n_out = dv_into_dk || width == kDK ? kDK : kPart;
+  for (int f = 4 * threadIdx.x; f < n_out; f += 4 * kSumThreads) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int g = 0; g < n_hg; ++g) {
-      const float4 x = *reinterpret_cast<const float4*>(
-          part + ((static_cast<long long>(b) * n_hg + g) * p.Skv + j) * kPart +
-          f);
+      const float4 x = *reinterpret_cast<const float4*>(row + g * group + f);
       acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
+    }
+    if (dv_into_dk && width == kPart && f < kDV) {
+      float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int g = 0; g < n_hg; ++g) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(row + g * group + kDK + f);
+        dv = make_float4(dv.x + x.x, dv.y + x.y, dv.z + x.z, dv.w + x.w);
+      }
+      acc = make_float4(acc.x + dv.x, acc.y + dv.y, acc.z + dv.z,
+                        acc.w + dv.w);
     }
     T* out = f < kDK ? static_cast<T*>(p.dk) + b * p.sdk.b + j * p.sdk.s + f
                      : static_cast<T*>(p.dv) + b * p.sdv.b + j * p.sdv.s + f -
@@ -1418,10 +1496,7 @@ __global__ void __launch_bounds__(kSumThreads)
 // chunks t + 16 c (104 fp32 registers) and walks the key tiles of the
 // causal kv_range, kRows keys at a time through two cp.async stages (K,
 // and V unless `shared_kv`: v is k's first 512 features, read from the K
-// tile).  Tiles stay in T: a warp's LDS.64 of bf16 takes half the
-// shared-memory wavefronts of an LDS.128 of fp32, so widening each tile to
-// fp32 once, to spare the per-row unpacking, made dQ slower.
-template <typename T>
+// tile).
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_mla_dq(const Params p, int n_rt, int B, int shared_kv) {
   using namespace mla;
@@ -1433,14 +1508,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool exists = row < n_rows;
   const int qi = exists ? row / p.H : 0, h = exists ? row % p.H : 0;
   const long long bh = static_cast<long long>(b) * p.H + h;
-  const T* K = static_cast<const T*>(p.k) + b * p.sk.b;
-  const T* V = static_cast<const T*>(p.v) + b * p.sv.b;
+  const float* K = static_cast<const float*>(p.k) + b * p.sk.b;
+  const float* V = static_cast<const float*>(p.v) + b * p.sv.b;
 
   float4 q[kCK], o[kCV], dq[kCK];
   {
-    const T* Q = static_cast<const T*>(p.q) + b * p.sq.b + qi * p.sq.s +
+    const float* Q = static_cast<const float*>(p.q) + b * p.sq.b + qi * p.sq.s +
                  h * p.sq.h;
-    const T* dO = static_cast<const T*>(p.dout) + b * p.sdo.b +
+    const float* dO = static_cast<const float*>(p.dout) + b * p.sdo.b +
                   qi * p.sdo.s + h * p.sdo.h;
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -1461,16 +1536,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, i_first,
                   i_last - i_first + 1, kRows, lo, hi);
   auto stage = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * Stage<T>::kBytes);
+    return reinterpret_cast<float*>(smem + s * Stage::kBytes);
   };
   auto issue = [&](int kt) {
-    T* sk = stage((kt - lo) & 1);
+    float* sk = stage((kt - lo) & 1);
     const int k0 = kt * kRows;
-    stage_rows<kDK>(sk, kRows, K, [&](int r) -> const T* {
+    stage_rows<kDK>(sk, kRows, K, [&](int r) -> const float* {
       return k0 + r < p.Skv ? K + (k0 + r) * p.sk.s : nullptr;
     });
     if (!shared_kv)
-      stage_rows<kDV>(sk + Stage<T>::kB, kRows, V, [&](int r) -> const T* {
+      stage_rows<kDV>(sk + Stage::kB, kRows, V, [&](int r) -> const float* {
         return k0 + r < p.Skv ? V + (k0 + r) * p.sv.s : nullptr;
       });
   };
@@ -1482,8 +1557,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_commit();
     cp_wait_prior();  // tile kt has landed
     __syncthreads();
-    const T* sk = stage((kt - lo) & 1) + 4 * t;
-    const T* sv = shared_kv ? sk : sk + Stage<T>::kB;
+    const float* sk = stage((kt - lo) & 1) + 4 * t;
+    const float* sv = shared_kv ? sk : sk + Stage::kB;
     const int vstride = shared_kv ? kDK : kDV;
     for (int jj = 0; jj < kRows; ++jj) {
       float4 kc[kCK];
@@ -1509,17 +1584,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // the stage is read before tile kt + 2 refills it
   }
   if (exists) {
-    T* out = static_cast<T*>(p.dq) + b * p.sdq.b + qi * p.sdq.s + h * p.sdq.h;
+    float* out = static_cast<float*>(p.dq) + b * p.sdq.b + qi * p.sdq.s + h * p.sdq.h;
 #pragma unroll
     for (int c = 0; c < kCK; ++c) flash::store4(out + 4 * (t + kTPR * c), dq[c]);
   }
 }
 
-// delta (the dense path's kernel at 512 features), dK / dV partials, their
-// sum, dQ.
-template <typename T>
-int launch_mla(const Params& p, float* part, int shared_kv, int B,
-               cudaStream_t stream) {
+// The fp32 path: delta (the dense path's kernel at 512 features), dK / dV
+// partials, their sum, dQ.
+int launch_mla_simt(const Params& p, float* part, int shared_kv,
+                    int dv_into_dk, int B, cudaStream_t stream) {
   using namespace mla;
   const long long n_rows = static_cast<long long>(p.Sq) * p.H;
   const long long n_rt = (n_rows + kRows - 1) / kRows;
@@ -1529,28 +1603,720 @@ int launch_mla(const Params& p, float* part, int shared_kv, int B,
   if (n_rows > INT_MAX || n_rt * B > INT_MAX || n_kt * n_hg * B > INT_MAX ||
       sums > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
-  int err = launch_delta<kDV, T>(p, B, stream);
+  int err = launch_delta<kDV, float>(p, B, stream);
   if (err != 0) return err;
-  constexpr int smem = 2 * Stage<T>::kBytes;
+  constexpr int smem = 2 * Stage::kBytes;
   err = (int)cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&flash_bwd_mla_dkdv<T>),
+      reinterpret_cast<const void*>(&flash_bwd_mla_dkdv),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  flash_bwd_mla_dkdv<T><<<static_cast<unsigned>(n_kt * n_hg * B), kThreads,
-                          smem, stream>>>(p, n_hg, B, part);
+  flash_bwd_mla_dkdv<<<static_cast<unsigned>(n_kt * n_hg * B),
+                              kThreads, smem, stream>>>(p, n_hg, B, part);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  flash_bwd_mla_sum<T><<<static_cast<unsigned>(sums), kSumThreads, 0,
-                         stream>>>(p, part, n_hg);
+  flash_bwd_mla_sum<float><<<static_cast<unsigned>(sums), kSumThreads, 0,
+                             stream>>>(p, part, n_hg, kPart, dv_into_dk);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   err = (int)cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&flash_bwd_mla_dq<T>),
+      reinterpret_cast<const void*>(&flash_bwd_mla_dq),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  flash_bwd_mla_dq<T><<<static_cast<unsigned>(n_rt * B), kThreads, smem,
-                        stream>>>(p, static_cast<int>(n_rt), B, shared_kv);
+  flash_bwd_mla_dq<<<static_cast<unsigned>(n_rt * B), kThreads, smem,
+                            stream>>>(p, static_cast<int>(n_rt), B, shared_kv);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at the MLA layout: TMA + wgmma (see the header)
+// ---------------------------------------------------------------------------
+
+namespace mla_tc {
+constexpr int kThreads = 256;                  // two warpgroups, no producer
+constexpr int kWarps = kThreads / 32;
+constexpr int kBM = 64;   // resident rows: the keys (dK), the rows (dQ)
+constexpr int kBN = 32;   // streamed rows a step: rows (dK), keys (dQ)
+constexpr int kQKBoxes = mla::kDK / kBox;      // 9 64-column boxes
+constexpr int kVBoxes = mla::kDV / kBox;       // 8
+constexpr int kOwn = 4;   // warpgroup 0 owns column boxes [0, 4), 1 [4, 9)
+constexpr uint32_t kResBox = kBM * 128;        // a box of 64 rows: 8 KB
+constexpr uint32_t kStepBox = kBN * 128;       // of 32 rows: 4 KB
+constexpr uint32_t kResQK = kQKBoxes * kResBox;    // 72 KB
+constexpr uint32_t kResV = kVBoxes * kResBox;      // 64 KB
+constexpr uint32_t kStepQK = kQKBoxes * kStepBox;  // 36 KB
+constexpr uint32_t kStepV = kVBoxes * kStepBox;    // 32 KB
+constexpr uint32_t kXBytes = 16 * 128 * 4;  // P (fp32), 16 a thread
+constexpr uint32_t kYBytes = 8 * 128 * 4;   // dS's bf16 fragments, 8 a thread
+// the dK kernel's passes: dK + [dV, 0] in one accumulator, dK, dV
+enum Mode { kFused, kDK, kDV };
+}  // namespace mla_tc
+
+// dK: the layout in bytes from a 1024-byte-aligned base: the K tile, the V
+// tile (a separate v), the Q and dO stages, the P and dS exchange, the
+// stages' lse2 and delta, the mbarriers (K / V; Q + dO and the rows' lse2
+// and delta a stage) and a release counter a stage.
+template <bool kShared>
+struct MlaKvCfg {
+  static constexpr int kStages = kShared ? 2 : 1;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = mla_tc::kResQK;
+  static constexpr uint32_t kQ = kV + (kShared ? 0 : mla_tc::kResV);
+  static constexpr uint32_t kDO = kQ + kStages * mla_tc::kStepQK;
+  static constexpr uint32_t kX = kDO + kStages * mla_tc::kStepV;
+  static constexpr uint32_t kY = kX + mla_tc::kXBytes;
+  static constexpr uint32_t kL = kY + mla_tc::kYBytes;  // + st * kBN * 4
+  static constexpr uint32_t kD = kL + kStages * mla_tc::kBN * 4;
+  static constexpr uint32_t kKVFull = kD + kStages * mla_tc::kBN * 4;
+  static constexpr uint32_t kQFull = kKVFull + 8;       // + 8 st, as the rest
+  static constexpr uint32_t kLFull = kQFull + 8 * kStages;
+  static constexpr uint32_t kCount = kLFull + 8 * kStages;
+  static constexpr int kSmem = 1024 + kCount + 8 * kStages;  // + alignment
+};
+
+// dQ: Q, dO, the K stages, the V stage (a separate v), the exchange, the
+// mbarriers (Q + dO; a K stage, with its V) and a release counter a stage.
+template <bool kShared>
+struct MlaQCfg {
+  static constexpr int kStages = kShared ? 2 : 1;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = mla_tc::kResQK;
+  static constexpr uint32_t kK = kDO + mla_tc::kResV;  // + st * kStepQK
+  static constexpr uint32_t kV = kK + kStages * mla_tc::kStepQK;
+  static constexpr uint32_t kX = kV + (kShared ? 0 : mla_tc::kStepV);
+  static constexpr uint32_t kY = kX + mla_tc::kXBytes;
+  static constexpr uint32_t kQFull = kY + mla_tc::kYBytes;
+  static constexpr uint32_t kKFull = kQFull + 8;        // + 8 st
+  static constexpr uint32_t kCount = kKFull + 8 * kStages;
+  static constexpr int kSmem = 1024 + kCount + 8 * kStages;
+};
+
+// C (64 x 32) = A B^T over KS k steps of 16 (36: 576 features; 32: 512), A
+// 64 rows and B 32 rows K-major from 128-byte-swizzled tiles (boxes of
+// kResBox and kStepBox bytes).  Issued and committed, not waited for.  As
+// the forward's issue_qk_mla: each step's descriptors are the first ones
+// plus its offset, and the addresses pass through an opaque move (left to
+// itself, ptxas keeps a loop-invariant address's 36 descriptors live).
+template <int KS>
+__device__ __forceinline__ void issue_ss_mla(float (&c)[16], uint32_t a,
+                                             uint32_t b) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(a));
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(b));
+  const uint64_t da = sw128_desc(a, 16, 1024), db = sw128_desc(b, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_ss(c,
+             da + (((kk / 4) * mla_tc::kResBox + (kk % 4) * 32) >> 4),
+             db + (((kk / 4) * mla_tc::kStepBox + (kk % 4) * 32) >> 4),
+             kk > 0);
+  wgmma_commit();
+}
+
+// acc (64 x NF / 2) += A B: A the bf16 fragments of a 64 x 32 tile (two k
+// steps), B the column boxes from `b` of a 32-row tile read MN-major:
+// m64n256k16 (NF 128: four boxes) or m64n64k16 (NF 32: one).  Issued, not
+// committed.
+template <int NF>
+__device__ __forceinline__ void issue_rs_mla(float (&acc)[NF],
+                                             const uint32_t (&a)[2][4],
+                                             uint32_t b) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(b));
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_rs(acc, a[kk], sw128_desc(b + kk * 2048, mla_tc::kStepBox, 1024));
+}
+
+// The lse2 and delta of the dK step row that one lane stages: row `lane`
+// of the step from position pos0 is (position pos0 + lane / hg, head h0 +
+// lane % hg), hg = 2^hg_log2.  A row outside [qlo, qhi) or past H gets
+// lse2 = +inf and delta 0, so its P is 0 with no mask.
+__device__ __forceinline__ void fetch_mla_row(const Params& p, int b, int h0,
+                                              int hg_log2, int qlo, int qhi,
+                                              int pos0, float& l, float& d) {
+  const int lane = threadIdx.x % 32;
+  const int pos = pos0 + (lane >> hg_log2);
+  const int h = h0 + (lane & ((1 << hg_log2) - 1));
+  const bool exists = pos >= qlo && pos < qhi && h < p.H;
+  const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + pos;
+  l = exists ? p.lse[at] * kLog2e : INFINITY;
+  d = exists ? p.delta[at] : 0.f;
+}
+
+// dK step `it` (positions from pos0) into stage it % kStages, by one whole
+// warp: lane 0 issues the TMA loads of its Q and dO boxes (64 features x hg
+// heads x 32 / hg positions), every lane writes its row's lse2 and delta
+// (fetch_mla_row) and arrives on the stage's row barrier.
+template <bool kShared>
+__device__ __forceinline__ void load_step_mla(const CUtensorMap* tq,
+                                              const CUtensorMap* tdo,
+                                              uint8_t* smem, uint32_t base,
+                                              int it, int pos0, int h0, int b,
+                                              float l, float d) {
+  using C = MlaKvCfg<kShared>;
+  using namespace mla_tc;
+  const int st = it % C::kStages, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    const uint32_t full = base + C::kQFull + 8 * st;
+    mbar_expect_tx(full, kStepQK + kStepV);
+    for (int c = 0; c < kQKBoxes; ++c)
+      tma_load(base + C::kQ + st * kStepQK + c * kStepBox, tq, full, c * kBox,
+               h0, pos0, b);
+    for (int c = 0; c < kVBoxes; ++c)
+      tma_load(base + C::kDO + st * kStepV + c * kStepBox, tdo, full,
+               c * kBox, h0, pos0, b);
+  }
+  reinterpret_cast<float*>(smem + C::kL)[st * kBN + lane] = l;
+  reinterpret_cast<float*>(smem + C::kD)[st * kBN + lane] = d;
+  mbar_arrive(base + C::kLFull + 8 * st);
+}
+
+// One thread's two rows (row0, row0 + 8) of an fp32 accumulator tile (64 x
+// NF / 2) into rows of `out` (row stride `width` floats) from column col0,
+// the rows below `limit`.
+template <int NF>
+__device__ __forceinline__ void store_part(float* out, int width, int row0,
+                                           int limit, int col0,
+                                           const float (&acc)[NF]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= limit) continue;
+    float* o = out + static_cast<long long>(row0 + 8 * r) * width + col0 +
+               2 * t;
+#pragma unroll
+    for (int j = 0; j < NF / 4; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// Warpgroup WG of a dK block (keys [k0, k0 + 64) of batch b, the heads
+// [h0, h0 + hg) of one group): both warpgroups hold all 64 keys, a thread
+// keys key0 and key0 + 8 of every accumulator tile, whose 32 columns are a
+// step's rows.  Per step (positions walked from the top down): warpgroup
+// 0 issues S^T = K Q^T, warpgroup 1 dP^T = V dO^T (not in the dV pass);
+// warpgroup 0 turns S^T into P^T (lse2 of each column from the stage, 0
+// outside each key's visible rows) and hands it over in fp32, warpgroup 1
+// forms dS^T = P^T (dP^T - delta) scale and hands back its bf16
+// fragments (named barriers 1 and 2); then each adds its column boxes'
+// share of dS^T Q and (kFused, kDV) P^T dO, Q and dO read MN-major from
+// the stage.  The last warp to release the stage refills it.  The block's
+// fp32 sums go to `out` (its group's partials, `width` floats a key; the
+// dV pass from column 576).
+template <bool kShared, int kMode, int WG>
+__device__ __forceinline__ void consume_mla_kv(
+    const Params& p, const CUtensorMap* tq, const CUtensorMap* tdo,
+    uint8_t* smem, uint32_t base, int k0, int b, int h0, int hg_log2,
+    int qlo, int qhi, int top, int n_steps, float* out, int width) {
+  using C = MlaKvCfg<kShared>;
+  using namespace mla_tc;
+  constexpr bool kDS = kMode != kDV;   // dS^T Q
+  constexpr bool kPdO = kMode != kDK;  // P^T dO
+  constexpr bool kBox8 = WG == 1 && kDS;  // column box 8 (dS^T Q only)
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4;
+  const int npos = kBN >> hg_log2;
+  const int key0 = k0 + 16 * (tid / 32) + lane / 4;
+  const float scale_log2 = p.scale * kLog2e;
+  float* xch = reinterpret_cast<float*>(smem + C::kX) + tid;
+  uint32_t* ych = reinterpret_cast<uint32_t*>(smem + C::kY) + tid;
+  const uint32_t k_tile = base + C::kK;
+  const uint32_t v_tile = base + (kShared ? C::kK : C::kV);
+  const uint32_t own = WG * kOwn * kStepBox;  // the first owned box
+
+  float acc[128], acc8[32];
+  zero(acc);
+  if constexpr (kBox8) zero(acc8);
+  if (n_steps > 0) mbar_wait(base + C::kKVFull, 0);
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % C::kStages;
+    const uint32_t ph = (it / C::kStages) & 1;
+    const int pos0 = top - (it + 1) * npos;
+    const uint32_t q_st = base + C::kQ + st * kStepQK;
+    const uint32_t do_st = base + C::kDO + st * kStepV;
+    const bool refill = it + C::kStages < n_steps;
+    float nl = 0.f, nd = 0.f;  // step it + kStages's rows
+    if (refill)
+      fetch_mla_row(p, b, h0, hg_log2, qlo, qhi, pos0 - C::kStages * npos,
+                    nl, nd);
+    mbar_wait(base + C::kQFull + 8 * st, ph);
+    mbar_wait(base + C::kLFull + 8 * st, ph);
+    uint32_t pa[2][4], dsa[2][4];
+    if constexpr (WG == 0) {
+      float x[16];
+      issue_ss_mla<4 * kQKBoxes>(x, k_tile, q_st);  // S^T = K Q^T
+      // a pair of the step is masked: the causal diagonal, the window's
+      // edge (rows outside [qlo, qhi) have lse2 = +inf)
+      const bool masked =
+          (p.causal && pos0 + p.q_offset < k0 + kBM - 1) ||
+          (p.window > 0 && pos0 + npos - 1 + p.q_offset - k0 >= p.window);
+      const float* sl =
+          reinterpret_cast<const float*>(smem + C::kL) + st * kBN + 2 * t;
+      wgmma_wait<0>();
+      reg_fence(x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1, key = key0 + 8 * (e >> 1);
+          float y = exp2_approx(
+              fmaf(x[4 * j + e], scale_log2, -(c ? l2.y : l2.x)));
+          if (masked) {
+            const int qpos =
+                pos0 + ((8 * j + 2 * t + c) >> hg_log2) + p.q_offset;
+            if ((p.causal && qpos < key) ||
+                (p.window > 0 && qpos - key >= p.window))
+              y = 0.f;
+          }
+          x[4 * j + e] = y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) xch[128 * i] = x[i];
+      bar_arrive(1);
+      if constexpr (kPdO) pack_p(x, pa);
+      bar_sync(2);  // dS^T is in, and P^T read
+      if constexpr (kDS)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dsa[kk][r] = ych[128 * (4 * kk + r)];
+    } else {
+      float y[16], pt[16];
+      if constexpr (kDS) {
+        issue_ss_mla<4 * kVBoxes>(y, v_tile, do_st);  // dP^T = V dO^T
+        wgmma_wait<0>();
+        reg_fence(y);
+      }
+      bar_sync(1);  // P^T is in
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pt[i] = xch[128 * i];
+      if constexpr (kDS) {
+        const float* sd =
+            reinterpret_cast<const float*>(smem + C::kD) + st * kBN + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[4 * j + e] = pt[4 * j + e] *
+                           (y[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+        }
+        pack_p(y, dsa);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ych[128 * (4 * kk + r)] = dsa[kk][r];
+      }
+      if constexpr (kPdO) pack_p(pt, pa);
+      bar_arrive(2);
+    }
+    reg_fence(acc);
+    if constexpr (kBox8) reg_fence(acc8);
+    wgmma_fence();
+    if constexpr (kDS) issue_rs_mla(acc, dsa, q_st + own);
+    if constexpr (kBox8) issue_rs_mla(acc8, dsa, q_st + 8 * kStepBox);
+    if constexpr (kPdO) issue_rs_mla(acc, pa, do_st + own);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if constexpr (kBox8) reg_fence(acc8);
+    __syncwarp();
+    if (release_last<kWarps>(base + C::kCount + 8 * st) && refill)
+      load_step_mla<kShared>(tq, tdo, smem, base, it + C::kStages,
+                             pos0 - C::kStages * npos, h0, b, nl, nd);
+    __syncwarp();
+  }
+  float* o = out + (kMode == kDV ? mla::kDK : 0);
+  store_part(o, width, key0, p.Skv, 64 * kOwn * WG, acc);
+  if constexpr (kBox8) store_part(o, width, key0, p.Skv, 64 * 8, acc8);
+}
+
+// 2t. The partial dK (kDK), dV (kDV) or dK + [dV, 0] (kFused) of 64 keys
+// over one head group, bf16, on the tensor cores.  Blocks in (batch, key
+// tile, group) order, lowest keys first (the longest causal walks), so the
+// resident blocks share a sequence's rows (with the batch fastest the dK
+// kernel is slower at batch 4: tools/mla_bwd_ablation.py's batch_inner,
+// PERF.md).  Warp
+// 0 loads the K (and V) tile and the first kStages steps; the step walk is
+// aligned to multiples of 32 / hg positions (the same steps in every key
+// tile), from the top down.
+template <bool kShared, int kMode>
+__global__ void __launch_bounds__(mla_tc::kThreads, 1)
+    flash_bwd_mla_dk_bf16(const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const Params p, int n_hg, int hg_log2, int B,
+                          float* part, int width) {
+  using C = MlaKvCfg<kShared>;
+  using namespace mla_tc;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+
+  const int n_kt = gridDim.x / (n_hg * B);
+  const int b = blockIdx.x / (n_kt * n_hg);
+  const int kt = blockIdx.x / n_hg % n_kt, hg = blockIdx.x % n_hg;
+  const int k0 = kt * kBM, h0 = hg << hg_log2, npos = kBN >> hg_log2;
+  int qlo, qhi;
+  flash::q_range(p.Sq, p.causal, p.window, p.q_offset, k0, kBM, qlo, qhi);
+  const int top = (qhi + npos - 1) / npos * npos;
+  const int n_steps = qhi > qlo ? (top - qlo / npos * npos) / npos : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kKVFull, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(base + C::kQFull + 8 * st, 1);
+      mbar_init(base + C::kLFull + 8 * st, 32);  // a warp's lanes
+      *reinterpret_cast<uint32_t*>(smem + C::kCount + 8 * st) = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp == 0 && n_steps > 0) {
+    if (threadIdx.x == 0) {
+      constexpr bool kLoadV = !kShared && kMode != kDV;
+      mbar_expect_tx(base + C::kKVFull, kResQK + (kLoadV ? kResV : 0));
+      for (int c = 0; c < kQKBoxes; ++c)
+        tma_load(base + C::kK + c * kResBox, &tk, base + C::kKVFull,
+                 c * kBox, k0, 0, b);
+      if constexpr (kLoadV)
+        for (int c = 0; c < kVBoxes; ++c)
+          tma_load(base + C::kV + c * kResBox, &tv, base + C::kKVFull,
+                   c * kBox, k0, 0, b);
+    }
+    for (int it = 0; it < min(C::kStages, n_steps); ++it) {
+      const int pos0 = top - (it + 1) * npos;
+      float l, d;
+      fetch_mla_row(p, b, h0, hg_log2, qlo, qhi, pos0, l, d);
+      load_step_mla<kShared>(&tq, &tdo, smem, base, it, pos0, h0, b, l, d);
+    }
+    __syncwarp();
+  }
+  float* out = part + (static_cast<long long>(b) * n_hg + hg) * p.Skv * width;
+  if (warp < 4)
+    consume_mla_kv<kShared, kMode, 0>(p, &tq, &tdo, smem, base, k0, b, h0,
+                                      hg_log2, qlo, qhi, top, n_steps, out,
+                                      width);
+  else
+    consume_mla_kv<kShared, kMode, 1>(p, &tq, &tdo, smem, base, k0, b, h0,
+                                      hg_log2, qlo, qhi, top, n_steps, out,
+                                      width);
+}
+
+// dQ: K tile `it`'s stage (and V with a separate v) from key k0, announced
+// on the stage's full mbarrier; by one thread.
+template <bool kShared>
+__device__ __forceinline__ void load_k_mla(const CUtensorMap* tk,
+                                           const CUtensorMap* tv,
+                                           uint32_t base, int st, int k0,
+                                           int b) {
+  using C = MlaQCfg<kShared>;
+  using namespace mla_tc;
+  const uint32_t full = base + C::kKFull + 8 * st;
+  mbar_expect_tx(full, kStepQK + (kShared ? 0 : kStepV));
+  for (int c = 0; c < kQKBoxes; ++c)
+    tma_load(base + C::kK + st * kStepQK + c * kStepBox, tk, full, c * kBox,
+             k0, 0, b);
+  if constexpr (!kShared)
+    for (int c = 0; c < kVBoxes; ++c)
+      tma_load(base + C::kV + c * kStepBox, tv, full, c * kBox, k0, 0, b);
+}
+
+// Warpgroup WG of a dQ block (rows (position, head) [r0, r0 + 64) of batch
+// b): both hold all 64 rows, a thread rows row_l and row_l + 8, with their
+// lse2 and delta in registers; the accumulator tiles' 32 columns are a K
+// tile's keys.  Per tile: warpgroup 0 issues S = Q K^T, warpgroup 1 dP =
+// dO V^T (V the K stage's first 8 boxes when kShared); P crosses to
+// warpgroup 1 in fp32 and dS = P (dP - delta) comes back as bf16
+// fragments, as in the dK kernel; then each adds its column boxes' share of
+// dS K (K read MN-major).  dQ is stored once, times scale.
+template <bool kShared, int WG>
+__device__ __forceinline__ void consume_mla_q(const Params& p,
+                                              const CUtensorMap* tk,
+                                              const CUtensorMap* tv,
+                                              uint8_t* smem, uint32_t base,
+                                              int b, int r0, int lo,
+                                              int n_tiles, int q_first,
+                                              int q_last) {
+  using C = MlaQCfg<kShared>;
+  using namespace mla_tc;
+  constexpr bool kBox8 = WG == 1;
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4;
+  const int row_l = 16 * (tid / 32) + lane / 4;
+  const int n_rows = p.Sq * p.H;
+  const float scale_log2 = p.scale * kLog2e;
+  float* xch = reinterpret_cast<float*>(smem + C::kX) + tid;
+  uint32_t* ych = reinterpret_cast<uint32_t*>(smem + C::kY) + tid;
+  // rows row_l + 8 r: lse2 (+inf past Sq H: P is 0), delta, visible keys
+  float lse2[2], delta[2];
+  int klo[2], khi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + row_l + 8 * r;
+    const bool exists = row < n_rows;
+    const int qi = min(row, n_rows - 1) / p.H, h = min(row, n_rows - 1) % p.H;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + qi;
+    lse2[r] = exists ? p.lse[at] * kLog2e : INFINITY;
+    delta[r] = exists ? p.delta[at] : 0.f;
+    const int qpos = qi + p.q_offset;
+    khi[r] = p.causal ? min(qpos + 1, p.Skv) : p.Skv;
+    klo[r] = p.window > 0 ? qpos - p.window + 1 : 0;
+  }
+
+  float acc[128], acc8[32];
+  zero(acc);
+  if constexpr (kBox8) zero(acc8);
+  if (n_tiles > 0) mbar_wait(base + C::kQFull, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % C::kStages;
+    const int k0 = (lo + it) * kBN;
+    const uint32_t k_st = base + C::kK + st * kStepQK;
+    const uint32_t v_st = kShared ? k_st : base + C::kV;
+    mbar_wait(base + C::kKFull + 8 * st, (it / C::kStages) & 1);
+    uint32_t dsa[2][4];
+    if constexpr (WG == 0) {
+      float x[16];
+      issue_ss_mla<4 * kQKBoxes>(x, base + C::kQ, k_st);  // S = Q K^T
+      const bool masked = k0 + kBN > p.Skv ||
+                          (p.causal && k0 + kBN - 1 > q_first) ||
+                          (p.window > 0 && q_last - k0 >= p.window);
+      wgmma_wait<0>();
+      reg_fence(x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+          const float y =
+              exp2_approx(fmaf(x[4 * j + e], scale_log2, -lse2[r]));
+          x[4 * j + e] =
+              !masked || (col >= klo[r] && col < khi[r]) ? y : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) xch[128 * i] = x[i];
+      bar_arrive(1);
+      bar_sync(2);  // dS is in, and P read
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsa[kk][r] = ych[128 * (4 * kk + r)];
+    } else {
+      float y[16];
+      issue_ss_mla<4 * kVBoxes>(y, base + C::kDO, v_st);  // dP = dO V^T
+      wgmma_wait<0>();
+      reg_fence(y);
+      bar_sync(1);  // P is in
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        y[i] = xch[128 * i] * (y[i] - delta[(i >> 1) & 1]);
+      pack_p(y, dsa);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ych[128 * (4 * kk + r)] = dsa[kk][r];
+      bar_arrive(2);
+    }
+    reg_fence(acc);
+    if constexpr (kBox8) reg_fence(acc8);
+    wgmma_fence();
+    issue_rs_mla(acc, dsa, k_st + WG * kOwn * kStepBox);
+    if constexpr (kBox8) issue_rs_mla(acc8, dsa, k_st + 8 * kStepBox);
+    wgmma_commit();
+    wgmma_wait<0>();  // the K (and V) stage is free
+    reg_fence(acc);
+    if constexpr (kBox8) reg_fence(acc8);
+    __syncwarp();
+    if (release_last<kWarps>(base + C::kCount + 8 * st) &&
+        it + C::kStages < n_tiles && lane == 0)
+      load_k_mla<kShared>(tk, tv, base, st, (lo + it + C::kStages) * kBN, b);
+    __syncwarp();
+  }
+  auto* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.sdq.b;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + row_l + 8 * r;
+    if (row >= n_rows) continue;
+    __nv_bfloat16* o = dq + (row / p.H) * p.sdq.s + (row % p.H) * p.sdq.h +
+                       64 * kOwn * WG + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(
+          acc[4 * j + 2 * r] * p.scale, acc[4 * j + 2 * r + 1] * p.scale);
+    if constexpr (kBox8)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 256 + 8 * j) =
+            pack_bf16(acc8[4 * j + 2 * r] * p.scale,
+                      acc8[4 * j + 2 * r + 1] * p.scale);
+  }
+}
+
+// 4t. dQ of 64 rows (position, head), bf16, on the tensor cores, heaviest
+// first, as the forward lays them out.  Thread 0 loads Q, dO and the first
+// kStages K tiles; the last warp to release a stage refills it.
+template <bool kShared>
+__global__ void __launch_bounds__(mla_tc::kThreads, 1)
+    flash_bwd_mla_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Params p, int n_rt, int B) {
+  using C = MlaQCfg<kShared>;
+  using namespace mla_tc;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+
+  const int b = blockIdx.x % B;
+  const int r0 = (n_rt - 1 - blockIdx.x / B) * kBM;
+  const int n_rows = p.Sq * p.H;
+  const int i_first = r0 / p.H, i_last = (min(r0 + kBM, n_rows) - 1) / p.H;
+  int lo, hi;
+  flash::kv_range(p.Sq, p.Skv, p.causal, p.window, p.q_offset, i_first,
+                  i_last - i_first + 1, kBN, lo, hi);
+  const int n_tiles = max(hi - lo, 0);  // tile it is key tile lo + it
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + C::kQFull, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(base + C::kKFull + 8 * st, 1);
+      *reinterpret_cast<uint32_t*>(smem + C::kCount + 8 * st) = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(base + C::kQFull, kResQK + kResV);
+    for (int c = 0; c < kQKBoxes; ++c)
+      tma_load(base + C::kQ + c * kResBox, &tq, base + C::kQFull, c * kBox,
+               r0, 0, b);
+    for (int c = 0; c < kVBoxes; ++c)
+      tma_load(base + C::kDO + c * kResBox, &tdo, base + C::kQFull,
+               c * kBox, r0, 0, b);
+    for (int it = 0; it < min(n_tiles, C::kStages); ++it)
+      load_k_mla<kShared>(&tk, &tv, base, it, (lo + it) * kBN, b);
+  }
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int q_first = i_first + p.q_offset, q_last = i_last + p.q_offset;
+  if (warp < 4)
+    consume_mla_q<kShared, 0>(p, &tk, &tv, smem, base, b, r0, lo, n_tiles,
+                              q_first, q_last);
+  else
+    consume_mla_q<kShared, 1>(p, &tk, &tv, smem, base, b, r0, lo, n_tiles,
+                              q_first, q_last);
+}
+
+template <bool kShared, int kMode>
+int launch_mla_dk(const CUtensorMap& tk, const CUtensorMap& tv,
+                  const CUtensorMap& tq, const CUtensorMap& tdo,
+                  const Params& p, int n_hg, int hg_log2, int B, float* part,
+                  int width, unsigned blocks, cudaStream_t stream) {
+  constexpr int smem = MlaKvCfg<kShared>::kSmem;
+  const int err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_mla_dk_bf16<kShared, kMode>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  flash_bwd_mla_dk_bf16<kShared, kMode>
+      <<<blocks, mla_tc::kThreads, smem, stream>>>(tk, tv, tq, tdo, p, n_hg,
+                                                   hg_log2, B, part, width);
+  return (int)cudaGetLastError();
+}
+
+template <bool kShared>
+int launch_mla_dq(const CUtensorMap& tq, const CUtensorMap& tdo,
+                  const CUtensorMap& tk, const CUtensorMap& tv,
+                  const Params& p, int n_rt, int B, cudaStream_t stream) {
+  constexpr int smem = MlaQCfg<kShared>::kSmem;
+  const int err = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&flash_bwd_mla_dq_bf16<kShared>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  flash_bwd_mla_dq_bf16<kShared>
+      <<<static_cast<unsigned>(n_rt * B), mla_tc::kThreads, smem, stream>>>(
+          tq, tdo, tk, tv, p, n_rt, B);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 path: delta, the dK kernel (kFused where dV goes into dK, else a
+// kDK and a kDV pass), the groups' sum, dQ.  A head group is hg = min(16,
+// H rounded up to a power of 2) heads.  q's and dO's rows (position, head)
+// must lie at one stride (H times the head stride a position), as the
+// forward's q: dQ reads them as matrices of Sq H rows.
+int launch_mla_bf16(const Params& p, float* part, int shared_kv,
+                    int dv_into_dk, int B, cudaStream_t stream) {
+  using namespace mla_tc;
+  const long long n_rows = static_cast<long long>(p.Sq) * p.H;
+  const long long n_rt = (n_rows + kBM - 1) / kBM;
+  const long long n_kt = (p.Skv + kBM - 1) / kBM;
+  int hg_log2 = 0;
+  while ((1 << hg_log2) < min(p.H, mla::kHG)) ++hg_log2;
+  const int n_hg = (p.H + (1 << hg_log2) - 1) >> hg_log2;
+  const long long sums = static_cast<long long>(B) * p.Skv;
+  if (n_rows > INT_MAX || n_rt * B > INT_MAX || n_kt * n_hg * B > INT_MAX ||
+      sums > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  const bool rows = p.H == 1 || p.Sq == 1 ||
+                    (p.sq.s == p.H * p.sq.h && p.sdo.s == p.H * p.sdo.h);
+  if (!rows || (dv_into_dk && !shared_kv)) return (int)cudaErrorInvalidValue;
+  const flash::Strides q_rows = {p.sq.b, p.H > 1 ? p.sq.h : p.sq.s, 0};
+  const flash::Strides do_rows = {p.sdo.b, p.H > 1 ? p.sdo.h : p.sdo.s, 0};
+  const int hg = 1 << hg_log2, npos = kBN / hg;
+  CUtensorMap kv_k, kv_v, kv_q, kv_do, q_q, q_do, q_k, q_v;
+  if (!make_map(&kv_k, p.k, mla::kDK, p.Skv, 1, B, p.sk, kBM) ||
+      !make_map(&kv_v, p.v, mla::kDV, p.Skv, 1, B, p.sv, kBM) ||
+      !make_map_box(&kv_q, p.q, mla::kDK, {p.H, p.Sq, B},
+                    {p.sq.h, p.sq.s, p.sq.b}, hg, npos) ||
+      !make_map_box(&kv_do, p.dout, mla::kDV, {p.H, p.Sq, B},
+                    {p.sdo.h, p.sdo.s, p.sdo.b}, hg, npos) ||
+      !make_map(&q_q, p.q, mla::kDK, static_cast<int>(n_rows), 1, B, q_rows,
+                kBM) ||
+      !make_map(&q_do, p.dout, mla::kDV, static_cast<int>(n_rows), 1, B,
+                do_rows, kBM) ||
+      !make_map(&q_k, p.k, mla::kDK, p.Skv, 1, B, p.sk, kBN) ||
+      !make_map(&q_v, p.v, mla::kDV, p.Skv, 1, B, p.sv, kBN))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_delta<mla::kDV, __nv_bfloat16>(p, B, stream);
+  if (err != 0) return err;
+  const unsigned blocks = static_cast<unsigned>(n_kt * n_hg * B);
+  const int width = dv_into_dk ? mla::kDK : mla::kPart;
+  if (dv_into_dk) {
+    err = launch_mla_dk<true, kFused>(kv_k, kv_v, kv_q, kv_do, p, n_hg,
+                                      hg_log2, B, part, width, blocks, stream);
+  } else if (shared_kv) {
+    err = launch_mla_dk<true, kDK>(kv_k, kv_v, kv_q, kv_do, p, n_hg, hg_log2,
+                                   B, part, width, blocks, stream);
+    if (err == 0)
+      err = launch_mla_dk<true, kDV>(kv_k, kv_v, kv_q, kv_do, p, n_hg,
+                                     hg_log2, B, part, width, blocks, stream);
+  } else {
+    err = launch_mla_dk<false, kDK>(kv_k, kv_v, kv_q, kv_do, p, n_hg,
+                                    hg_log2, B, part, width, blocks, stream);
+    if (err == 0)
+      err = launch_mla_dk<false, kDV>(kv_k, kv_v, kv_q, kv_do, p, n_hg,
+                                      hg_log2, B, part, width, blocks,
+                                      stream);
+  }
+  if (err != 0) return err;
+  flash_bwd_mla_sum<__nv_bfloat16>
+      <<<static_cast<unsigned>(sums), kSumThreads, 0, stream>>>(
+          p, part, n_hg, width, dv_into_dk);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return shared_kv
+             ? launch_mla_dq<true>(q_q, q_do, q_k, q_v, p,
+                                   static_cast<int>(n_rt), B, stream)
+             : launch_mla_dq<false>(q_q, q_do, q_k, q_v, p,
+                                    static_cast<int>(n_rt), B, stream);
 }
 
 }  // namespace
@@ -1619,10 +2385,14 @@ extern "C" int flash_attention_bwd(
 }
 
 // The fp32 floats of `part`, the MLA backward's scratch for the head
-// groups' partial dK and dV: (B, ceil(H / 16), Skv, 576 + 512).
-extern "C" long long flash_attention_mla_bwd_scratch(int B, int H, int Skv) {
+// groups' partials: (B, ceil(H / 16), Skv, width), width 576 for the bf16
+// kernel that sums dV into dK (dtype 1 with dv_into_dk), else 576 + 512
+// (dK and dV apart).
+extern "C" long long flash_attention_mla_bwd_scratch(int B, int H, int Skv,
+                                                     int dtype,
+                                                     int dv_into_dk) {
   return static_cast<long long>(B) * ((H + mla::kHG - 1) / mla::kHG) * Skv *
-         mla::kPart;
+         (dtype == 1 && dv_into_dk ? mla::kDK : mla::kPart);
 }
 
 // The MLA layout: q (B, Sq, H, 576), k (B, Skv, 1, 576), v (B, Skv, 1,
@@ -1630,23 +2400,28 @@ extern "C" long long flash_attention_mla_bwd_scratch(int B, int H, int Skv) {
 // shaped as q, k and v; delta fp32 (B, H, Sq) and part (see above) scratch.
 // dtype, strides (k's, v's, dk's and dv's head strides unread), masks and
 // the return value as flash_attention_bwd.  shared_kv: v is k's first 512
-// features (the same pointer and batch and position strides), and dQ
-// reads V from its K tiles.
+// features (the same pointer and batch and position strides), and the
+// kernels read V from their K tiles.  dv_into_dk (needs shared_kv): dk gets
+// k's whole gradient, dK + [dV, 0], and dv is not written (may be null).
+// dtype 0 runs the SIMT kernels, 1 the wgmma kernels, which take q and
+// dout only with their (position, head) rows at one stride.
 extern "C" int flash_attention_mla_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* part, void* dq,
-    void* dk, void* dv, int dtype, int shared_kv, int B, int H, int Sq,
-    int Skv, const long long* strides, int causal, int window, int q_offset,
-    float scale, void* stream) {
+    void* dk, void* dv, int dtype, int shared_kv, int dv_into_dk, int B,
+    int H, int Sq, int Skv, const long long* strides, int causal, int window,
+    int q_offset, float scale, void* stream) {
   const Params p = make_params(q, k, v, o, dout, lse, delta, dq, dk, dv, H,
                                Sq, Skv, strides, causal, window, q_offset,
                                scale);
   if ((dtype != 0 && dtype != 1) || Sq < 1 || Skv < 1 || H < 1 ||
-      (shared_kv && (v != k || p.sv.b != p.sk.b || p.sv.s != p.sk.s)))
+      (shared_kv && (v != k || p.sv.b != p.sk.b || p.sv.s != p.sk.s)) ||
+      (dv_into_dk && !shared_kv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_mla<float>(p, part, shared_kv, B, st)
-                    : launch_mla<__nv_bfloat16>(p, part, shared_kv, B, st);
+  return dtype == 0
+             ? launch_mla_simt(p, part, shared_kv, dv_into_dk, B, st)
+             : launch_mla_bf16(p, part, shared_kv, dv_into_dk, B, st);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {

@@ -4,7 +4,8 @@
 // descriptors, the wgmma instructions and their fences, the release of a
 // stage by the last of its consumer warps, register hand-over between
 // warpgroups (setmaxnreg), named barriers, and on the host the 4-D
-// TMA map over a (B, S, H, hd) bf16 tensor with the caller's strides.
+// TMA maps over a bf16 tensor with the caller's strides (boxes of 64
+// features by one or two further dimensions).
 #pragma once
 
 #include <cuda.h>
@@ -318,15 +319,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (hd, S, H, B) of a bf16 (B, S, H, hd) tensor with the
-// caller's strides: boxes of 64 x `rows`, 128-byte swizzle, zeros outside.
-// A dimension of size 1 gets a stride that TMA accepts, as it is never
+// A 4-D map over (hd, n1, n2, n3) of a bf16 tensor whose dimensions 1-3 lie
+// at element strides `strides`: boxes of 64 x box1 x box2 x 1 (a box may
+// be larger than its dimension), 128-byte swizzle, zeros outside.  A
+// dimension of size 1 gets a stride that TMA accepts, as it is never
 // stepped.
-inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int H,
-                     int B, const flash::Strides& st, int rows) {
+inline bool make_map_box(CUtensorMap* map, const void* ptr, int hd,
+                         const long long (&sizes)[3],
+                         const long long (&strides)[3], int box1, int box2) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const long long sizes[3] = {S, H, B}, strides[3] = {st.s, st.h, st.b};
   long long widest = hd;
   for (long long s : strides) widest = s > widest ? s : widest;
   cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), 1, 1, 1};
@@ -336,13 +338,21 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int H,
     gstrides[i] = 2ull * static_cast<cuuint64_t>(sizes[i] > 1 ? strides[i]
                                                               : widest);
   }
-  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box1),
+                             static_cast<cuuint32_t>(box2), 1};
   const cuuint32_t estrides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, gstrides, box, estrides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over (hd, S, H, B) of a bf16 (B, S, H, hd) tensor with the caller's
+// strides: boxes of 64 x `rows`.
+inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int H,
+                     int B, const flash::Strides& st, int rows) {
+  return make_map_box(map, ptr, hd, {S, H, B}, {st.s, st.h, st.b}, rows, 1);
 }
 
 }  // namespace hopper

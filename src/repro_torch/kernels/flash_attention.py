@@ -19,9 +19,13 @@ JAX package runs it through `ref.flash_attention_ref` and its VJP, since
 its Pallas kernel cannot take it).  Its kernels are their own in the same
 sources: forward, a wgmma kernel for bfloat16 and a SIMT kernel for
 float32 (`mla_kernel` says which a call runs), counted in
-`flash_attention.launches_mla`; backward, a SIMT kernel for both dtypes
-that sums dK and dV over the heads (four launches a call), counted in
-`flash_attention_bwd.launches_mla`.
+`flash_attention.launches_mla`; backward, wgmma kernels for bfloat16 and
+SIMT kernels for float32 (`mla_bwd_kernel` says which), dK and dV summed
+over the heads (four launches a call; five where v is a tensor of its own
+or dV is wanted apart from dK in bfloat16), counted in
+`flash_attention_bwd.launches_mla`.  Where v is a view of k, the backward
+can return k's whole gradient, dK + [dV, 0], as one tensor
+(`dv_into_dk`), which `FlashAttention` asks for.
 
 `FlashAttention` is the way to differentiate through the kernels, and the
 one that `ops.attention` calls: its forward asks the kernel for lse and
@@ -110,6 +114,25 @@ def mla_kernel(q, k, v) -> str:
     return "wgmma_kv" if v_in_k(k, v) else "wgmma"
 
 
+def mla_bwd_kernel(q, k, v, do) -> str:
+    """The kernels that a CUDA backward at the MLA layout runs, by
+    `mla_kernel`'s rule on q, k and v ("simt" for float32, "wgmma_kv" or
+    "wgmma" for bfloat16); a bfloat16 do (the output's gradient) must lie
+    as q does, its (position, head) rows at one stride, or it raises
+    ValueError, as a q that does not.  Depends on shapes, strides and
+    storage only, so it answers for CPU tensors as well."""
+    kernel = mla_kernel(q, k, v)
+    _, sq, h, _ = do.shape
+    if (kernel != "simt" and h > 1 and sq > 1
+            and do.stride(1) != h * do.stride(2)):
+        raise ValueError(
+            f"flash_attention_bwd: do strides {do.stride()}; the bf16 "
+            "kernels at the MLA layout read do's (position, head) rows at "
+            "one stride, so its position stride must be H x its head "
+            f"stride ({h} x {do.stride(2)})")
+    return kernel
+
+
 def v_in_k(k, v) -> bool:
     """v is k's first features: the same storage, batch and position
     strides (as `mla_attention` passes k_eff[..., :512]).  The kernels
@@ -131,19 +154,24 @@ def _bwd():
     return fn, lib.flash_attention_bwd_error_string
 
 
-@functools.cache
-def _bwd_mla():
-    """(flash_attention_mla_bwd, flash_attention_mla_bwd_scratch)."""
-    lib = build.library("flash_attention_bwd")
+def bind_bwd_mla(lib: ctypes.CDLL):
+    """(flash_attention_mla_bwd, flash_attention_mla_bwd_scratch) of a
+    library built from `csrc/flash_attention_bwd.cu`, with their ctypes
+    signatures."""
     fn = lib.flash_attention_mla_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     scratch = lib.flash_attention_mla_bwd_scratch
-    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.argtypes = [ctypes.c_int] * 5
     scratch.restype = ctypes.c_longlong
     return fn, scratch
+
+
+@functools.cache
+def _bwd_mla():
+    return bind_bwd_mla(build.library("flash_attention_bwd"))
 
 
 def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
@@ -287,19 +315,30 @@ flash_attention.launches_mla = 0   # the forwards at the MLA layout
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
-                        scale: float | None = None):
+                        scale: float | None = None,
+                        dv_into_dk: bool = False):
     """The backward: q, k, v as the forward took them (the MLA layout too),
     its output o, the output's gradient do (both shaped as the output) and
     its lse (fp32 (B,H,Sq), from `flash_attention_fwd(..., want_lse=True)`).
     Returns (dq, dk, dv) in the inputs' dtype; at the MLA layout dk and dv
-    are summed over q's heads, and where v is a view of k autograd adds dv
-    into k's gradient."""
+    are summed over q's heads.  `dv_into_dk` (the MLA layout with v a view
+    of k's first 512 features, `v_in_k`; else ValueError) returns (dq, dk +
+    [dv, 0], None): k's whole gradient, which autograd would otherwise form
+    by adding dv into it, summed in fp32 before the rounding to the
+    inputs' dtype."""
+    if dv_into_dk and not (is_mla(q, k, v) and v_in_k(k, v)):
+        raise ValueError("flash_attention_bwd: dv_into_dk needs the MLA "
+                         "layout with v a view of k's first "
+                         f"{MLA_DIMS[1]} features")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              min(512, k.shape[1]), causal,
-                                             window, q_offset, scale)
+                                             window, q_offset, scale,
+                                             dv_into_dk)
     mla = is_mla(q, k, v)
     _check(q, k, v, window, q_offset, mla=mla, o=o, do=do)
+    if mla:
+        mla_bwd_kernel(q, k, v, do)   # raises on a q or do it cannot read
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
@@ -310,24 +349,29 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     scale = hd ** -0.5 if scale is None else float(scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    dv = (None if dv_into_dk
+          else torch.empty(v.shape, dtype=v.dtype, device=q.device))
     if sq == 0 or skv == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return dq.zero_(), dk.zero_(), None if dv is None else dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
-        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+        s for t in (q, k, v, o, do, dq, dk, dk if dv is None else dv)
+        for s in t.stride()[:3]))
     masks = (int(causal), window or 0, q_offset, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(),
+            None if dv is None else dv.data_ptr())
     fn, errstr = _bwd()
     if mla:
         fn_mla, scratch = _bwd_mla()
-        part = torch.empty(scratch(b, h, skv), dtype=torch.float32,
-                           device=q.device)
+        part = torch.empty(scratch(b, h, skv, _DTYPES[q.dtype],
+                                   int(dv_into_dk)),
+                           dtype=torch.float32, device=q.device)
         err = fn_mla(*ptrs, part.data_ptr(), *outs, _DTYPES[q.dtype],
-                     int(v_in_k(k, v)), b, h, sq, skv, strides, *masks)
+                     int(v_in_k(k, v)), int(dv_into_dk), b, h, sq, skv,
+                     strides, *masks)
     else:
         err = fn(*ptrs, *outs, _DTYPES[q.dtype], b, h, sq, skv, hd, strides,
                  *masks)
@@ -351,7 +395,10 @@ class FlashAttention(torch.autograd.Function):
     `FlashAttention.apply(q, k, v, causal, window, q_offset, scale, grad)`:
     `grad=False` says that no gradient will reach this call (the caller
     runs under `torch.no_grad`, or no input requires grad), and the forward
-    then writes no lse and saves nothing, as serving wants."""
+    then writes no lse and saves nothing, as serving wants.  At the MLA
+    layout with v a view of k (as `mla_attention` passes k_eff[..., :512])
+    and k wanting a gradient, the backward returns k's whole gradient,
+    dK + [dV, 0] (`dv_into_dk`), and None for v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, q_offset=0,
@@ -371,6 +418,8 @@ class FlashAttention(torch.autograd.Function):
             raise RuntimeError("FlashAttention: backward through a call "
                                "made with grad=False")
         q, k, v, out, lse = saved
+        fused = (ctx.needs_input_grad[1] and is_mla(q, k, v)
+                 and v_in_k(k, v))
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
-                                         **ctx.opts)
+                                         dv_into_dk=fused, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None

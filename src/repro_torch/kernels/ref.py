@@ -89,12 +89,15 @@ def flash_fwd(q, k, v, block_k: int = 512, causal: bool = True,
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, block_k: int = 512,
                               causal: bool = True, window: int | None = None,
-                              q_offset: int = 0, scale: float | None = None):
+                              q_offset: int = 0, scale: float | None = None,
+                              dv_into_dk: bool = False):
     """The reference's recompute VJP (src/repro/kernels/ref.py:106-154),
     KV block by KV block: delta = rowsum(dO * o); per block p = exp(s -
     lse), ds = p (dO v^T - delta) scale, dq += ds k, dk = ds^T q, dv =
     p^T dO.  `o` and `lse` are `flash_fwd`'s.  Returns (dq, dk, dv) in the
-    inputs' dtypes (a shared k/v head gets the sum over q's heads)."""
+    inputs' dtypes (a shared k/v head gets the sum over q's heads); with
+    `dv_into_dk` (v being k's first features) (dq, dk + [dv, 0], None),
+    the sum taken in fp32 before the rounding."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5 if scale is None else scale
@@ -124,6 +127,10 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, block_k: int = 512,
         dvs.append(dv_i)
     dk = torch.cat(dks, dim=2).transpose(1, 2)
     dv = torch.cat(dvs, dim=2).transpose(1, 2)
+    if dv_into_dk:
+        dk = torch.cat([dk[..., :dv.shape[-1]] + dv,
+                        dk[..., dv.shape[-1]:]], dim=-1)
+        return dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype), None
     return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 

@@ -789,13 +789,22 @@ def test_mla_kernel_rejects_other_layouts(dev):
 def _mla_bwd_against_plain(q, k, v, dtype, q_offset):
     """The MLA backward against autograd of the plain twin on the same q,
     k, v (v's values as a tensor of its own) and dO, causal at MLA_SCALE:
-    one launch at the MLA layout and none elsewhere, dq, dk and dv in the
-    inputs' dtype within TOL of max(max |want|, 1), as chip_smoke holds
-    the backwards.  Returns (dq, dk, dv)."""
+    the kernels `fa.mla_bwd_kernel` names (SIMT for float32, wgmma for
+    bfloat16, V read from the K tiles where v is a view of k), one launch
+    at the MLA layout and none elsewhere, dq, dk and dv in the inputs'
+    dtype within TOL of max(max |want|, 1), as chip_smoke holds the
+    backwards; where v is a view of k, the fused call too (`dv_into_dk`,
+    as `FlashAttention` makes it): dq and k's whole gradient against the
+    twin's dq and dk + [dv, 0] at the same bar, no dv.  Returns (dq, dk,
+    dv)."""
     kw = dict(causal=True, q_offset=q_offset, scale=MLA_SCALE)
     do = torch.randn(*q.shape[:3], 512, device=q.device,
                      generator=torch.Generator(q.device).manual_seed(7)
                      ).to(dtype)
+    view = fa.v_in_k(k, v)
+    assert fa.mla_bwd_kernel(q, k, v, do) == (
+        "simt" if dtype == torch.float32 else "wgmma_kv" if view
+        else "wgmma")
     out, lse = fa.flash_attention_fwd(q, k, v, want_lse=True, **kw)
     before = (fa.flash_attention_bwd.launches,
               fa.flash_attention_bwd.launches_mla)
@@ -805,11 +814,20 @@ def _mla_bwd_against_plain(q, k, v, dtype, q_offset):
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     fa.flash_attention_plain(qr, kr, vr, **kw).backward(do)
     torch.cuda.synchronize()
-    for a, want in zip(got, (qr.grad, kr.grad, vr.grad)):
-        assert a.shape == want.shape and a.dtype == dtype
-        assert torch.isfinite(a).all()
-        assert (a.float() - want.float()).abs().max().item() <= TOL[dtype] \
-            * max(want.float().abs().max().item(), 1.0)
+    wants = [(got, (qr.grad, kr.grad, vr.grad))]
+    if view:
+        fused = fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                       dv_into_dk=True, **kw)
+        assert fused[2] is None
+        whole = kr.grad.clone()
+        whole[..., :512] += vr.grad
+        wants.append((fused[:2], (qr.grad, whole)))
+    for outs, refs in wants:
+        for a, want in zip(outs, refs):
+            assert a.shape == want.shape and a.dtype == dtype
+            assert torch.isfinite(a).all()
+            assert (a.float() - want.float()).abs().max().item() \
+                <= TOL[dtype] * max(want.float().abs().max().item(), 1.0)
     return got
 
 
