@@ -188,6 +188,24 @@ Phases, each fatal on failure:
      and the scan kernels timed at (4, 2048, 1600, 16) beside the loop and
      its backward's plain twin, with their bounds, each call's launches
      by profiler device time;
+  5d. after it, Whisper-small (the encoder-decoder: 12 encoder + 12
+     decoder layers, d_model 768, 12 heads x 64, 1500 frames) at every
+     published width and full depth, with seeded bf16 frames: the flash
+     forward and backward at its decoder's shape (4, 2048, 12, 64) beside
+     SDPA, the plain twin and the bound (the shape also among CASES), the
+     reduced model on the GPU against the CPU, `serve.main` at prompt 2048
+     (exactly 12 flash forwards, one a decoder layer; the encoder's 1500
+     frames, the cross-attention and decode launch none) and at the
+     published 448-token decoder context (none at all), `serve.generate`
+     counted likewise, the encoder's output in fp32 card against CPU
+     (WHISPER_ENC_REL), the prefill logits given it and each decoder
+     layer's self-attention within 2e-2 of the plain twin, encode /
+     prefill / decode timings with busy shares and peak memory
+     (`whisper_serve`); then its training at batch 4 x
+     2048 (`whisper_train`: exactly 24 flash forwards and 12 backwards a
+     step), its step through the kernels against the plain twins with the
+     dense bars, every leaf (the encoder's and the cross-attention's
+     among them) held and the five nearest their bars printed;
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -246,7 +264,9 @@ Phases, each fatal on failure:
      step, peak memory and the profiler's device-busy share of the
      descent, printed as an `{"inverse": ...}` line.
 Prints one `{"kernels": [...]}` line (the MLA backward as
-`flash_attention_bwd_mla`), the `{"served": ...}` (with `v3_train`),
+`flash_attention_bwd_mla`; Whisper's decoder shape as
+`flash_attention_whisper` and `flash_attention_bwd_whisper`), the
+`{"served": ...}` (with `v3_train` and `whisper_train`),
 `{"pipeline": ...}`, `{"service": ...}` and `{"inverse": ...}` lines, the
 card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
@@ -282,6 +302,8 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # sliding-window layers (window 1024) and its 3 global ones
 HYMBA_WINDOW = (4, 2048, 2048, 25, 64, True, 1024, 0, None)
 HYMBA_GLOBAL = (4, 2048, 2048, 25, 64, True, None, 0, None)
+# Whisper-small's decoder prefill and training shape (12 heads of 64)
+WHISPER = (4, 2048, 2048, 12, 64, True, None, 0, None)
 # (B, Sq, Skv, H, hd, causal, window, q_offset, scale)
 CASES = [
     (2, 512, 512, 4, 64, True, None, 0, None),
@@ -327,6 +349,7 @@ CASES = [
     (2, 127, 63, 3, 256, True, 30, 0, None),         # rows past 92 see none
     HYMBA_WINDOW,
     HYMBA_GLOBAL,
+    WHISPER,
     (2, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's heads
     (4, 2048, 2048, 16, 256, True, None, 0, None),  # Gemma-7B's prefill
     (4, 2048, 2048, 32, 64, True, None, 0, None),   # the main path's shape
@@ -476,6 +499,24 @@ V3_TRAIN_BATCH = 1
 HYMBA_ARCH = "hymba-1.5b"
 SSM_BLOCK_REL = 1e-4
 HYMBA_CHECK_LAYERS = 3
+# Whisper-small, the encoder-decoder (arXiv:2212.04356 as the JAX package
+# configures it: 12 encoder + 12 decoder layers, d_model 768, 12 heads x 64,
+# d_ff 3072, vocab 51865, 1500 stub frame embeddings; 334.5 M params, 0.67 GB
+# of bf16 weights), served and trained after Hymba-1.5B at every published
+# width and full depth, its frames seeded bf16 normals (`whisper_frames`).
+# The encoder's 1500 frames sit below FLASH_THRESHOLD and cross-attention is
+# always naive, so only the decoder's causal self-attention reaches the
+# flash kernels, at WHISPER (its prefill and training shape: one forward a
+# decoder layer a prefill, 2 forwards and a backward a layer a step).  At
+# the published decoder context of WHISPER_CONTEXT tokens (prompt
+# WHISPER_CONTEXT - GEN, then GEN new ones) no kernel runs.
+# The encoder's output on the card against the CPU is held in fp32 (the
+# bf16 weights and frames upcast, one sequence) within WHISPER_ENC_REL
+# (relative max): in bf16 the two devices' roundings through 12 layers
+# alone came to 1.923e-2 (NVIDIA H100 80GB HBM3, 700 W).
+WHISPER_ARCH = "whisper-small"
+WHISPER_CONTEXT = 448
+WHISPER_ENC_REL = 1e-4
 # The selective scan's kernels against their plain twins (phase 2):
 # (B, S, D, N, with_h0, strong).  S = 1 (a decode step), spans around the
 # checkpoints (31, 32, 33, 65: CKPT_EVERY is 16), the chunks of CHUNK =
@@ -1013,7 +1054,8 @@ def check_kernels(fa, ref) -> dict:
     """Phase 2 for flash attention, forward (output and lse) and backward;
     returns {case: (forward max abs error, backward max abs error)} for
     bf16 at the main path's shape, at Gemma-7B's serve and training
-    shapes and at Hymba-1.5B's windowed prefill shape."""
+    shapes, at Hymba-1.5B's windowed prefill shape and at Whisper-small's
+    decoder shape."""
     errs = {}
     for case in CASES:
         seen = seen_rows(case)
@@ -1021,7 +1063,7 @@ def check_kernels(fa, ref) -> dict:
             q, k, v = qkv(case, dtype)
             err = check_forward(fa, ref, case, dtype, q, k, v, seen)
             _, bwd_err = check_backward(fa, case, dtype, q, k, v, seen)
-            if (case in (MAIN, GEMMA, GEMMA_B2, HYMBA_WINDOW)
+            if (case in (MAIN, GEMMA, GEMMA_B2, HYMBA_WINDOW, WHISPER)
                     and dtype == torch.bfloat16):
                 errs[case] = (err, bwd_err)
             del q, k, v
@@ -1540,12 +1582,28 @@ def bwd_parts(fa, case, card) -> None:
 
 
 def train_batches(cfg, n: int, batch: int = BATCH, seq: int = PROMPT) -> list:
-    """Batches 0..n-1 of the training data pipeline, on the card."""
+    """Batches 0..n-1 of the training data pipeline, on the card; for an
+    encoder-decoder each also carries "frames", (batch, n_frames, d_model)
+    standard normal from a generator seeded with the batch's index, in
+    bf16 (`whisper_frames`)."""
     from repro_torch.data import DataConfig, SyntheticTokens
     data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                       global_batch=batch))
-    return [{k: torch.from_numpy(a).to("cuda", torch.long)
-             for k, a in data.batch(i).items()} for i in range(n)]
+    out = [{k: torch.from_numpy(a).to("cuda", torch.long)
+            for k, a in data.batch(i).items()} for i in range(n)]
+    if cfg.encdec is not None:
+        for i, b in enumerate(out):
+            b["frames"] = whisper_frames(cfg, batch, seed=100 + i)
+    return out
+
+
+def whisper_frames(cfg, batch: int, seed: int = 0, device="cuda"):
+    """Stub frame embeddings (batch, n_frames, d_model): standard normal
+    from a seeded generator on `device`, in bf16, as tests/test_models.py
+    draws them."""
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn((batch, cfg.encdec.n_frames, cfg.d_model),
+                       generator=g, device=device).bfloat16()
 
 
 def counts(**launches) -> dict:
@@ -1754,7 +1812,10 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     leaf within max(GRAD_BAR, 1.5 x the oracle's distance on that leaf);
     the tokens whose experts differ between the kernel's and the plain
     step are counted by MoE layer, and the five leaves nearest their bars
-    printed.  For a hybrid model, whose normed mixing carries bf16
+    printed.  For an encoder-decoder, every step's encoder takes the
+    kernel step's path (naive attention: no kernel runs there), and the
+    five leaves nearest their bars are printed with the worst of the
+    encoder's and of the cross-attention's.  For a hybrid model, whose normed mixing carries bf16
     rounding from layer to layer, both steps' distances from fp32
     activations are printed beside it (`fp32_distances`)."""
     params = lm.build(cfg).init(torch.Generator("cuda").manual_seed(0),
@@ -1770,9 +1831,15 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
     # (the kernels' kept for a hybrid's fp32 distances), so at most two
     # sets of gradients share the card
     for force in ("plain", None) + (("naive",) if oracle else ()):
+        model = lm.build(cfg, force=force, remat="full")
+        if cfg.encdec is not None:
+            # the encoder (its frames below FLASH_THRESHOLD) runs no kernel:
+            # every step takes the kernel step's naive path there, so the
+            # steps differ only where the kernels run (`force` would send
+            # the encoder's attention through the chunked twin instead)
+            model.encode = lm.build(cfg, remat="full").encode
         with routing_picks(picks.setdefault(force, [])):
-            loss = lm.build(cfg, force=force, remat="full").loss(params,
-                                                                 batch)
+            loss = model.loss(params, batch)
         losses[force] = loss.item()
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         del loss
@@ -1801,8 +1868,22 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
           f"of {len(l2)}, {names[worst]}, bar {bars[worst]:.3e}), median "
           f"{sorted(l2)[len(l2) // 2]:.3e}, worst "
           f"relative max error {worst_max:.3e} [{card}]", flush=True)
+    nearest = sorted(range(len(l2)), key=lambda i: -l2[i] / bars[i])[:5]
+    if cfg.encdec is not None:   # the encoder's gradient comes through
+        # every decoder block's cross-attention
+        part = {what: max((i for i, n in enumerate(names) if key(n)),
+                          key=lambda i: l2[i])
+                for what, key in (("encoder", lambda n: n.startswith(
+                    "/encoder/") or n.startswith("/ln_enc/")),
+                                  ("cross-attention", lambda n: "/cross/" in n
+                                   or "/ln_cross/" in n))}
+        print(f"{cfg.name} train step: the five leaves nearest their bars "
+              "(kernel vs plain, bar): " + ", ".join(
+                  f"{names[i]} {l2[i]:.3e} / {bars[i]:.3e}" for i in nearest)
+              + "; worst " + ", ".join(
+                  f"{what} leaf {names[i]} {l2[i]:.3e}"
+                  for what, i in part.items()) + f" [{card}]", flush=True)
     if oracle:
-        nearest = sorted(range(len(l2)), key=lambda i: -l2[i] / bars[i])[:5]
         print(f"{cfg.name} train step: naive oracle vs plain loss "
               f"{abs(loss_n - loss_p) / abs(loss_p):.3e}; the five leaves "
               "nearest their bars (kernel vs plain, bar): " + ", ".join(
@@ -1954,11 +2035,14 @@ def serve_numbers(card, cfg, lm, fa) -> dict:
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
-def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
-    """Phase 4 for a dense, MoE or hybrid model's prefill, kernel against
-    plain twin.  Layer by layer on the same input (the kernel's own
-    effect): each layer's attention (with its segment's window) through
-    the kernel against the plain twin, relative max error <= 2e-2.
+def check_prefill_layers(card, cfg, lm, params, prompts,
+                         cross_ctx=None) -> float:
+    """Phase 4 for a dense, MoE, hybrid or encoder-decoder model's prefill,
+    kernel against plain twin.  Layer by layer on the same input (the
+    kernel's own effect): each layer's attention (with its segment's
+    window) through the kernel against the plain twin, relative max error
+    <= 2e-2 (an encoder-decoder's decoder layers, given the encoder's
+    output `cross_ctx`).
     Returns the bar of the logits: 2e-2 for a dense model; for a hybrid
     model that of `hybrid_logits_bar`.  In a MoE model an attention output
     that rounds to another bf16 value can move a router logit across a
@@ -1982,7 +2066,7 @@ def check_prefill_layers(card, cfg, lm, params, prompts) -> float:
                                      force=force)
                     for force in (None, "plain")]
             worst = max(worst, rel_err(*outs))
-            x, _ = lm._apply_block(lp, cfg, seg, x, pos)
+            x, _ = lm._apply_block(lp, cfg, seg, x, pos, cross_ctx=cross_ctx)
     del x, h, outs
     print(f"{cfg.name} prefill: worst attention kernel vs plain on the same "
           f"input, over {cfg.n_layers} layers, {worst:.3e} (bar 2e-2) "
@@ -2083,16 +2167,22 @@ def dense_serve(card, configs, serve, counters, arch) -> dict:
 
 def reduced_on_gpu(card, configs, lm, arch) -> None:
     """Phase 4c: `arch`'s reduced config, 2 x 64 tokens (below the flash
-    threshold: its non-kernel layers), forward on the GPU against the CPU
-    from the same params (relative max <= 2e-2)."""
+    threshold: its non-kernel layers; an encoder-decoder given seeded bf16
+    frames), forward on the GPU against the CPU from the same params
+    (relative max <= 2e-2)."""
     small = configs.get(arch, reduced=True)
     sm = lm.build(small)
     sp = sm.init(torch.Generator("cpu").manual_seed(0))
     stoks = torch.randint(0, small.vocab, (2, 64),
                           generator=torch.Generator("cpu").manual_seed(2))
-    cpu_logits = sm.forward(sp, stoks)
+    frames = (whisper_frames(small, 2, device="cpu")
+              if small.encdec is not None else None)
+
+    def kw(dev):
+        return {} if frames is None else {"frames": frames.to(dev)}
+    cpu_logits = sm.forward(sp, stoks, **kw("cpu"))
     sp_gpu = tree_map(lambda t: t.to("cuda"), sp)
-    gpu_logits = sm.forward(sp_gpu, stoks.to("cuda")).cpu()
+    gpu_logits = sm.forward(sp_gpu, stoks.to("cuda"), **kw("cuda")).cpu()
     rel_small = ((gpu_logits - cpu_logits).abs().max()
                  / cpu_logits.abs().max()).item()
     print(f"reduced {small.name} forward, GPU vs CPU: rel max err "
@@ -2601,6 +2691,171 @@ def hymba_train(card, configs, lm, train, fa, ss, ref, counters) -> tuple:
     return trained["launches"], window_bwd, scan
 
 
+def whisper_serve(card, configs, lm, serve, counters) -> dict:
+    """Phases 3-5 for Whisper-small (5d, after Hymba-1.5B's training, the
+    card's memory released): the reduced model on the GPU against the CPU
+    (given frames); `serve.main` counted at prompt PROMPT (exactly one
+    flash forward a decoder layer, nothing in the encoder, the
+    cross-attention or decode) and at the published decoder context
+    (WHISPER_CONTEXT tokens in all: no launch at all); then with seeded
+    random frames: `serve.generate` counted likewise, the encoder's output
+    on the card against the CPU (one sequence in fp32, WHISPER_ENC_REL; the
+    encoder launches nothing), the prefill logits given the encoder's
+    output through the kernel against the plain twin (<= 2e-2) and each
+    decoder layer's self-attention on the same input (`check_prefill_layers`),
+    encode ms, prefill ms, decode ms / token, the profiler's busy shares
+    of an encode, a prefill (with the flash forward's share) and a decode
+    step, and the peak memory.  Returns the numbers for the `served`
+    line."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(WHISPER_ARCH)
+    reduced_on_gpu(card, configs, lm, WHISPER_ARCH)
+    print(f"serve {WHISPER_ARCH}: {cfg.encdec.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers (full depth), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, "
+          f"{cfg.encdec.n_frames} frames; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before "
+          "it", flush=True)
+    launched = dense_serve(card, configs, serve, counters, WHISPER_ARCH)
+    prompt = WHISPER_CONTEXT - GEN
+    toks, short, serve_s = serve_counted(serve, WHISPER_ARCH, counters,
+                                         prompt=prompt)
+    print(f"serve {WHISPER_ARCH} at the published decoder context ({prompt} "
+          f"+ {GEN} = {WHISPER_CONTEXT} tokens): {serve_s:.3f}s end to end, "
+          f"launches {short} [{card}]", flush=True)
+    if short != counts():
+        fail(f"serve {WHISPER_ARCH} at {WHISPER_CONTEXT} tokens launched "
+             f"{short}; want none (below FLASH_THRESHOLD)")
+    check_tokens(toks, cfg.vocab, WHISPER_ARCH)
+
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params)) / 1e9
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
+    frames = whisper_frames(cfg, BATCH)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    with torch.inference_mode():
+        set_counts(counters)
+        toks = serve.generate(model, params, prompts, PROMPT + GEN, GEN,
+                              frames)
+        gen_launches = read_counts(counters)
+        check_tokens(toks, cfg.vocab, WHISPER_ARCH)
+        set_counts(counters)
+        enc = model.encode(params, frames)
+        enc_launches = read_counts(counters)
+        p32 = {k: tree_map(lambda t: t.float(), params[k])
+               for k in ("encoder", "ln_enc")}
+        f32 = frames[:1].float()
+        enc_rel = rel_err(model.encode(p32, f32).cpu(), model.encode(
+            tree_map(lambda t: t.cpu(), p32), f32.cpu()))
+        del p32
+        cache = model.init_cache(BATCH, PROMPT + GEN, dev)
+        got = model.prefill(params, prompts, cache, enc_out=enc)
+        want = plain.prefill(params, prompts,
+                             plain.init_cache(BATCH, PROMPT + GEN, dev),
+                             enc_out=enc)
+        rel = rel_err(got, want)
+        print(f"{WHISPER_ARCH} ({n_params:.4f} B params, weights "
+              f"{weights_gb:.3f} GB): serve.generate with seeded frames, "
+              f"launches {gen_launches}; encode launches {enc_launches}; "
+              f"encoder output in fp32 card vs CPU (one sequence) rel max "
+              f"err {enc_rel:.3e} (bar {WHISPER_ENC_REL}); prefill logits "
+              "kernel vs plain rel "
+              f"max err {rel:.3e} (bar 2e-2) [{card}]", flush=True)
+        bar = check_prefill_layers(card, cfg, lm, params, prompts,
+                                   cross_ctx=enc)
+        if (gen_launches != counts(flash_attention=cfg.n_layers)
+                or enc_launches != counts() or enc_rel > WHISPER_ENC_REL
+                or not torch.isfinite(got).all().item() or rel > bar):
+            fail(f"{WHISPER_ARCH}: generate launched {gen_launches}, encode "
+                 f"{enc_launches}; encoder card vs CPU {enc_rel}; prefill "
+                 f"logits kernel vs plain {rel} (bar {bar})")
+
+        encode_ms = time_ms(lambda: model.encode(params, frames), 3,
+                            warmup=1)
+        prefill_ms = time_ms(
+            lambda: model.prefill(params, prompts, cache, enc_out=enc), 3,
+            warmup=1)
+        plain_prefill_ms = time_ms(
+            lambda: plain.prefill(params, prompts, cache, enc_out=enc), 2,
+            warmup=1)
+        tok = got[:, -1].argmax(dim=-1, keepdim=True)
+        model.prefill(params, prompts, cache, enc_out=enc)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(GEN - 1):
+            tok = model.decode_step(params, tok, cache, PROMPT + i,
+                                    enc_out=enc)[:, -1].argmax(
+                dim=-1, keepdim=True)
+        end.record()
+        end.synchronize()
+        decode_ms = start.elapsed_time(end) / (GEN - 1)
+        print(f"{WHISPER_ARCH} encode {BATCH}x{cfg.encdec.n_frames} frames "
+              f"{encode_ms:.3f} ms; prefill {BATCH}x{PROMPT} given the "
+              f"encoder's output {prefill_ms:.3f} ms through the kernel, "
+              f"{plain_prefill_ms:.3f} ms through the plain twin; decode "
+              f"{decode_ms:.3f} ms/token ({BATCH * 1e3 / decode_ms:.1f} "
+              f"tokens/s at batch {BATCH}; each step recomputes the "
+              f"cross-attention's K and V from the frames) [{card}]",
+              flush=True)
+        report_busy(f"{WHISPER_ARCH} encode",
+                    device_kernels(lambda: model.encode(params, frames)),
+                    encode_ms, 1)
+        rows = device_kernels(
+            lambda: model.prefill(params, prompts, cache, enc_out=enc))
+        report_busy(f"{WHISPER_ARCH} prefill", rows, prefill_ms, 1, top=8)
+        hit = [e for e in rows if "flash_fwd" in e.key]
+        if hit:
+            hit_ms = sum(e.self_device_time_total for e in hit) / 1e3
+            print(f"{WHISPER_ARCH} prefill: the flash forward {hit_ms:.3f} ms "
+                  f"of device time x{sum(e.count for e in hit)}, "
+                  f"{100 * hit_ms / prefill_ms:.1f} % of the "
+                  f"{prefill_ms:.3f} ms prefill [{card}]", flush=True)
+
+        def three_steps():
+            for i in range(3):
+                model.decode_step(params, tok, cache, PROMPT + i, enc_out=enc)
+        report_busy(f"{WHISPER_ARCH} decode step",
+                    device_kernels(three_steps), decode_ms, 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve {WHISPER_ARCH}: peak memory {peak_gb:.3f} GB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del params, cache, enc, got, want, frames
+    torch.cuda.empty_cache()
+    return {"launches": launched["flash_attention"],
+            f"launches_at_{WHISPER_CONTEXT}": short["flash_attention"],
+            "params_b": n_params, "encode_ms": encode_ms,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "encoder_rel_err": enc_rel, "logits_rel_err": rel,
+            "peak_gb": peak_gb}
+
+
+def whisper_train(card, configs, lm, train, counters) -> dict:
+    """Phases 3-5 for Whisper-small training (5d, after its serve):
+    `train_path` at every published width and full depth (batch 4 x 2048
+    decoder tokens with seeded bf16 frames, fp32 masters, remat full:
+    exactly 2 flash forwards and 1 flash backward a decoder layer a step,
+    none in the encoder or the cross-attention), then its step through the
+    kernels against the plain twins (`train_vs_plain`: the encoder's and
+    the cross-attention's leaves among those held, the five nearest their
+    bars printed).  Returns `train_path`'s numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = configs.get(WHISPER_ARCH)
+    trained = train_path(card, cfg, BATCH, train, counters)
+    train_vs_plain(card, cfg, BATCH, lm)
+    print(f"whisper training phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return trained
+
+
 def scan_inputs(case, seed: int = 0) -> tuple:
     """The scan's float32 arguments at one SCAN_CASES case, on the card:
     (dt, u, b, c, a, h0) with dt = softplus(N(0, 1)) (strong: U[6, 10]),
@@ -2848,14 +3103,14 @@ def check_wkv6(wkv) -> float:
     return main_err
 
 
-def serve_counted(serve, arch, counters) -> tuple:
+def serve_counted(serve, arch, counters, prompt: int = PROMPT) -> tuple:
     """Phase 3 for one model: every launch counter set to 0 just before
-    `serve.main`, read just after.  Returns (tokens, {kernel: launches},
-    seconds)."""
+    `serve.main` (batch BATCH, `prompt` tokens, GEN new ones), read just
+    after.  Returns (tokens, {kernel: launches}, seconds)."""
     set_counts(counters)
     t0 = time.perf_counter()
     toks = serve.main(["--arch", arch, "--batch", str(BATCH),
-                       "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+                       "--prompt-len", str(prompt), "--gen", str(GEN)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     return toks, read_counts(counters), dt
@@ -4121,6 +4376,18 @@ def main() -> int:
     hymba_step, hymba_bwd, scan_t = hymba_train(card, configs, lm, train, fa,
                                                 ss, ref, counters)
 
+    # 5d. Whisper-small, the encoder-decoder, at every published width and
+    # full depth: the flash forward and backward at its decoder's shape
+    # beside SDPA, then its serve (the decoder's self-attention through the
+    # flash forward; none at the published 448-token context) and its
+    # training (the flash forward and backward)
+    torch.cuda.empty_cache()
+    whisper_t = time_flash(fa, WHISPER, card)
+    whisper_bwd = time_flash_bwd(fa, ref, WHISPER, card)
+    bwd_parts(fa, WHISPER, card)
+    served[WHISPER_ARCH] = whisper_serve(card, configs, lm, serve, counters)
+    whisper_trained = whisper_train(card, configs, lm, train, counters)
+
     # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
     # released
     torch.cuda.empty_cache()
@@ -4171,6 +4438,14 @@ def main() -> int:
         "max_abs_err": errs[HYMBA_WINDOW][0], "ms": hymba_t[0],
         "plain_ms": hymba_t[1], "bound_ms": hymba_t[3],
         "bound_by": hymba_t[4], "library_ms": hymba_t[2]}, {
+        # the same wrapper and source at 12 heads of 64: Whisper-small's
+        # decoder (its serve at prompt 2048; the encoder and the
+        # cross-attention launch none)
+        "name": "flash_attention_whisper", **fwd_src,
+        "launches": served[WHISPER_ARCH]["launches"],
+        "max_abs_err": errs[WHISPER][0], "ms": whisper_t[0],
+        "plain_ms": whisper_t[1], "bound_ms": whisper_t[3],
+        "bound_by": whisper_t[4], "library_ms": whisper_t[2]}, {
         "name": "flash_attention_bwd", **bwd_src,
         "launches": trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[MAIN][1], "ms": bwd[0], "plain_ms": bwd[1],
@@ -4188,6 +4463,13 @@ def main() -> int:
         "max_abs_err": errs[HYMBA_WINDOW][1], "ms": hymba_bwd[0],
         "plain_ms": hymba_bwd[1], "bound_ms": hymba_bwd[3],
         "bound_by": hymba_bwd[4], "library_ms": hymba_bwd[2]}, {
+        # the same wrapper and source at 12 heads of 64: Whisper-small's
+        # training (its decoder layers)
+        "name": "flash_attention_bwd_whisper", **bwd_src,
+        "launches": whisper_trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": errs[WHISPER][1], "ms": whisper_bwd[0],
+        "plain_ms": whisper_bwd[1], "bound_ms": whisper_bwd[3],
+        "bound_by": whisper_bwd[4], "library_ms": whisper_bwd[2]}, {
         # the same wrapper and source at DeepSeek-V3's MLA layout (its own
         # wgmma kernels in bf16, dK and dV summed over the heads and dV
         # into dK, as the main path calls it): V3's training at MLA_TRAIN;
@@ -4221,6 +4503,9 @@ def main() -> int:
                           "step_ms", "tokens_per_s", "peak_gb", "launches",
                           "losses")},
                       "v3_train": {k: v3_trained[k] for k in (
+                          "step_ms", "tokens_per_s", "peak_gb", "launches",
+                          "losses", "params_b")},
+                      "whisper_train": {k: whisper_trained[k] for k in (
                           "step_ms", "tokens_per_s", "peak_gb", "launches",
                           "losses", "params_b")},
                       "v3_mla_block": v3_block}))

@@ -2,8 +2,9 @@
 
 `params_from_jax` takes the JAX `params` pytree after
 `jax.tree.map(np.asarray, ...)` (nested dicts of numpy arrays) and returns
-the port's params: each segment's leading layer axis unstacked into a list
-of per-layer dicts (other subtrees, DeepSeek-V3's MTP head among them, as
+the port's params: each segment's leading layer axis (and that of
+Whisper's `encoder` blocks) unstacked into a list of per-layer dicts
+(other subtrees, DeepSeek-V3's MTP head among them, as
 they are), matmul weights in bf16, MLA's projections among them (the JAX
 path casts them to bf16 at every use, so this is bit-identical), and in
 fp32 the norm scales (`scale` leaves) and the leaves that the JAX blocks
@@ -44,12 +45,18 @@ def _count(d: dict) -> int:
     return _count(v) if isinstance(v, dict) else len(v)
 
 
+def is_stacked(name: str) -> bool:
+    """Whether the JAX package stacks top-level subtree `name` on a leading
+    layer axis: a segment (`seg*`) or Whisper's encoder blocks."""
+    return name.startswith("seg") or name == "encoder"
+
+
 def params_from_jax(tree: dict, device="cuda", dtype=None) -> dict:
     """`dtype`: None for the serving layout above, or one dtype for every
     leaf (torch.float32: training masters)."""
     out = {}
     for name, sub in tree.items():
-        if name.startswith("seg"):
+        if is_stacked(name):
             out[name] = [_tree(_unstack(sub, i), device, dtype)
                          for i in range(_count(sub))]
         else:

@@ -6,10 +6,11 @@
 `--arch` takes every architecture `models.lm.build` accepts: the dense
 family (tinyllama-1.1b, qwen3-14b, gemma-7b, minicpm-2b, and
 chameleon-34b's backbone), deepseek-moe-16b, deepseek-v3-671b (MLA over
-its latent cache; at full depth it does not fit one card), hymba-1.5b and
-rwkv6-3b.  Runs on `cuda` unless `--device cpu` is given; without a GPU
-and without that flag it raises.  Weights and prompts are random, from
-fixed seeds.
+its latent cache; at full depth it does not fit one card), hymba-1.5b,
+rwkv6-3b and whisper-small (the encoder-decoder, given zero bf16 frames
+(B, n_frames, d_model) as the JAX `launch.serve.main` gives them).  Runs on `cuda`
+unless `--device cpu` is given; without a GPU and without that flag it
+raises.  Weights and prompts are random, from fixed seeds.
 """
 
 from __future__ import annotations
@@ -34,15 +35,20 @@ def resolve_device(device: str) -> torch.device:
 
 @torch.inference_mode()
 def generate(model, params, prompts: torch.Tensor, max_seq: int,
-             gen: int) -> torch.Tensor:
-    """Greedy generation: (B, prompt_len) prompts -> (B, gen) tokens."""
+             gen: int, frames: torch.Tensor | None = None) -> torch.Tensor:
+    """Greedy generation: (B, prompt_len) prompts -> (B, gen) tokens.  An
+    encoder-decoder model encodes `frames` once and hands the encoder's
+    output to the prefill and to every decode step (the JAX `generate`
+    hands its decode steps neither, and raises at the first: R14)."""
     b, prompt_len = prompts.shape
     cache = model.init_cache(b, max_seq, prompts.device)
-    logits = model.prefill(params, prompts, cache)
+    kw = ({} if model.cfg.encdec is None
+          else {"enc_out": model.encode(params, frames)})
+    logits = model.prefill(params, prompts, cache, **kw)
     tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
     out = [tok]
     for i in range(gen - 1):
-        logits = model.decode_step(params, tok, cache, prompt_len + i)
+        logits = model.decode_step(params, tok, cache, prompt_len + i, **kw)
         tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
         out.append(tok)
     return torch.cat(out, dim=1)
@@ -65,11 +71,15 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
+    frames = None
+    if cfg.encdec is not None:
+        frames = torch.zeros((args.batch, cfg.encdec.n_frames, cfg.d_model),
+                             dtype=torch.bfloat16, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     toks = generate(model, params, prompts, args.prompt_len + args.gen,
-                    args.gen)
+                    args.gen, frames)
     first = toks[0].tolist()   # waits for the device
     dt = time.perf_counter() - t0
     print(f"generated {tuple(toks.shape)} tokens in {dt:.2f}s "

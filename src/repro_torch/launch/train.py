@@ -14,7 +14,10 @@ hybrid (Hymba) the selective-scan forward and backward kernels; at
 DeepSeek-V3's latent (MLA) layout the attention runs the MLA-layout flash
 forward and backward kernels.  Every family `models.lm.build` builds
 trains there, as on the CPU: dense, MoE (DeepSeek-MoE, and DeepSeek-V3
-with its MTP loss), the hybrid and RWKV6.
+with its MTP loss), the hybrid, RWKV6 and, through `build_trainer` with
+batches that carry frames, the encoder-decoder (Whisper).  `main` refuses
+an encoder-decoder arch: its data pipeline carries no frames (the JAX
+`launch.train.main` fails there with a KeyError after its retries: R15).
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ def build_trainer(cfg, *, device, compression: str = "none",
     """(model, state, step, compressor): fp32 master params from seed 0 on
     `device`, their AdamW state, the train step (`schedule_for(cfg)`'s LR)
     and the gradient compressor.  As in the JAX driver, the compressor is
-    built and not applied: on one device no gradient crosses a link."""
+    built and not applied: on one device no gradient crosses a link.
+
+    An encoder-decoder config (Whisper) trains on batches that carry
+    "frames" beside "tokens" and "labels", laid out as the JAX package's
+    `launch.specs.train_batch_specs` lays them out: (B, n_frames, d_model)
+    in bf16."""
     dev = torch.device(device)
     model = lm_mod.build(cfg, remat=remat)
     step = make_train_step(model.loss, AdamWConfig(schedule=schedule_for(cfg)))
@@ -66,8 +74,14 @@ def main(argv=None):
     ap.add_argument("--remat", default="full", choices=lm_mod.REMATS)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = configs.get(args.arch, reduced=args.reduced)
+    if cfg.encdec is not None:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder trains on batches that carry "
+            "frames (B, n_frames, d_model) beside its tokens, and the data "
+            "pipeline (SyntheticTokens) carries none; call build_trainer's "
+            "step with such batches")
+    dev = resolve_device(args.device)
     _, state, step, _ = build_trainer(cfg, device=dev,
                                       compression=args.compression,
                                       remat=args.remat)
@@ -79,7 +93,7 @@ def main(argv=None):
         state = restored
         print(f"resumed from step {start}")
 
-    def step_fn(st, batch_):
+    def step_fn(st, batch_):   # token ids only: an encdec arch never gets here
         return step(st, {k: torch.from_numpy(v).to(dev, torch.long)
                          for k, v in batch_.items()})
 

@@ -3,14 +3,15 @@
 blocks with GQA attention), DeepSeek-V3 (the same segments with MLA
 attention over a latent cache), Hymba (hybrid blocks: attention and the
 selective SSM side by side, global attention in a few layers and a
-sliding window, with a ring-buffer KV cache, in the others) and RWKV6.
+sliding window, with a ring-buffer KV cache, in the others), RWKV6, and
+the encoder-decoder (Whisper: `WhisperLM`, a non-causal encoder over
+precomputed frame embeddings and "crossdec" decoder blocks that add
+cross-attention to the encoder's output).
 
-The JAX package stacks each segment's layer params on a leading axis and
-`lax.scan`s over them; here a segment is a list of per-layer param dicts
-walked by a Python loop.  The JAX sharding constraints have no
-counterpart: with no mesh they are the identity.  `build` raises
-NotImplementedError for the family not ported, the encoder-decoder
-(Whisper).
+The JAX package stacks each segment's layer params (and Whisper's encoder
+blocks) on a leading axis and `lax.scan`s over them; here a segment is a
+list of per-layer param dicts walked by a Python loop.  The JAX sharding
+constraints have no counterpart: with no mesh they are the identity.
 
 Training: `LM.loss` is the next-token cross-entropy, plus 0.01 x the MoE
 blocks' load-balance loss summed over the layers for a MoE config, plus
@@ -29,6 +30,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ref
 from repro_torch.models import blocks, layers
 from repro_torch.models.layers import AttnDims, Params
 
@@ -45,11 +47,14 @@ class Segment:
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[Segment, ...]:
-    """Segments of identical blocks: one of `n_layers` (dense or rwkv); for
-    a hybrid (SSM) config one "hybrid" segment per global-attention layer
-    and one per run of sliding-window layers between them; for a MoE
-    config its `first_dense_layers` ("dense_lead", an MLP of `dense_d_ff`)
-    and then the MoE blocks."""
+    """Segments of identical blocks: one of `n_layers` (dense, rwkv, or
+    for an encoder-decoder the "crossdec" decoder blocks); for a hybrid
+    (SSM) config one "hybrid" segment per global-attention layer and one
+    per run of sliding-window layers between them; for a MoE config its
+    `first_dense_layers` ("dense_lead", an MLP of `dense_d_ff`) and then
+    the MoE blocks."""
+    if cfg.encdec is not None:
+        return (Segment("crossdec", cfg.n_layers),)
     if cfg.rwkv:
         return (Segment("rwkv", cfg.n_layers),)
     if cfg.ssm is not None:
@@ -135,6 +140,9 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig,
     else:
         d_ff = cfg.moe.dense_d_ff if seg.kind == "dense_lead" else cfg.d_ff
         p["ffn"] = layers.init_mlp(generator, d, d_ff, dtype)
+    if seg.kind == "crossdec":
+        p["ln_cross"] = layers.init_rmsnorm(d, dev)
+        p["cross"] = layers.init_attention(generator, attn_dims(cfg), dtype)
     if seg.kind == "hybrid":
         p["ssm"] = blocks.init_ssm(generator, ssm_dims(cfg), dtype)
         p["ln_attn_out"] = layers.init_rmsnorm(d, dev)
@@ -144,13 +152,17 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig,
 
 def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor, *,
-                 cache: Params | None = None, cache_index: int | None = None,
-                 force: str | None = None):
+                 causal: bool = True, cache: Params | None = None,
+                 cache_index: int | None = None, force: str | None = None,
+                 cross_ctx: torch.Tensor | None = None):
     """One block: (x, aux), aux the MoE block's fp32 load-balance loss or
     None.  Writes `cache` in place (the KV slots, and the rwkv or SSM
     state entries replaced by the new bf16 state).  A hybrid block adds
     0.5 x (rmsnorm(attention) + rmsnorm(SSM)) of the same normed input,
-    then the MLP."""
+    then the MLP.  A crossdec block given `cross_ctx` (the encoder's
+    output) adds its cross-attention between the self-attention and the
+    MLP.  `causal` reaches the GQA self-attention (False: Whisper's
+    encoder)."""
     if seg.kind == "rwkv":
         dims = rwkv_dims(cfg)
         t_out, t_state = blocks.rwkv_tmix(
@@ -173,7 +185,7 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
     else:
         attn_out = layers.attention(
             lp["attn"], attn_dims(cfg, seg.window), h, positions,
-            kv_cache=kv, cache_index=cache_index, force=force)
+            causal=causal, kv_cache=kv, cache_index=cache_index, force=force)
     if seg.kind == "hybrid":
         ssm_out, ssm_state = blocks.ssm(
             lp["ssm"], ssm_dims(cfg), h,
@@ -183,6 +195,10 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
         attn_out = 0.5 * (layers.rmsnorm(lp["ln_attn_out"], attn_out)
                           + layers.rmsnorm(lp["ln_ssm_out"], ssm_out))
     x = x + attn_out * rs
+    if seg.kind == "crossdec" and cross_ctx is not None:
+        x = x + _cross_attention(lp["cross"], cfg,
+                                 layers.rmsnorm(lp["ln_cross"], x),
+                                 cross_ctx) * rs
     h2 = layers.rmsnorm(lp["ln_mlp"], x)
     aux = None
     if seg.kind == "moe":
@@ -190,6 +206,24 @@ def _apply_block(lp: Params, cfg: ArchConfig, seg: Segment,
     else:
         ffn_out = layers.mlp(lp["ffn"], h2, cfg.activation)
     return x + ffn_out * rs, aux
+
+
+def _cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                     ctx: torch.Tensor) -> torch.Tensor:
+    """Whisper's cross-attention: q from x, k and v from the encoder's
+    output `ctx` (weights cast to x's dtype), no RoPE and no qk-norm, GQA
+    expanded, every key visible.  Always the naive SDPA
+    (`ref.naive_attention`: fp32 logits, probabilities in q's dtype),
+    whatever the lengths, as the JAX package calls `attention_scores`
+    here and not the kernel dispatcher."""
+    dims = attn_dims(cfg)
+    q = layers._matmul(x, p["wq"])
+    k = layers._matmul(ctx, p["wk"].to(x.dtype))
+    v = layers._matmul(ctx, p["wv"].to(x.dtype))
+    out = ref.naive_attention(q, layers._expand_kv(k, dims.n_heads),
+                              layers._expand_kv(v, dims.n_heads),
+                              causal=False)
+    return layers._matmul(out, p["wo"], n_in=2)
 
 
 def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
@@ -221,7 +255,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class LM:
-    """Decoder LM: dense, MoE (GQA or MLA attention), hybrid or RWKV6.  `force` is handed to the kernel
+    """Decoder LM: dense, MoE (GQA or MLA attention), hybrid or RWKV6
+    (`WhisperLM` below adds the encoder).  `force` is handed to the kernel
     dispatcher: `ops.attention` on every prefill, `ops.rwkv_mix` and
     `ops.ssm_scan` on every call (None: dispatch by length and device).
 
@@ -269,38 +304,45 @@ class LM:
             }
         return params
 
-    def _block(self, lp, seg, x, positions, cache, cache_index):
+    def _block(self, lp, seg, x, positions, cache, cache_index, *,
+               causal: bool = True, cross_ctx=None):
         """One block, recomputed in the backward as `remat` says when
-        autograd records it without a cache."""
+        autograd records it without a cache.  `cross_ctx` is an input of
+        the checkpoint like x, so its gradient (the encoder's) flows from
+        every block that reads it."""
+        kw = dict(causal=causal, force=self.force, cross_ctx=cross_ctx)
         if cache is not None or self.remat == "none" or not (
                 torch.is_grad_enabled()):
             return _apply_block(lp, self.cfg, seg, x, positions, cache=cache,
-                                cache_index=cache_index, force=self.force)
+                                cache_index=cache_index, **kw)
         context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
                                      _save_dots)
                    if self.remat == "dots" else ckpt.noop_context_fn)
         return ckpt.checkpoint(_apply_block, lp, self.cfg, seg, x, positions,
-                               use_reentrant=False, context_fn=context,
-                               force=self.force)
+                               use_reentrant=False, context_fn=context, **kw)
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
+        return layers.embed(params["embed"], tokens, scale)
 
     def _hidden(self, params: Params, tokens: torch.Tensor, cache=None,
-                cache_index: int | None = None):
+                cache_index: int | None = None, cross_ctx=None):
         """(final-norm hidden states (B,S,d), the MoE blocks' load-balance
         loss summed over the layers (fp32; None without MoE blocks));
-        writes `cache` in place."""
-        cfg = self.cfg
+        writes `cache` in place.  `cross_ctx` goes to every block (the
+        crossdec blocks read it)."""
         base = 0 if cache_index is None else cache_index
         positions = base + torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
-        scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
-        x = layers.embed(params["embed"], tokens, scale)
+        x = self._embed(params, tokens)
         aux_total = None
         for i, seg in enumerate(self.plan):
             for j, lp in enumerate(params[f"seg{i}"]):
                 x, aux = self._block(
                     lp, seg, x, positions,
                     None if cache is None else cache[f"seg{i}"][j],
-                    cache_index)
+                    cache_index, cross_ctx=cross_ctx)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
         return layers.rmsnorm(params["ln_f"], x), aux_total
@@ -336,10 +378,8 @@ class LM:
         and the cross-entropy against the labels shifted by one more (the
         last label repeated)."""
         cfg, mtp = self.cfg, params["mtp"]
-        scale = cfg.d_model ** 0.5 if cfg.embed_scale_by_dim else 1.0
-        x = layers.embed(params["embed"], tokens, scale)
-        h = torch.cat([x, layers.embed(params["embed"], labels, scale)],
-                      dim=-1)
+        h = torch.cat([self._embed(params, tokens),
+                       self._embed(params, labels)], dim=-1)
         h = layers._matmul(h, mtp["proj"])
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         seg = Segment("dense_lead" if cfg.moe else "dense", 1)
@@ -371,13 +411,92 @@ class LM:
         return self._logits(params, x)
 
 
+class WhisperLM(LM):
+    """Encoder-decoder (`repro.models.lm.WhisperLM`): an encoder of
+    `encdec.n_encoder_layers` non-causal dense blocks over stub frame
+    embeddings (B, n_frames, d_model), RoPE over the frame positions, then
+    rmsnorm(ln_enc); a decoder of crossdec blocks that attend to the
+    encoder's output.  Embeddings unscaled, the unembedding uncapped, no
+    aux loss and no MTP.  Every decoder entry point takes `frames` (the
+    encoder runs on them) or `enc_out` (its output, as `encode` gives it;
+    serving encodes once), and raises ValueError given neither.  `remat`
+    recomputes encoder blocks as it does decoder blocks."""
+
+    def __init__(self, cfg: ArchConfig, force: str | None = None,
+                 remat: str = "full"):
+        super().__init__(cfg, force=force, remat=remat)
+        self.enc_seg = Segment("dense", cfg.encdec.n_encoder_layers)
+
+    def init(self, generator: torch.Generator,
+             dtype=torch.bfloat16) -> Params:
+        """`LM.init`'s params plus "encoder" (a list of dense blocks) and
+        "ln_enc"."""
+        params = super().init(generator, dtype)
+        params["encoder"] = [_init_block(generator, self.cfg, self.enc_seg,
+                                         dtype)
+                             for _ in range(self.enc_seg.count)]
+        params["ln_enc"] = layers.init_rmsnorm(self.cfg.d_model,
+                                               generator.device)
+        return params
+
+    def encode(self, params: Params,
+               frames: torch.Tensor | None) -> torch.Tensor:
+        """The encoder's output (B, n_frames, d_model) in frames' dtype."""
+        if frames is None:
+            raise ValueError(
+                f"{self.cfg.name}: the encoder-decoder needs `frames` (B, "
+                "n_frames, d_model) or `enc_out` (the encoder's output); "
+                "got neither")
+        positions = torch.arange(frames.shape[1], device=frames.device)[None]
+        x = frames
+        for lp in params["encoder"]:
+            x, _ = self._block(lp, self.enc_seg, x, positions, None, None,
+                               causal=False)
+        return layers.rmsnorm(params["ln_enc"], x)
+
+    def _context(self, params: Params, frames, enc_out) -> torch.Tensor:
+        return self.encode(params, frames) if enc_out is None else enc_out
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return layers.embed(params["embed"], tokens)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return layers.unembed(params["embed"], x)
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                frames: torch.Tensor | None = None,
+                enc_out: torch.Tensor | None = None) -> torch.Tensor:
+        ctx = self._context(params, frames, enc_out)
+        return self._logits(params,
+                            self._hidden(params, tokens, cross_ctx=ctx)[0])
+
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """The cross-entropy of batch["tokens"] against batch["labels"]
+        given batch["frames"]."""
+        return layers.cross_entropy(
+            self.forward(params, batch["tokens"], frames=batch.get("frames")),
+            batch["labels"])
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
+                frames: torch.Tensor | None = None,
+                enc_out: torch.Tensor | None = None) -> torch.Tensor:
+        ctx = self._context(params, frames, enc_out)
+        x, _ = self._hidden(params, tokens, cache=cache, cache_index=0,
+                            cross_ctx=ctx)
+        return self._logits(params, x[:, -1:])
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params, index: int,
+                    enc_out: torch.Tensor | None = None,
+                    frames: torch.Tensor | None = None) -> torch.Tensor:
+        ctx = self._context(params, frames, enc_out)
+        x, _ = self._hidden(params, tokens, cache=cache, cache_index=index,
+                            cross_ctx=ctx)
+        return self._logits(params, x)
+
+
 def build(cfg: ArchConfig, force: str | None = None,
           remat: str = "full") -> LM:
-    """The LM for `cfg`; raises NotImplementedError, naming what is
-    missing, for a block not ported (the encoder-decoder)."""
-    if cfg.encdec is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder not ported (ported: dense, "
-            "vlm (Chameleon), moe with GQA or MLA attention (DeepSeek-MoE, "
-            "DeepSeek-V3 with its MTP loss), hybrid (Hymba) and rwkv)")
-    return LM(cfg, force=force, remat=remat)
+    """The LM for `cfg`: `WhisperLM` for an encoder-decoder config."""
+    cls = WhisperLM if cfg.encdec is not None else LM
+    return cls(cfg, force=force, remat=remat)

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch.convert import is_stacked
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -54,18 +56,19 @@ def global_norm(tree) -> torch.Tensor:
 
 def decay_mask(params: dict) -> list[bool]:
     """Per leaf of `params` (in `tree_leaves` order), whether AdamW decays
-    it: every leaf of a block segment (`seg*`), and every other leaf with
-    two or more dims.
+    it: every leaf of a block segment (`seg*`) or of Whisper's encoder
+    blocks (`encoder`), and every other leaf with two or more dims.
 
     The JAX `adamw_update` decays `p.ndim >= 2` (repro/optim/optimizer.py:
-    88-89), and its LM stacks a segment's block params along a leading layer
-    axis (repro/models/lm.py:297-298), so a block's norm scale is (L, d)
-    there and is decayed; only the top-level 1-D leaves (`ln_f.scale`)
-    escape.  The port keeps blocks as a list of per-layer dicts, where the
-    same scale is (d,), so it decays by this rule to give the same update."""
+    88-89), and its LM stacks a segment's block params, and the encoder's,
+    along a leading layer axis (repro/models/lm.py:297-298, :445), so a
+    block's norm scale is (L, d) there and is decayed; only the top-level
+    1-D leaves (`ln_f.scale`, `ln_enc.scale`) escape.  The port keeps
+    blocks as a list of per-layer dicts, where the same scale is (d,), so
+    it decays by this rule to give the same update."""
     return pytree.tree_leaves({
         name: pytree.tree_map(
-            lambda p, seg=name.startswith("seg"): seg or p.dim() >= 2, sub)
+            lambda p, stacked=is_stacked(name): stacked or p.dim() >= 2, sub)
         for name, sub in params.items()})
 
 

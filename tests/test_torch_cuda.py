@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention forward and backward, both at
 DeepSeek-V3's MLA layout too, WKV6 forward and backward, the selective scan
-forward and backward) against their plain twins, and the float64 DeepNVM++ pipeline
+forward and backward) against their plain twins, the models' launches
+through them (Whisper's decoder among them), and the float64 DeepNVM++ pipeline
 (the engines, the golden specs, the DTCO analyses, the sweep service and
 the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
 relative, equal tuned organizations; the inverse designer's gradients
@@ -1147,6 +1148,113 @@ def test_hymba_model_train_step_launches_scan_and_flash(dev):
     assert [c.launches - b for c, b in zip(counters, before)] == [
         2 * n, n, 2 * n, n]
     assert all(torch.isfinite(g).all() for g in grads)
+    want = lm.build(cfg, force="plain").loss(params, batch)
+    assert abs(loss.item() - want.item()) <= 2e-2 * abs(want.item())
+
+
+# ---------------------------------------------------------------------------
+# Whisper (the encoder-decoder): the decoder's self-attention through the
+# flash kernels, the encoder and the cross-attention naive
+# ---------------------------------------------------------------------------
+
+
+def _whisper_reduced():
+    import repro_torch.configs as configs
+    return configs.get("whisper-small", reduced=True)
+
+
+def _frames(cfg, b, dev, seed=3):
+    g = torch.Generator("cpu").manual_seed(seed)
+    return torch.randn((b, cfg.encdec.n_frames, cfg.d_model),
+                       generator=g).bfloat16().to(dev)
+
+
+def test_whisper_model_cuda_matches_cpu(dev):
+    """The reduced whisper-small (below the flash threshold: plain PyTorch
+    throughout) on the card against the CPU: the encoder's output and the
+    forward at 2 x 64 (2e-2), and a prefill of 8 tokens then 8 decode
+    steps given the encoder's output (3e-2)."""
+    cfg = _whisper_reduced()
+    model = lm.build(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    gp = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    frames = _frames(cfg, 2, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator("cpu").manual_seed(2))
+    enc = model.encode(params, frames)
+    got = model.encode(gp, frames.to(dev)).cpu()
+    assert ((got - enc).abs().max() / enc.abs().max()).item() <= 2e-2
+    want = model.forward(params, tokens, frames=frames)
+    got = model.forward(gp, tokens.to(dev), frames=frames.to(dev)).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    runs = []
+    for p, d in ((params, "cpu"), (gp, dev)):
+        cache, toks = model.init_cache(2, 16, d), tokens.to(d)
+        e = model.encode(p, frames.to(d))
+        outs = [model.prefill(p, toks[:, :8], cache, enc_out=e)]
+        outs += [model.decode_step(p, toks[:, i:i + 1], cache, i, enc_out=e)
+                 for i in range(8, 16)]
+        runs.append([o.cpu() for o in outs])
+    for g, w in zip(*reversed(runs)):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 3e-2
+
+
+def test_whisper_prefill_launches_one_kernel_per_decoder_layer(dev):
+    """A 2048-token decoder prefill of the reduced whisper-small launches
+    the flash forward once per decoder layer and matches the plain twin
+    (2e-2); the encoder (32 frames), the cross-attention and the decode
+    steps launch none."""
+    cfg = _whisper_reduced()
+    model, plain = lm.build(cfg), lm.build(cfg, force="plain")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    frames = _frames(cfg, 2, dev)
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD),
+                           device=dev)
+    before = fa.flash_attention.launches
+    enc = model.encode(params, frames)
+    assert fa.flash_attention.launches == before
+    cache = model.init_cache(2, ops.FLASH_THRESHOLD + 2, dev)
+    got = model.prefill(params, tokens, cache, enc_out=enc)
+    assert fa.flash_attention.launches - before == cfg.n_layers == 2
+    want = plain.prefill(params, tokens,
+                         plain.init_cache(2, ops.FLASH_THRESHOLD + 2, dev),
+                         frames=frames)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    before = fa.flash_attention.launches
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    for i in range(2):
+        tok = model.decode_step(params, tok, cache, ops.FLASH_THRESHOLD + i,
+                                enc_out=enc)[:, -1].argmax(-1, keepdim=True)
+    assert fa.flash_attention.launches == before
+    assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+
+def test_whisper_train_step_launches_decoder_flash_only(dev):
+    """One loss + backward of the reduced whisper-small at 2 x 2048 with
+    bf16 frames and remat full: per decoder layer two flash forwards and
+    one backward, none for the encoder or the cross-attention; every
+    gradient finite (the encoder's nonzero) and the loss within 2e-2 of
+    the plain twins'."""
+    cfg = _whisper_reduced()
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                dtype=torch.float32)
+    leaves = torch.utils._pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD + 1),
+                           device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "frames": _frames(cfg, 2, dev)}
+    counters = (fa.flash_attention, fa.flash_attention_bwd)
+    before = [c.launches for c in counters]
+    loss = lm.build(cfg).loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    n = cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == [2 * n, n]
+    assert all(torch.isfinite(g).all() for g in grads)
+    enc = torch.utils._pytree.tree_leaves(params["encoder"])
+    assert all(g.abs().sum() > 0 for p, g in zip(leaves, grads)
+               if any(p is e for e in enc))
     want = lm.build(cfg, force="plain").loss(params, batch)
     assert abs(loss.item() - want.item()) <= 2e-2 * abs(want.item())
 

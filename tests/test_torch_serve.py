@@ -137,16 +137,15 @@ def test_serve_main_defaults_to_cuda():
         serve.main(["--reduced", "--gen", "2"])
 
 
-@pytest.mark.parametrize("arch,missing", [
-    ("whisper-small", "the encoder-decoder")])
-def test_build_refuses_the_families_not_ported(arch, missing):
-    """Whisper is not ported: `build` raises and names what is missing.
-    The ported families build, the Hymba hybrid and DeepSeek-V3 (which
-    also trains, its MTP loss included) among them."""
+@pytest.mark.parametrize("arch", jconfigs.all_archs())
+def test_every_arch_builds(arch):
+    """Every architecture of the JAX package builds in the port, full and
+    reduced, as the JAX `build` builds it: `WhisperLM` for the
+    encoder-decoder, `LM` for the rest, with the same layer plan."""
     for reduced in (False, True):
         cfg = tconfigs.get(arch, reduced=reduced)
-        with pytest.raises(NotImplementedError, match=missing):
-            tlm.build(cfg).loss({}, {})
-    for ported in ("chameleon-34b", "deepseek-moe-16b", "deepseek-v3-671b",
-                   "hymba-1.5b", "rwkv6-3b"):
-        tlm.build(tconfigs.get(ported))
+        model = tlm.build(cfg)
+        want = jlm.build(jconfigs.get(arch, reduced=reduced))
+        assert type(model).__name__ == type(want).__name__
+        assert [(g.kind, g.count, g.window) for g in model.plan] == [
+            (g.kind, g.count, g.window) for g in want.plan]

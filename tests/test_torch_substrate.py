@@ -275,13 +275,15 @@ def test_train_main_needs_a_gpu_without_device_cpu(tmp_path):
 
 
 def test_build_trainer_refuses_non_dense_on_cuda():
-    """No family the port builds is refused: RWKV6, the Hymba hybrid and
-    DeepSeek-V3 (its MTP loss included) train through the wkv6, the
-    selective-scan and the MLA-layout flash kernels, so on a machine
-    without CUDA each gets as far as the device, and there it raises
-    RuntimeError, not NotImplementedError."""
+    """No family the port builds is refused: RWKV6, the Hymba hybrid,
+    DeepSeek-V3 (its MTP loss included) and Whisper (the encoder-decoder)
+    train through the wkv6, the selective-scan and the flash kernels (at
+    the MLA layout for V3), so on a machine without CUDA each gets as far
+    as the device, and there it raises RuntimeError, not
+    NotImplementedError."""
     if not torch.cuda.is_available():
-        for arch in ("rwkv6-3b", "hymba-1.5b", "deepseek-v3-671b"):
+        for arch in ("rwkv6-3b", "hymba-1.5b", "deepseek-v3-671b",
+                     "whisper-small"):
             with pytest.raises(RuntimeError) as err:
                 train.build_trainer(configs.get(arch, reduced=True),
                                     device="cuda")
