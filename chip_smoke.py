@@ -262,12 +262,27 @@ Phases, each fatal on failure:
      table against the CPU's (1e-10 absolute, equal top knobs); solve
      seconds, start-steps/s, ms and host ms a step, device kernels a
      step, peak memory and the profiler's device-busy share of the
-     descent, printed as an `{"inverse": ...}` line.
+     descent, printed as an `{"inverse": ...}` line;
+  9. after it, the dry run (`repro_torch.launch.dryrun`): the MLA
+     backward's scratch size as its shape function reckons it against the
+     library's; three cells at full width and depth (DRYRUN_CELLS:
+     TinyLlama-1.1B train, RWKV6-3B and Hymba-1.5B prefill, 4 x 2048)
+     traced under FakeTensorMode on fake CUDA tensors, then run for real,
+     their arguments resident before `reset_peak_memory_stats`: argument
+     bytes and FlopCounterMode totals equal, the predicted peak within
+     DRYRUN_PEAK_REL + DRYRUN_PEAK_ABS of `max_memory_allocated`, the
+     path's kernels launched by the real run and none by the trace, the
+     output finite; TinyLlama's decode cell with the fp8 KV cache for
+     real (half the bf16 cache's bytes, finite logits); then the dry run
+     and roofline row of each DRYRUN_SWEEP cell (every shape kind and
+     model family; `tools/dryrun_sweep.py` runs all 40), printed as a
+     `{"dryrun": ...}` line.
 Prints one `{"kernels": [...]}` line (the MLA backward as
 `flash_attention_bwd_mla`; Whisper's decoder shape as
 `flash_attention_whisper` and `flash_attention_bwd_whisper`), the
 `{"served": ...}` (with `v3_train` and `whisper_train`),
-`{"pipeline": ...}`, `{"service": ...}` and `{"inverse": ...}` lines, the
+`{"pipeline": ...}`, `{"service": ...}`, `{"inverse": ...}` and
+`{"dryrun": ...}` lines, the
 card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
 """
@@ -293,11 +308,11 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the H100's datasheet peaks: dense bf16 on the tensor cores, HBM3
+from repro_torch.launch.roofline import PEAK_BF16_FLOPS, PEAK_BYTES  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Hymba-1.5B's prefill shapes (25 GQA-expanded heads of 64): its 29
 # sliding-window layers (window 1024) and its 3 global ones
 HYMBA_WINDOW = (4, 2048, 2048, 25, 64, True, 1024, 0, None)
@@ -3425,6 +3440,9 @@ def time_wkv6_train(wkv, ref, card) -> tuple:
     ms = time_ms(bwd, 20)
     plain_ms = time_ms(lambda: ref.wkv6_bwd_plain(r, k, v, w, u, None, dy,
                                                   None), 2, warmup=1)
+    # the forward's plain twin without s0 (it writes no checkpoints)
+    fwd_plain_ms = time_ms(lambda: wkv.wkv6_plain(r, k, v, w, u), 2,
+                           warmup=1)
     bound_ms, bound_by = wkv_bwd_bound(WKV_MAIN, wkv.CKPT_EVERY)
     no_s0 = WKV_MAIN[:6] + (False,) + WKV_MAIN[7:]
     ck_bound = wkv_bound(no_s0, wkv.CKPT_EVERY)
@@ -3438,7 +3456,8 @@ def time_wkv6_train(wkv, ref, card) -> tuple:
     print(f"wkv6 {WKV_MAIN[:4]} fp32 without s0: forward {fwd_ms:.4f} / "
           f"{fwd_ms2:.4f} ms (bound {wkv_bound(no_s0)[0]:.4f} ms), with "
           f"checkpoints {ck_ms:.4f} ms (bound {ck_bound[0]:.4f} ms, "
-          f"{ck_bound[1]}); backward {ms:.4f} ms by CUDA events (per "
+          f"{ck_bound[1]}), the plain twin {fwd_plain_ms:.4f} ms; backward "
+          f"{ms:.4f} ms by CUDA events (per "
           f"launch, profiler: {parts}; launches summed "
           + ("not measured" if busy is None else
              f"{busy:.4f} ms, first start to last end {span:.4f} ms")
@@ -4221,6 +4240,195 @@ def inverse_phase(card) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the dry run (`launch.dryrun`) predicted against real runs of the
+# same cells, then the dry-run sweep over every arch x shape with its
+# roofline rows (`launch.roofline`)
+# ---------------------------------------------------------------------------
+
+# (arch, shape kind, the launch counters of the cell's path) at full width
+# and depth, batch x sequence DRYRUN_BATCH x DRYRUN_SEQ
+DRYRUN_CELLS = (("tinyllama-1.1b", "train",
+                 ("flash_attention", "flash_attention_bwd")),
+                ("rwkv6-3b", "prefill", ("wkv6",)),
+                ("hymba-1.5b", "prefill",
+                 ("flash_attention", "selective_scan")))
+DRYRUN_BATCH = 4
+DRYRUN_SEQ = 2048
+# the predicted peak against torch.cuda.max_memory_allocated()
+DRYRUN_PEAK_REL = 0.05
+DRYRUN_PEAK_ABS = 256 * 2**20
+# The sweep's cells in this phase: every shape kind and model family (the
+# whole 40-cell sweep took 199.2 s on an H100, over the ~120 s this phase
+# may take; `python3 tools/dryrun_sweep.py` runs all of it): dense, MoE,
+# MLA, the VLM backbone, the encoder-decoder, RWKV6 and the hybrid; train,
+# prefill and decode at their full shapes, long_500k traced and skipped
+DRYRUN_SWEEP = (("tinyllama-1.1b", "train_4k"),
+                ("tinyllama-1.1b", "long_500k"),
+                ("deepseek-moe-16b", "prefill_32k"),
+                ("deepseek-v3-671b", "decode_32k"),
+                ("chameleon-34b", "decode_32k"),
+                ("whisper-small", "prefill_32k"),
+                ("rwkv6-3b", "decode_32k"),
+                ("hymba-1.5b", "long_500k"))
+
+
+def dryrun_shape(kind: str):
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec(f"{kind}_{DRYRUN_SEQ}", DRYRUN_SEQ, DRYRUN_BATCH, kind)
+
+
+def finite_out(out, name: str) -> None:
+    """The step's output: a train step's loss, a serving step's logits."""
+    t = out[1]["loss"] if isinstance(out, tuple) else out
+    if not bool(torch.isfinite(t).all()):
+        fail(f"{name}: the step's output is not finite")
+
+
+def dryrun_cell_check(card, configs, counters, arch: str, kind: str,
+                      path: tuple) -> dict:
+    """One cell at full width and depth: the dry run on fake CUDA tensors,
+    then the same cell for real, its arguments resident before the peak is
+    reset; argument bytes and FLOPs equal, the predicted peak within
+    DRYRUN_PEAK_REL + DRYRUN_PEAK_ABS of the measured one, the path's
+    kernels launched by the real run and by no fake one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, specs
+    cfg, shape = configs.get(arch), dryrun_shape(kind)
+    name = f"{arch}/{shape.name}"
+    torch.cuda.empty_cache()
+    set_counts(counters)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        cell = specs.build_cell(cfg, shape, device="cuda")
+        pred = dryrun.dry_run(cell)
+    fake_s = time.perf_counter() - t0
+    del cell
+    fake_counts = read_counts(counters)
+    if any(fake_counts.values()):
+        fail(f"{name}: the dry run launched kernels: {fake_counts}")
+    base = torch.cuda.memory_allocated()
+    cell = specs.build_cell(cfg, shape, device="cuda")
+    arg_bytes = dryrun.tensor_bytes(cell.args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(counters)
+    flops = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with flops:
+        out = cell.step_fn(*cell.args)
+    torch.cuda.synchronize()
+    real_ms = (time.perf_counter() - t0) * 1e3
+    got = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite_out(out, name)
+    del out, cell
+    mem = pred["memory"]
+    err = abs(mem["peak_bytes"] - peak)
+    print(f"dry run {name}: traced in {fake_s:.2f} s; arguments "
+          f"{mem['argument_bytes']} B predicted, {arg_bytes} B real; peak "
+          f"{mem['peak_bytes']} B predicted, {peak} B measured "
+          f"(max_memory_allocated less what was resident before; "
+          f"{err / peak:.4%} off); FLOPs {pred['cost']['flops']} predicted, "
+          f"{flops.get_total_flops()} real; the real step {real_ms:.1f} ms; "
+          f"launches {got} [{card}]", flush=True)
+    if mem["argument_bytes"] != arg_bytes:
+        fail(f"{name}: predicted arguments {mem['argument_bytes']} B, real "
+             f"{arg_bytes} B")
+    if err > DRYRUN_PEAK_REL * peak + DRYRUN_PEAK_ABS:
+        fail(f"{name}: predicted peak {mem['peak_bytes']} B, measured "
+             f"{peak} B: beyond {DRYRUN_PEAK_REL:.0%} + "
+             f"{DRYRUN_PEAK_ABS >> 20} MiB")
+    if pred["cost"]["flops"] != flops.get_total_flops():
+        fail(f"{name}: FLOPs {pred['cost']['flops']} traced, "
+             f"{flops.get_total_flops()} real")
+    if not all(got[k] > 0 for k in path):
+        fail(f"{name}: a kernel of the path never launched: {got}")
+    return {"argument_bytes": arg_bytes, "peak_predicted": mem["peak_bytes"],
+            "peak_measured": peak, "flops": pred["cost"]["flops"],
+            "launches": {k: got[k] for k in path}, "trace_s": round(fake_s, 2)}
+
+
+def kv_fp8_decode(card, configs) -> dict:
+    """TinyLlama's decode cell for real with the fp8 (e4m3) KV cache and
+    with the bf16 one: the fp8 cache half the bytes, its logits finite."""
+    from repro_torch.launch import dryrun, specs
+    cfg, shape = configs.get(ARCH), dryrun_shape("decode")
+    got = {}
+    for dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        cell = specs.build_cell(cfg, shape, device="cuda",
+                                kv_cache_dtype=dtype)
+        logits = cell.step_fn(*cell.args)
+        got[dtype] = (dryrun.tensor_bytes(cell.args[2]), logits.float())
+        del cell
+    (fp8_b, fp8_l), (bf_b, bf_l) = got[torch.float8_e4m3fn], got[torch.bfloat16]
+    diff = float((fp8_l - bf_l).abs().max())
+    print(f"decode {ARCH} {shape.name} (4 x 1 token at index 2047): fp8 "
+          f"cache {fp8_b} B, bf16 cache {bf_b} B; logits max |fp8 - bf16| "
+          f"{diff:.4e} [{card}]", flush=True)
+    if 2 * fp8_b != bf_b:
+        fail(f"fp8 KV cache {fp8_b} B is not half the bf16 one's {bf_b} B")
+    if not bool(torch.isfinite(fp8_l).all()):
+        fail("fp8 KV cache: the decode's logits are not finite")
+    return {"fp8_cache_bytes": fp8_b, "bf16_cache_bytes": bf_b,
+            "logits_max_abs_diff": diff}
+
+
+def dryrun_sweep(card, counters) -> list:
+    """The dry run of each DRYRUN_SWEEP cell at full size on fake CUDA
+    tensors: one roofline row a cell (long_500k skipped for the models
+    that are not sub-quadratic), no kernel launched."""
+    from repro_torch.launch import dryrun, roofline
+    set_counts(counters)
+    rows, t0 = [], time.perf_counter()
+    for arch, shape in DRYRUN_SWEEP:
+        row = roofline.analyze_record(
+            dryrun.run_cell(arch, shape, None, device="cuda"))
+        rows.append(row)
+        if row["status"] == "ok":
+            print(f"roofline {arch} x {shape}: {row['dominant']}-bound, "
+                  f"fraction {row['roofline_frac']:.4f}, compute "
+                  f"{row['compute_s']:.4e} s, memory "
+                  f"{row['memory_s']:.4e} s, "
+                  f"{row['mem_per_dev_gb']:.3f} GB a device, fits "
+                  f"{row['fits_device']} [{card}]", flush=True)
+    if any(read_counts(counters).values()):
+        fail(f"the dry-run sweep launched kernels: {read_counts(counters)}")
+    print(f"dry-run sweep: {len(rows)} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def dryrun_phase(card, configs, counters) -> dict:
+    """Phase 9: the MLA backward's scratch size as the dry run computes it
+    against the library's, the three cells predicted against measured, the
+    fp8-cache decode, then the sweep."""
+    from repro_torch.kernels import flash_attention as fa
+    scratch = fa._bwd_mla()[1]
+    for b, h, skv in ((1, 128, 2048), (4, 20, 333)):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for fused in (False, True):
+                if fa.mla_bwd_scratch(b, h, skv, dtype, fused) != scratch(
+                        b, h, skv, code, int(fused)):
+                    fail(f"mla_bwd_scratch{(b, h, skv, dtype, fused)} "
+                         "differs from the library's")
+    torch.cuda.empty_cache()
+    cells = {f"{arch}/{kind}": dryrun_cell_check(card, configs, counters,
+                                                  arch, kind, path)
+             for arch, kind, path in DRYRUN_CELLS}
+    fp8 = kv_fp8_decode(card, configs)
+    torch.cuda.empty_cache()
+    rows = dryrun_sweep(card, counters)
+    return {"cells": cells, "kv_fp8_decode": fp8,
+            "sweep": {f"{r['arch']}/{r['shape']}": (
+                r["status"] if r["status"] != "ok" else
+                [r["dominant"], round(r["roofline_frac"], 4),
+                 round(r["mem_per_dev_gb"], 3), r["fits_device"]])
+                for r in rows}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4396,6 +4604,10 @@ def main() -> int:
     service = service_phase(card, mega_summary)
     # 8. the inverse designer on the card
     inverse = inverse_phase(card)
+    # 9. the dry run: three cells predicted against measured, the fp8 KV
+    # cache, and the sweep's roofline rows
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(card, configs, counters)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4512,6 +4724,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))
     print(json.dumps({"inverse": inverse}))
+    print(json.dumps({"dryrun": dry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

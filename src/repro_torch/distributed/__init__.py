@@ -1,4 +1,5 @@
 """One-device counterparts of `repro.distributed`: the fault loop
-(`fault`, a verbatim copy, pinned by tests/test_torch_substrate.py) and the
-gradient compressors (`compression`).  The mesh, sharding and elastic
-modules describe multi-chip TPU meshes and are not ported."""
+(`fault`, a verbatim copy, pinned by tests/test_torch_substrate.py), the
+gradient compressors (`compression`), the sharding rules (`sharding`:
+specs computed for any mesh, trees placed on one device) and elastic
+resharding (`elastic`)."""

@@ -27,6 +27,13 @@ or dV is wanted apart from dK in bfloat16), counted in
 can return k's whole gradient, dK + [dV, 0], as one tensor
 (`dv_into_dk`), which `FlashAttention` asks for.
 
+On fake tensors (`torch._subclasses.FakeTensorMode`: shapes, no data;
+the dry run, `launch.dryrun`) each wrapper is its kernel's shape function,
+the counterpart of `pallas_call`'s `out_shape`: it runs its checks but
+the address ones and allocates its outputs and scratch as for real
+tensors, then returns before any build, pointer or launch, and counts
+nothing.
+
 `FlashAttention` is the way to differentiate through the kernels, and the
 one that `ops.attention` calls: its forward asks the kernel for lse and
 saves q, k, v, o and lse (neither where no gradient can reach the call),
@@ -41,6 +48,7 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build, ref
 
@@ -136,9 +144,12 @@ def mla_bwd_kernel(q, k, v, do) -> str:
 def v_in_k(k, v) -> bool:
     """v is k's first features: the same storage, batch and position
     strides (as `mla_attention` passes k_eff[..., :512]).  The kernels
-    then read V from the K tiles."""
-    return (v.data_ptr() == k.data_ptr()
-            and v.stride()[:2] == k.stride()[:2])
+    then read V from the K tiles.  Fake tensors have no address: their
+    storage and offset answer."""
+    same = ((torch._C._is_alias_of(v, k)
+             and v.storage_offset() == k.storage_offset()) if is_fake(k)
+            else v.data_ptr() == k.data_ptr())
+    return same and v.stride()[:2] == k.stride()[:2]
 
 
 @functools.cache
@@ -172,6 +183,22 @@ def bind_bwd_mla(lib: ctypes.CDLL):
 @functools.cache
 def _bwd_mla():
     return bind_bwd_mla(build.library("flash_attention_bwd"))
+
+
+# csrc/flash_attention_bwd.cu's mla::kHG (heads a dK block walks), kDK and
+# kDV (the head dims): what flash_attention_mla_bwd_scratch counts with
+MLA_HEAD_GROUP = 16
+
+
+def mla_bwd_scratch(b: int, h: int, skv: int, dtype: torch.dtype,
+                    dv_into_dk: bool) -> int:
+    """Floats of the MLA backward's partial-sum scratch, as the library's
+    `flash_attention_mla_bwd_scratch` counts them: a (head group, key) row
+    of dK (bf16 with dV summed into dK) or of dK and dV.  Fake tensors
+    size it here, where the library is not built."""
+    row = (MLA_DIMS[0] if dtype == torch.bfloat16 and dv_into_dk
+           else sum(MLA_DIMS))
+    return b * -(-h // MLA_HEAD_GROUP) * skv * row
 
 
 def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
@@ -221,7 +248,7 @@ def _check(q, k, v, window, q_offset, mla: bool = False, **like_q):
     align = 16 // q.element_size()
     for name, t in ts.items():
         if (t.stride(-1) != 1 or any(s % align for s in t.stride()[:3])
-                or t.data_ptr() % 16):
+                or (not is_fake(t) and t.data_ptr() % 16)):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
                              "head_dim, 16-byte aligned rows and strides "
                              f"(strides {t.stride()})")
@@ -270,7 +297,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     out = torch.empty((b, sq, h, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    if sq == 0:
+    if sq == 0 or is_fake(q):   # fake: the shape function ends here
         return out, lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
@@ -354,6 +381,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if sq == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), None if dv is None else dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if is_fake(q):   # the shape function: the scratch, then no launch
+        if mla:
+            torch.empty(mla_bwd_scratch(b, h, skv, q.dtype, dv_into_dk),
+                        dtype=torch.float32, device=q.device)
+        return dq, dk, dv
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dk if dv is None else dv)
         for s in t.stride()[:3]))

@@ -17,6 +17,11 @@ call four (two).
 `selective_scan.launches` counts forward calls and
 `selective_scan_bwd.launches` backward calls.
 
+On fake tensors (`torch._subclasses.FakeTensorMode`; the dry run) each
+wrapper is its kernels' shape function: checks and the allocations of
+outputs and scratch as for real tensors, then no build, pointer or
+launch, and no count.
+
 `SelectiveScan` is the way to differentiate through the kernels, and the
 one that `ops.ssm_scan` calls: its forward asks the kernel for h every
 CKPT_EVERY tokens and saves the inputs and those checkpoints (nothing
@@ -30,6 +35,7 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build, ref
 
@@ -148,8 +154,11 @@ def selective_scan_fwd(dt, u, b, c, a, h0=None, *, want_ckpt: bool = False):
             "output would carry none; differentiate through "
             "SelectiveScan.apply (ops.ssm_scan does), or call under "
             "torch.no_grad()")
-    y, h_last, ckpt = launch(_fwd(), dt, u, b, c, a, h0, want_ckpt, CHUNK)
-    selective_scan.launches += 1
+    fake = is_fake(dt)
+    y, h_last, ckpt = launch(None if fake else _fwd(), dt, u, b, c, a, h0,
+                             want_ckpt, CHUNK)
+    if not fake:
+        selective_scan.launches += 1
     return y, h_last, ckpt
 
 
@@ -160,8 +169,9 @@ def _new(dev, *shape):
 def launch(fwd, dt, u, b, c, a, h0, want_ckpt: bool, chunk: int):
     """Check the CUDA inputs and run the forward kernels of `fwd` (from
     `bind`) in chunks of `chunk` tokens (a multiple of CKPT_EVERY); returns
-    (y, h_last, ckpt or None).  Counts nothing: `selective_scan_fwd` counts
-    its own calls."""
+    (y, h_last, ckpt or None).  On fake tensors it allocates them and
+    returns (`fwd` may then be None).  Counts nothing: `selective_scan_fwd`
+    counts its own calls."""
     _check(dt, u, b, c, a, h0)
     dt, u, b, c, a = (t.contiguous() for t in (dt, u, b, c, a))
     h0 = None if h0 is None else h0.contiguous()
@@ -174,6 +184,8 @@ def launch(fwd, dt, u, b, c, a, h0, want_ckpt: bool, chunk: int):
     # the chunks' local states and sums of dt, then the carried states
     cbuf, sdt = ((_new(dev, bsz, nc, di, n), _new(dev, bsz, nc, di))
                  if nc > 1 else (None, None))
+    if is_fake(dt):
+        return y, h_last, ckpt
     fn, errstr = fwd
     err = fn(dt.data_ptr(), u.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), _ptr(h0), y.data_ptr(), h_last.data_ptr(),
@@ -205,15 +217,19 @@ def selective_scan_bwd(dt, u, b, c, a, h0, dy, dh_last, ckpt):
     if dt.device.type == "cpu":
         return ref.ssm_scan_bwd_plain(dt, u, b, c, a, h0, dy, dh_last,
                                       ckpt_every=CKPT_EVERY)
-    got = bwd_launch(_bwd(), dt, u, b, c, a, h0, dy, dh_last, ckpt, CHUNK)
-    selective_scan_bwd.launches += 1
+    fake = is_fake(dt)
+    got = bwd_launch(None if fake else _bwd(), dt, u, b, c, a, h0, dy,
+                     dh_last, ckpt, CHUNK)
+    if not fake:
+        selective_scan_bwd.launches += 1
     return got
 
 
 def bwd_launch(bwd, dt, u, b, c, a, h0, dy, dh_last, ckpt, chunk: int):
     """Check the CUDA inputs and run the backward kernels of `bwd` (from
     `bind_bwd`) in chunks of `chunk` tokens; returns (ddt, du, db, dc, da,
-    dh0).  Counts nothing."""
+    dh0).  On fake tensors it allocates them and returns (`bwd` may then
+    be None).  Counts nothing."""
     _check(dt, u, b, c, a, h0)
     bsz, s, di = dt.shape
     n = a.shape[-1]
@@ -240,6 +256,8 @@ def bwd_launch(bwd, dt, u, b, c, a, h0, dy, dh_last, ckpt, chunk: int):
     da_part = _new(dev, bsz, nc, di, n)
     cbuf, sdt = ((_new(dev, bsz, nc, di, n), _new(dev, bsz, nc, di))
                  if nc > 1 else (None, None))
+    if is_fake(dt):
+        return ddt, du, db, dc, da, dh0
     fn, errstr = bwd
     err = fn(dt.data_ptr(), u.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), dy.data_ptr(), _ptr(dh_last), ckpt.data_ptr(),

@@ -12,6 +12,11 @@ through ctypes.  On CPU tensors each wrapper runs its plain twin
 kernel or raises.  `wkv6.launches` counts forward launches and
 `wkv6_bwd.launches` backward calls (three kernels each).
 
+On fake tensors (`torch._subclasses.FakeTensorMode`; the dry run) each
+wrapper is its kernel's shape function: checks (the address ones aside)
+and the allocations of outputs and scratch as for real tensors, then no
+build, pointer or launch, and no count.
+
 `WKV6` is the way to differentiate through the kernels, and the one that
 `ops.rwkv_mix` calls: its forward asks the kernel for the state every
 CKPT_EVERY tokens and saves the inputs and those checkpoints (nothing where
@@ -26,6 +31,7 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build, ref
 
@@ -75,10 +81,11 @@ _STRIDES = ctypes.c_longlong * 21
 
 def copy_bytes(*ts: torch.Tensor) -> int:
     """The width of the kernel's copies for these (B,S,H,hd) tensors: 16
-    bytes where every base address is 16-byte aligned and every stride of
-    a dimension longer than 1 is a multiple of 4 elements, else 4."""
+    bytes where every base address is 16-byte aligned (a fake tensor's
+    has none to check) and every stride of a dimension longer than 1 is a
+    multiple of 4 elements, else 4."""
     for t in ts:
-        if t.data_ptr() % 16 or any(
+        if (not is_fake(t) and t.data_ptr() % 16) or any(
                 n > 1 and st % 4 for n, st in zip(t.shape[:3], t.stride()[:3])):
             return 4
     return 16
@@ -143,8 +150,11 @@ def wkv6_fwd(r, k, v, w, u, s0=None, *, chunk: int = 32,
     ckpt = (torch.empty((b, h, -(-s // CKPT_EVERY), hd, hd),
                         dtype=torch.float32, device=r.device)
             if want_ckpt else None)
-    y, s_final = launch(_fwd(), r, k, v, w, u, s0, chunk, ckpt)
-    wkv6.launches += 1
+    fake = is_fake(r)
+    y, s_final = launch(None if fake else _fwd(), r, k, v, w, u, s0, chunk,
+                        ckpt)
+    if not fake:
+        wkv6.launches += 1
     return y, s_final, ckpt
 
 
@@ -160,7 +170,8 @@ def wkv6(r, k, v, w, u, s0=None, *, chunk: int = 32):
 def launch(fwd, r, k, v, w, u, s0, chunk, ckpt=None):
     """Check the CUDA inputs and run the kernel of `fwd` (from `bind`) on
     them, writing checkpoints into `ckpt` where given; returns (y,
-    s_final).  Counts nothing: `wkv6_fwd` counts its own launches."""
+    s_final).  On fake tensors it allocates them and returns (`fwd` may
+    then be None).  Counts nothing: `wkv6_fwd` counts its own launches."""
     _check(r, k, v, w, u, s0, chunk)
     b, s, h, hd = r.shape
     if ckpt is not None and (ckpt.shape != (b, h, -(-s // CKPT_EVERY), hd, hd)
@@ -172,6 +183,8 @@ def launch(fwd, r, k, v, w, u, s0, chunk, ckpt=None):
     s0 = None if s0 is None else s0.contiguous()
     s_final = torch.empty((b, h, hd, hd), dtype=torch.float32,
                           device=r.device)
+    if is_fake(r):
+        return y, s_final
     fn, errstr = fwd
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), None if s0 is None else s0.data_ptr(),
@@ -199,8 +212,11 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_final, ckpt, *, chunk: int = 32):
     if r.device.type == "cpu":
         return ref.wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_final,
                                   ckpt_every=CKPT_EVERY)
-    out = bwd_launch(_bwd(), r, k, v, w, u, s0, dy, ds_final, ckpt, chunk)
-    wkv6_bwd.launches += 1
+    fake = is_fake(r)
+    out = bwd_launch(None if fake else _bwd(), r, k, v, w, u, s0, dy,
+                     ds_final, ckpt, chunk)
+    if not fake:
+        wkv6_bwd.launches += 1
     return out[:6]
 
 
@@ -209,7 +225,8 @@ def bwd_launch(bwd, r, k, v, w, u, s0, dy, ds_final, ckpt, chunk=32):
     `bind_bwd`) on them: `wkv6_bwd`'s six outputs, then gck, the float32
     (B,H,ceil(S/CKPT_EVERY),hd,hd) gradient of the state after each span
     of CKPT_EVERY tokens (the reverse pass's checkpoints, which the span
-    walk starts from; `ref.wkv6_grad_checkpoints`).  Counts nothing:
+    walk starts from; `ref.wkv6_grad_checkpoints`).  On fake tensors it
+    allocates them and returns (`bwd` may then be None).  Counts nothing:
     `wkv6_bwd` counts its own calls."""
     _check(r, k, v, w, u, s0, chunk)
     b, s, h, hd = r.shape
@@ -234,6 +251,8 @@ def bwd_launch(bwd, r, k, v, w, u, s0, dy, ds_final, ckpt, chunk=32):
     dr, dk, dv, dw = (new(b, s, h, hd) for _ in range(4))
     du, ds0 = new(h, hd), new(b, h, hd, hd)
     gck, du_part = new(b, h, nck, hd, hd), new(b, h, nck, hd)
+    if is_fake(r):
+        return dr, dk, dv, dw, du, ds0, gck
     strides = _STRIDES(*(st for t in (r, k, v, w, dy, dr, dv)
                          for st in t.stride()[:3]))
     fn, errstr = bwd

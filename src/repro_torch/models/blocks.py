@@ -211,8 +211,10 @@ def mla_attention(p: Params, dims: MLADims, x: torch.Tensor,
     """MLA over the compressed latent: x (B,S,d) -> (B,S,d).  With a cache
     {"ckv": (B,S_max,kv_lora_rank), "krope": (B,S_max,rope)} (`init_mla_cache`)
     the new latents are written in place from `cache_index` on and the
-    queries attend over the whole cache, masked causally.  Attention runs
-    in the absorbed form: q_nope is taken into the latent space through
+    queries attend over the whole cache, masked causally.  A cache of
+    another dtype (fp8 e4m3) is written rounded and read upcast to x's
+    dtype, so the kernel never sees fp8 (the JAX package raises there:
+    R16).  Attention runs in the absorbed form: q_nope is taken into the latent space through
     `wk_b`, and every head attends against one shared key head [ckv, krope]
     (576 features at DeepSeek-V3's widths) and value head ckv (512).  Below
     `ops.FLASH_THRESHOLD` query positions (decode, short prefills) the
@@ -231,10 +233,12 @@ def mla_attention(p: Params, dims: MLADims, x: torch.Tensor,
     krope = layers.apply_rope(kv_a[..., None, r_kv:], positions,
                               dims.rope_theta)[:, :, 0]
     q_offset = 0
-    if kv_cache is not None:
-        kv_cache["ckv"][:, cache_index:cache_index + s] = ckv
-        kv_cache["krope"][:, cache_index:cache_index + s] = krope
-        ckv, krope, q_offset = kv_cache["ckv"], kv_cache["krope"], cache_index
+    if kv_cache is not None:   # written rounded to the cache's dtype,
+        for name, t in (("ckv", ckv), ("krope", krope)):   # read upcast
+            kv_cache[name][:, cache_index:cache_index + s] = t.to(
+                kv_cache[name].dtype)
+        ckv, krope = (kv_cache[n].to(x.dtype) for n in ("ckv", "krope"))
+        q_offset = cache_index
     q_abs = torch.einsum("bqhd,rhd->bqhr", q[..., :nope],
                          p["wk_b"].to(x.dtype))
     q_eff = torch.cat([q_abs, q_rope], dim=-1)           # (B,S,H,r_kv+rope)
@@ -262,7 +266,8 @@ def mla_attention(p: Params, dims: MLADims, x: torch.Tensor,
 
 def init_mla_cache(batch: int, max_seq: int, dims: MLADims, device,
                    dtype=torch.bfloat16) -> Params:
-    """The latent cache, written in place by `mla_attention`."""
+    """The latent cache in `dtype` (bf16, or fp8 e4m3 at half the bytes),
+    written in place by `mla_attention`."""
     return {"ckv": torch.zeros((batch, max_seq, dims.kv_lora_rank),
                                dtype=dtype, device=device),
             "krope": torch.zeros((batch, max_seq, dims.qk_rope_dim),

@@ -23,10 +23,20 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
 
 from repro_torch.kernels import ops, ref
 
 Params = dict
+
+
+class DeviceOnly:
+    """Stands for the generator of an init where nothing is drawn: the
+    shape-only init under a fake mode (`LM.init(..., device=)`).  It names
+    the device the init functions place their tensors on."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
 
 
 def truncated_normal(shape, scale: float, generator: torch.Generator,
@@ -34,7 +44,14 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
     """Standard normal truncated to [-2, 2], times `scale`, drawn in fp32
     on the generator's device and stored in `dtype` (bf16: a matmul
     weight).  Scaled in place: one fp32 copy at a time (DeepSeek-V3's
-    expert weights are 15 GB of it a tensor)."""
+    expert weights are 15 GB of it a tensor).  Under a fake mode
+    (`torch._subclasses.FakeTensorMode`) nothing is drawn: an empty tensor
+    of the shape and dtype, as `jax.eval_shape` of the JAX init gives."""
+    if detect_fake_mode() is not None:
+        return torch.empty(shape, dtype=dtype, device=generator.device)
+    if isinstance(generator, DeviceOnly):
+        raise ValueError("truncated_normal: no generator to draw from "
+                         "outside a fake mode")
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(scale).to(dtype)
@@ -182,14 +199,14 @@ def attention(p: Params, dims: AttnDims, x: torch.Tensor,
     if kv_cache is not None and s == 1:
         pos = kv_cache.get("pos")
         slot = cache_index if pos is None else cache_index % pos.shape[0]
-        kv_cache["k"][:, slot:slot + 1] = k
-        kv_cache["v"][:, slot:slot + 1] = v
+        kv_cache["k"][:, slot:slot + 1] = k.to(kv_cache["k"].dtype)
+        kv_cache["v"][:, slot:slot + 1] = v.to(kv_cache["v"].dtype)
         if pos is not None:
             pos[slot] = cache_index
         out = _grouped_decode_attention(
             q, kv_cache["k"], kv_cache["v"], cache_index=cache_index,
             window=dims.window, k_positions=pos, scale=dims.softmax_scale)
-    else:
+    else:   # the fresh k and v, never the cache, reach the kernel
         out = ops.attention(
             q, _expand_kv(k, dims.n_heads), _expand_kv(v, dims.n_heads),
             causal=causal, window=dims.window, q_offset=cache_index or 0,
@@ -197,29 +214,31 @@ def attention(p: Params, dims: AttnDims, x: torch.Tensor,
         if kv_cache is not None:
             base = cache_index or 0
             pos = kv_cache.get("pos")
+            ck, cv = k.to(kv_cache["k"].dtype), v.to(kv_cache["v"].dtype)
             if pos is None:
-                kv_cache["k"][:, base:base + s] = k
-                kv_cache["v"][:, base:base + s] = v
+                kv_cache["k"][:, base:base + s] = ck
+                kv_cache["v"][:, base:base + s] = cv
             else:   # ring buffer: keep the last `span` keys
                 keep = min(s, pos.shape[0])
                 kept = base + s - keep + torch.arange(
                     keep, dtype=torch.int32, device=x.device)
                 idx = kept.long() % pos.shape[0]
-                kv_cache["k"][:, idx] = k[:, s - keep:]
-                kv_cache["v"][:, idx] = v[:, s - keep:]
+                kv_cache["k"][:, idx] = ck[:, s - keep:]
+                kv_cache["v"][:, idx] = cv[:, s - keep:]
                 pos[idx] = kept
     return _matmul(out, p["wo"], n_in=2)
 
 
 def init_kv_cache(batch: int, max_seq: int, dims: AttnDims,
-                  device) -> Params:
-    """bf16 KV cache of min(max_seq, window) slots per layer; a window
-    shorter than `max_seq` makes it a ring buffer, with "pos" the int32
-    absolute position held in each slot (-1: unwritten)."""
+                  device, dtype=torch.bfloat16) -> Params:
+    """KV cache in `dtype` (bf16, or fp8 e4m3 at half the bytes) of
+    min(max_seq, window) slots per layer; a window shorter than `max_seq`
+    makes it a ring buffer, with "pos" the int32 absolute position held in
+    each slot (-1: unwritten)."""
     span = max_seq if dims.window is None else min(max_seq, dims.window)
     shape = (batch, span, dims.n_kv_heads, dims.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
     if span < max_seq:
         cache["pos"] = torch.full((span,), -1, dtype=torch.int32,
                                   device=device)

@@ -28,6 +28,7 @@ import functools
 
 import torch
 import torch.utils.checkpoint as ckpt
+from torch._guards import detect_fake_mode
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref
@@ -227,12 +228,15 @@ def _cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
-                      max_seq: int, device) -> Params:
+                      max_seq: int, device, dtype=torch.bfloat16) -> Params:
+    """`dtype` is the KV (or MLA latent) cache's; the rwkv and SSM states
+    keep theirs, as in the JAX package."""
     if seg.kind == "rwkv":   # fixed-size state: max_seq plays no part
         return blocks.init_rwkv_state(batch, rwkv_dims(cfg), device)
-    cache = {"kv": blocks.init_mla_cache(batch, max_seq, mla_dims(cfg), device)
+    cache = {"kv": blocks.init_mla_cache(batch, max_seq, mla_dims(cfg), device,
+                                         dtype)
              if uses_mla(cfg, seg) else layers.init_kv_cache(
-                 batch, max_seq, attn_dims(cfg, seg.window), device)}
+                 batch, max_seq, attn_dims(cfg, seg.window), device, dtype)}
     if seg.kind == "hybrid":
         cache["ssm"] = blocks.init_ssm_state(batch, ssm_dims(cfg), device)
     return cache
@@ -241,6 +245,21 @@ def _init_block_cache(cfg: ArchConfig, seg: Segment, batch: int,
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
+
+
+def _init_source(generator, device):
+    """What the init functions draw from: `generator`, or where `device`
+    names another device, a `layers.DeviceOnly` of it, which only a fake
+    mode's shape-only init takes."""
+    if device is None or (generator is not None and torch.device(device) in (
+            generator.device, torch.device(generator.device.type))):
+        if generator is None:
+            raise ValueError("init: give a generator or a device")
+        return generator
+    if detect_fake_mode() is None:
+        raise ValueError(f"init on {device} without a generator there "
+                         "draws nothing: only under a fake mode")
+    return layers.DeviceOnly(device)
 
 
 REMATS = ("full", "dots", "none")
@@ -264,26 +283,36 @@ class LM:
     it (training; serving never recomputes): "full" keeps only the block's
     input and recomputes the block (`torch.utils.checkpoint`), "dots"
     keeps the matrix products' outputs and recomputes the rest, "none"
-    keeps everything."""
+    keeps everything.
+
+    `kv_cache_dtype` is the dtype of the KV and MLA latent caches that
+    `init_cache` makes: bf16, or fp8 (torch.float8_e4m3fn), which halves
+    them; attention still runs in bf16 / fp32 on the upcast values."""
 
     def __init__(self, cfg: ArchConfig, force: str | None = None,
-                 remat: str = "full"):
+                 remat: str = "full", kv_cache_dtype=torch.bfloat16):
         if remat not in REMATS:
             raise ValueError(f"remat={remat!r} not in {REMATS}")
         self.cfg = cfg
         self.force = force
         self.remat = remat
+        self.kv_cache_dtype = kv_cache_dtype
         self.plan = layer_plan(cfg)
 
-    def init(self, generator: torch.Generator,
-             dtype=torch.bfloat16) -> Params:
+    def init(self, generator: torch.Generator | None,
+             dtype=torch.bfloat16, *, device=None) -> Params:
         """Random params on the generator's device, with the scales of the
         JAX package's `truncated_normal` init (different draws).  Matmul
         weights (and RWKV's token-shift mixes) in `dtype`: bf16 for
         serving, fp32 masters for training; norm scales are fp32.  An MTP
         config also gets the JAX package's MTP params ("mtp": the (2d, d)
         projection, a dense-lead block, a norm), which `loss` reads and
-        serving never does."""
+        serving never does.
+
+        `device` (default: the generator's) places the params elsewhere
+        only under a fake mode, where nothing is drawn (the shape-only
+        init; `generator` may then be None)."""
+        generator = _init_source(generator, device)
         cfg = self.cfg
         params: Params = {
             "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model,
@@ -391,7 +420,7 @@ class LM:
 
     def init_cache(self, batch: int, max_seq: int, device) -> Params:
         return {f"seg{i}": [_init_block_cache(self.cfg, seg, batch, max_seq,
-                                              device)
+                                              device, self.kv_cache_dtype)
                             for _ in range(seg.count)]
                 for i, seg in enumerate(self.plan)}
 
@@ -423,14 +452,16 @@ class WhisperLM(LM):
     recomputes encoder blocks as it does decoder blocks."""
 
     def __init__(self, cfg: ArchConfig, force: str | None = None,
-                 remat: str = "full"):
-        super().__init__(cfg, force=force, remat=remat)
+                 remat: str = "full", kv_cache_dtype=torch.bfloat16):
+        super().__init__(cfg, force=force, remat=remat,
+                         kv_cache_dtype=kv_cache_dtype)
         self.enc_seg = Segment("dense", cfg.encdec.n_encoder_layers)
 
-    def init(self, generator: torch.Generator,
-             dtype=torch.bfloat16) -> Params:
+    def init(self, generator: torch.Generator | None,
+             dtype=torch.bfloat16, *, device=None) -> Params:
         """`LM.init`'s params plus "encoder" (a list of dense blocks) and
         "ln_enc"."""
+        generator = _init_source(generator, device)
         params = super().init(generator, dtype)
         params["encoder"] = [_init_block(generator, self.cfg, self.enc_seg,
                                          dtype)
@@ -495,8 +526,8 @@ class WhisperLM(LM):
         return self._logits(params, x)
 
 
-def build(cfg: ArchConfig, force: str | None = None,
-          remat: str = "full") -> LM:
+def build(cfg: ArchConfig, force: str | None = None, remat: str = "full",
+          kv_cache_dtype=torch.bfloat16) -> LM:
     """The LM for `cfg`: `WhisperLM` for an encoder-decoder config."""
     cls = WhisperLM if cfg.encdec is not None else LM
-    return cls(cfg, force=force, remat=remat)
+    return cls(cfg, force=force, remat=remat, kv_cache_dtype=kv_cache_dtype)

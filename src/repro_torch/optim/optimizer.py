@@ -42,10 +42,13 @@ class TrainState:
     nu: dict
 
 
+_FIELDS = ("step", "params", "mu", "nu")
 pytree.register_pytree_node(
-    TrainState, lambda s: ([s.step, s.params, s.mu, s.nu], None),
+    TrainState, lambda s: ([getattr(s, f) for f in _FIELDS], None),
     lambda children, _: TrainState(*children),
-    serialized_type_name="repro_torch.optim.TrainState")
+    serialized_type_name="repro_torch.optim.TrainState",
+    flatten_with_keys_fn=lambda s: (
+        [(pytree.GetAttrKey(f), getattr(s, f)) for f in _FIELDS], None))
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -1535,3 +1535,71 @@ def test_inverse_step_copies_nothing_between_host_and_card(dev):
     # device-to-device copies (a slice's backward) stay on the card
     assert not [e.key for e in rows
                 if "Memcpy HtoD" in e.key or "Memcpy DtoH" in e.key]
+
+
+# ---------------------------------------------------------------------------
+# The dry run (launch.dryrun) on fake CUDA tensors against real runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,kind", [("tinyllama-1.1b", "train"),
+                                       ("tinyllama-1.1b", "prefill"),
+                                       ("rwkv6-3b", "train"),
+                                       ("hymba-1.5b", "prefill"),
+                                       ("deepseek-v3-671b", "decode")])
+def test_dry_run_on_fake_cuda_matches_a_real_run(dev, arch, kind):
+    """A reduced cell at 2 x 2048 (the flash threshold) traced on fake CUDA
+    tensors through the kernels' shape functions, then run for real:
+    argument bytes and FLOPs equal, the predicted peak within 5 % + 256 MiB
+    of max_memory_allocated, no launch by the trace."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, specs
+    cfg = configs.get(arch, reduced=True)
+    shape = ShapeSpec(f"{kind}_2048", 2048, 2, kind)
+    fns = (fa.flash_attention, fa.flash_attention_bwd, wkv.wkv6,
+           wkv.wkv6_bwd, ss.selective_scan, ss.selective_scan_bwd)
+    before = [fn.launches for fn in fns]
+    with FakeTensorMode():
+        pred = dryrun.dry_run(specs.build_cell(cfg, shape, device=dev))
+    assert [fn.launches for fn in fns] == before
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    cell = specs.build_cell(cfg, shape, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flops = FlopCounterMode(display=False)
+    with flops:
+        cell.step_fn(*cell.args)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert pred["memory"]["argument_bytes"] == dryrun.tensor_bytes(cell.args)
+    assert pred["cost"]["flops"] == flops.get_total_flops()
+    assert abs(pred["memory"]["peak_bytes"] - peak) <= 0.05 * peak + 2**28
+    if kind != "decode":
+        assert [fn.launches for fn in fns] != before
+
+
+def test_fp8_kv_cache_decode_on_cuda(dev):
+    """Reduced TinyLlama served with the fp8 cache on the card: prefill
+    and decode finite, the cache fp8 and half the bf16 one's bytes."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    cfg = configs.get("tinyllama-1.1b", reduced=True)
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0))
+    m8 = lm.build(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    prompts = torch.randint(0, cfg.vocab, (2, 16), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    toks = serve.generate(m8, params, prompts, 24, 8)
+    assert toks.shape == (2, 8) and int(toks.max()) < cfg.vocab
+    c8 = m8.init_cache(2, 24, dev)
+    c16 = lm.build(cfg).init_cache(2, 24, dev)
+    assert c8["seg0"][0]["kv"]["k"].dtype == torch.float8_e4m3fn
+    n8 = sum(t.nbytes for t in torch.utils._pytree.tree_leaves(c8))
+    n16 = sum(t.nbytes for t in torch.utils._pytree.tree_leaves(c16))
+    assert 2 * n8 == n16
+    logits = m8.prefill(params, prompts, c8)
+    assert torch.isfinite(logits).all()

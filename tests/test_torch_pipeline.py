@@ -208,9 +208,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  *(SRC / "repro_torch" / "inverse").glob("*.py"),
                  SRC / "repro_torch" / "sweep_cli.py",
                  SRC / "repro_torch" / "scenarios.py",
-                 SRC / "repro_torch" / "launch" / "flops.py",
-                 ROOT / "examples" / "torch_quickstart.py",
-                 ROOT / "examples" / "torch_nvm_dse.py",
+                 *(SRC / "repro_torch" / "launch").glob("*.py"),
+                 *(SRC / "repro_torch" / "distributed").glob("*.py"),
+                 *(SRC / "repro_torch" / "models").glob("*.py"),
+                 *(SRC / "repro_torch" / "kernels").glob("*.py"),
+                 *(ROOT / "examples").glob("torch_*.py"),
+                 *(ROOT / "tools").glob("*.py"),
                  ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = [a.name for a in node.names] \
