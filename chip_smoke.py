@@ -98,11 +98,11 @@ Phases, each fatal on failure:
      width on the GPU against the CPU, and timings: kernel and plain twin
      (and for flash attention `scaled_dot_product_attention`, a yardstick
      the port never calls, and the achieved TFLOP/s) at the main path's
-     shape, for flash attention also at hd 128 (4, 2048, 40, 128) and
-     Gemma-7B's hd 256 (2, 2048, 16, 256) and, in the Gemma-7B phase, at
-     the shape its prefill gives the kernel (4, 2048, 16, 256), for the
-     flash backward beside SDPA's backward (also at hd 128, and in the
-     Gemma-7B phase at its training shape (2, 2048, 16, 256)) with the
+     shape, for flash attention also at Gemma-7B's hd 256 (2, 2048, 16,
+     256) and, in the Gemma-7B phase, at the shape its prefill gives the
+     kernel (4, 2048, 16, 256), for the flash backward beside SDPA's
+     backward (in the Gemma-7B phase also at its training shape (2, 2048,
+     16, 256)) with the
      profiler's device time of each of its three launches (at the main
      shape and at hd 256), for wkv6 also the decode step's
      call (4, 1, 40, 64) (device time from the profiler), prefill ms and
@@ -160,7 +160,7 @@ Phases, each fatal on failure:
      unchanged; params, step ms, tokens/s, peak memory, the MLA kernels'
      shares of the step), its step through the kernels against the plain
      twins at the same cut held by the naive oracle, leaf by leaf;
-  5c. last of the models, Hymba-1.5B: one `blocks.ssm` call at its full
+  5c. after DeepSeek-V3, Hymba-1.5B: one `blocks.ssm` call at its full
      width (d_inner 1600, state 16) in fp32 on the 4 x 2048 tokens of its
      prefill, card (the scan kernel) against CPU (the loop) from the same
      numpy-seeded inputs (output within SSM_BLOCK_REL, the bf16 state
@@ -206,6 +206,21 @@ Phases, each fatal on failure:
      step), its step through the kernels against the plain twins with the
      dense bars, every leaf (the encoder's and the cross-attention's
      among them) held and the five nearest their bars printed;
+  5e. after it, Qwen3-14B and MiniCPM-2B (`qwen3_minicpm_phase`): the
+     flash forward and backward in bf16 at their prefill and training
+     shapes (4, 2048, 40, 128) and (4, 2048, 36, 64) against the plain
+     twins (phase 2's bars) and timed beside SDPA, the plain twins and
+     the bounds, the backward's three launches by profiler; both served
+     at every published width and full depth as in 5b (exactly 40 flash
+     forwards a serve; each layer's attention and the prefill logits
+     within 2e-2 of the plain twins; prefill ms, decode ms/token, peak
+     memory); MiniCPM-2B trained at full depth (batch 4 x 2048) and
+     Qwen3-14B at every published width cut to QWEN3_TRAIN_LAYERS (batch
+     2 x 2048), each step exactly 2n flash forwards and n backwards, the
+     LR AdamW took from `schedule_for` recorded and printed (WSD for
+     MiniCPM-2B, cosine for Qwen3-14B), the step through the kernels
+     against the plain twins with the dense bars (MiniCPM-2B's tied table
+     one leaf, its distance printed);
   6. last, with the card's memory released, the float64 DeepNVM++
      pipeline (`repro_torch.core`, no hand-written kernel) on `cuda`: the
      16 nm Table II designs at 3 MB against the scalar path
@@ -277,10 +292,14 @@ Phases, each fatal on failure:
      and roofline row of each DRYRUN_SWEEP cell (every shape kind and
      model family; `tools/dryrun_sweep.py` runs all 40), printed as a
      `{"dryrun": ...}` line.
-Prints one `{"kernels": [...]}` line (the MLA backward as
-`flash_attention_bwd_mla`; Whisper's decoder shape as
-`flash_attention_whisper` and `flash_attention_bwd_whisper`), the
-`{"served": ...}` (with `v3_train` and `whisper_train`),
+Each phase's seconds are printed on a line of their own ("phase 5e
+(...): N s"), and the sum last.  Prints one `{"kernels": [...]}` line
+(the MLA backward as `flash_attention_bwd_mla`; Whisper's decoder shape
+as `flash_attention_whisper` and `flash_attention_bwd_whisper`; Qwen3-14B's
+and MiniCPM-2B's as `flash_attention_qwen3`, `flash_attention_minicpm`,
+`flash_attention_bwd_qwen3` and `flash_attention_bwd_minicpm`), the
+`{"served": ...}` (with `v3_train`, `whisper_train`, `qwen3_train` and
+`minicpm_train`),
 `{"pipeline": ...}`, `{"service": ...}`, `{"inverse": ...}` and
 `{"dryrun": ...}` lines, the
 card line, and last `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -396,7 +415,8 @@ BWD_EDGES = [(2, sq, skv, 3, hd, causal, window, q_offset, scale)
                  (64, 127, True, 100, 28, None),
                  (192, 192, True, None, 0, None),    # three q steps
                  (129, 257, False, None, 0, None)]]  # five key tiles and one
-# Qwen3-14B's head layout (40 heads of 128), timed beside the main shape
+# Qwen3-14B's prefill and training shape (40 heads of 128, its 8 kv heads
+# expanded before the call), checked and timed in phase 5e
 HD128 = (4, 2048, 2048, 40, 128, True, None, 0, None)
 # the hd-128 shapes the DeepSeek-MoE 16B and Chameleon-34B prefills give
 # the kernel (16 and 64 heads), timed beside SDPA
@@ -498,7 +518,7 @@ MLA_BWD_PARTS = ("flash_bwd_delta", "flash_bwd_mla_dk_bf16",
 V3_TRAIN_LAYERS = 2
 V3_TRAIN_EXPERTS = 8
 V3_TRAIN_BATCH = 1
-# Served last of the models: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
+# Served after DeepSeek-V3: Hymba-1.5B (1.40 B params, 2.8 GB of bf16
 # weights) at every published width and full depth, through the flash
 # forward at hd 64 and 25 heads, one launch per layer (32, 29 of them with
 # its 1024-key window), and the selective-scan kernel, one launch per layer
@@ -532,6 +552,32 @@ HYMBA_CHECK_LAYERS = 3
 WHISPER_ARCH = "whisper-small"
 WHISPER_CONTEXT = 448
 WHISPER_ENC_REL = 1e-4
+# Last of the models (phase 5e), the two dense archs no other phase runs at
+# full width: Qwen3-14B (14.768 B params: 40 layers, d_model 5120, 40 / 8
+# heads x 128 with QK-norm, rope theta 1e6, d_ff 17408, an untied
+# 151,936-entry vocabulary; 29.5 GB of bf16 weights) and MiniCPM-2B
+# (2.725 B: 40 layers, d_model 2304, 36 heads x 64, d_ff 5760, a tied
+# 122,753-entry table, residuals scaled by 1.4 / sqrt(40), the WSD
+# schedule; 5.45 GB), each served at every published width and full
+# depth through the flash forward at its prefill shape (HD128: Qwen3's GQA
+# expanded before the call; MINICPM_SHAPE), one launch a layer.
+# MiniCPM-2B trains at full depth, batch MINICPM_TRAIN_BATCH x 2048: 2.725
+# B fp32 params with grads, m and v ~43.6 GB, the fp32 logits of 4 x 2048
+# tokens over 122,753 entries 4.0 GB a copy.  Qwen3-14B trains at every
+# published width, its depth cut to QWEN3_TRAIN_LAYERS at batch
+# QWEN3_TRAIN_BATCH x 2048: its untied embedding and unembedding (1.556 B
+# params) take 24.9 GB in fp32 with grads, m and v, a layer (0.330 B) 5.28
+# GB, the fp32 logits of 2 x 2048 tokens over 151,936 entries 2.49 GB a
+# copy.  Measured on the H100 (85.0 GB; 700 W): peaks of 61.666 GB at 4
+# layers and 72.236 at 6, so 5.285 GB a layer above 40.53 GB for the rest
+# (the tables' state, the logits, AdamW's unfused temporaries); 7 layers
+# peak at 77.521 GB, 7.5 GB free, and 8 would leave 2.2 GB.
+QWEN3_ARCH = "qwen3-14b"
+MINICPM_ARCH = "minicpm-2b"
+MINICPM_SHAPE = (4, 2048, 2048, 36, 64, True, None, 0, None)
+MINICPM_TRAIN_BATCH = 4
+QWEN3_TRAIN_LAYERS = 7
+QWEN3_TRAIN_BATCH = 2
 # The selective scan's kernels against their plain twins (phase 2):
 # (B, S, D, N, with_h0, strong).  S = 1 (a decode step), spans around the
 # checkpoints (31, 32, 33, 65: CKPT_EVERY is 16), the chunks of CHUNK =
@@ -845,6 +891,14 @@ def ptxas_report(log: str) -> list:
                 if row["mangled"] in line:
                     row["c75"].append(line.strip())
     return rows
+
+
+def phase_seconds(label: str, t0: float) -> float:
+    """Prints the seconds since t0 as phase `label`'s, on a line of its
+    own; returns the time now, the next phase's t0."""
+    now = time.perf_counter()
+    print(f"phase {label}: {now - t0:.1f} s", flush=True)
+    return now
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1532,6 +1586,13 @@ def time_flash(fa, case, card) -> tuple:
     return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
+def timing(t: tuple) -> dict:
+    """`time_flash`'s or `time_flash_bwd`'s tuple as the `kernels` line's
+    keys."""
+    return dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                    t))
+
+
 def bwd_bound(case, dtype) -> tuple[float, str]:
     """Least time (ms) for the backward: q, k, v, o, dO and lse read and
     dq, dk, dv written once, against the five products over the visible
@@ -1546,11 +1607,11 @@ def bwd_bound(case, dtype) -> tuple[float, str]:
 
 def time_flash_bwd(fa, ref, case, card) -> tuple:
     """Phase 4a for the backward at one causal bf16 shape: the kernel (its
-    three launches), its plain twin and SDPA's backward (SDPA forward and
-    backward less its forward; a yardstick the port never calls; a
-    windowed case gives it the window as a boolean mask) on the same
-    inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms, bound_ms,
-    bound_by)."""
+    three launches), its plain twin and SDPA's backward (the backward of
+    one SDPA forward's retained graph, timed alone; a yardstick the port
+    never calls; a windowed case gives it the window as a boolean mask)
+    on the same inputs, with the bound.  Returns (ms, plain_ms, sdpa_ms,
+    bound_ms, bound_by)."""
     args, kw = bwd_inputs(fa, case)
     q, k, v, out, do, lse = args
     ms = time_ms(lambda: fa.flash_attention_bwd(*args, **kw), 5)
@@ -1566,14 +1627,35 @@ def time_flash_bwd(fa, ref, case, card) -> tuple:
             qt, kt, vt, attn_mask=mask, is_causal=mask is None)
     both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
                       20)
-    lib_ms = both_ms - time_ms(sdpa, 20)
+    # SDPA's backward alone: one forward's graph kept, its backward timed
+    # by itself, and its device time by profiler with the kernel that ran
+    # (forward + backward less the forward, timed apart, is printed beside
+    # it)
+    kept = sdpa()
+
+    def backward():
+        return torch.autograd.grad(kept, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_ms = time_ms(backward, 20)
+    rows = device_kernels(lambda: [backward() for _ in range(10)])
+    dev = "not measured"
+    if rows:   # per call that the profile holds (it can lose the first
+        # calls' kernels): the heaviest kernel runs once a call
+        top = max(rows, key=lambda e: e.self_device_time_total)
+        per = sum(e.self_device_time_total for e in rows) / 1e3 / top.count
+        dev = (f"{per:.4f} ms over {top.count} calls, heaviest "
+               f"{top.key[:60]}")
+    diff_ms = both_ms - time_ms(sdpa, 20)
+    del kept
     bound_ms, bound_by = bwd_bound(case, torch.bfloat16)
     tflops = 2.5 * attn_flops(case) / 1e9
     label = "" if mask is None else f", window {kw['window']} (SDPA: mask)"
     print(f"flash_attention_bwd {case[:5]} bf16 causal{label}: kernel "
           f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
           "sdpa "
-          f"backward {lib_ms:.4f} ms (forward + backward {both_ms:.4f}), "
+          f"backward {lib_ms:.4f} ms (its retained graph's backward alone; "
+          f"device time by profiler {dev}; forward + backward "
+          f"{both_ms:.4f}, less the forward {diff_ms:.4f}), "
           f"bound {bound_ms:.4f} ms ({bound_by}, {tflops:.1f} GFLOP) [{card}]",
           flush=True)
     return ms, plain_ms, lib_ms, bound_ms, bound_by
@@ -1884,6 +1966,11 @@ def train_vs_plain(card, cfg, batch_size: int, lm) -> None:
           f"{sorted(l2)[len(l2) // 2]:.3e}, worst "
           f"relative max error {worst_max:.3e} [{card}]", flush=True)
     nearest = sorted(range(len(l2)), key=lambda i: -l2[i] / bars[i])[:5]
+    if cfg.tied_embeddings:   # one leaf, the embedding's and the
+        # unembedding's gradients summed
+        i = names.index("/embed/table")
+        print(f"{cfg.name} train step: the tied table {names[i]}, kernel vs "
+              f"plain {l2[i]:.3e} (bar {bars[i]:.3e}) [{card}]", flush=True)
     if cfg.encdec is not None:   # the encoder's gradient comes through
         # every decoder block's cross-attention
         part = {what: max((i for i, n in enumerate(names) if key(n)),
@@ -2869,6 +2956,111 @@ def whisper_train(card, configs, lm, train, counters) -> dict:
     print(f"whisper training phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
     return trained
+
+
+@contextlib.contextmanager
+def recorded_lrs(train, lrs: list):
+    """While open, the train steps that `train.build_trainer` builds append
+    (step, LR) to `lrs` for every LR their schedule (`schedule_for(cfg)`)
+    gives AdamW, and the schedule's function name is `lrs`' first entry."""
+    real = train.schedule_for
+
+    def schedule_for(cfg):
+        fn = real(cfg)
+        lrs.append(fn.func.__name__)
+
+        def recorded(step):
+            lr = fn(step)
+            lrs.append((int(step), float(lr)))
+            return lr
+        return recorded
+    train.schedule_for = schedule_for
+    try:
+        yield lrs
+    finally:
+        train.schedule_for = real
+
+
+def dense_train(card, cfg, batch: int, lm, train, counters) -> dict:
+    """Phases 3-5 for a dense model's training (5e): `train_path` (exactly
+    2 flash forwards and 1 flash backward a layer a step) with the LR of
+    every step recorded from its schedule and printed beside what the
+    other archs' schedule would give (`schedule_for` picks WSD by the
+    name "minicpm", cosine for every other name), then its step through
+    the kernels against the plain twins (`train_vs_plain`).  Returns
+    `train_path`'s numbers with the schedule's name and LRs."""
+    from repro_torch.launch.specs import schedule_for
+    lrs = []
+    with recorded_lrs(train, lrs):
+        trained = train_path(card, cfg, batch, train, counters)
+    kind, steps = lrs[0], lrs[1:]
+    other = schedule_for(dataclasses.replace(
+        cfg, name="minicpm" if kind == "cosine" else "other"))
+    print(f"train {cfg.name}: schedule_for gives {kind} "
+          f"({schedule_for(cfg).keywords}); the LR AdamW took at steps "
+          f"{[s for s, _ in steps]}: {[lr for _, lr in steps]} (the other "
+          f"schedule, {other.func.__name__} {other.keywords}, would give "
+          f"{[float(other(s)) for s, _ in steps]}) [{card}]", flush=True)
+    if not steps or kind != ("wsd" if "minicpm" in cfg.name else "cosine"):
+        fail(f"train {cfg.name}: the steps took their LR from {kind} "
+             f"({steps})")
+    train_vs_plain(card, cfg, batch, lm)
+    return {**trained, "schedule": kind, "lrs": [lr for _, lr in steps]}
+
+
+def qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
+                        counters) -> dict:
+    """Phase 5e, after Whisper-small, the card's memory released before
+    each model: the flash forward and backward at Qwen3-14B's (HD128) and
+    MiniCPM-2B's (MINICPM_SHAPE) prefill and training shapes in bf16
+    against the plain twins (the forward's output within 2e-2 max abs and
+    its lse within 1e-4, the backward's dq, dk and dv within 2e-2 relative
+    max) and timed beside SDPA and their bounds, the backward's three
+    launches by profiler; both models served at every published width and
+    full depth (`full_depth_serve`: exactly 40 flash forwards a serve and
+    nothing else, each layer's attention and the prefill logits within
+    2e-2 of the plain twins, prefill ms, decode ms/token, peak memory);
+    MiniCPM-2B trained at full depth and Qwen3-14B at every published
+    width, cut to QWEN3_TRAIN_LAYERS (`dense_train`: 2n flash forwards and
+    n backwards a step, the loss within 2e-2 and each gradient leaf within
+    GRAD_BAR of the plain twins', MiniCPM's tied table one leaf).  Returns
+    {"kernels": {arch: {"fwd": time_flash's, "bwd": time_flash_bwd's,
+    "errs": (forward max abs, backward max abs)}}, "served": {arch:
+    full_depth_serve's}, "trained": {arch: dense_train's}}."""
+    lap = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels = {}
+    for arch, case in ((QWEN3_ARCH, HD128), (MINICPM_ARCH, MINICPM_SHAPE)):
+        q, k, v = qkv(case, torch.bfloat16)
+        seen = seen_rows(case)
+        fwd_err = check_forward(fa, ref, case, torch.bfloat16, q, k, v, seen)
+        _, bwd_err = check_backward(fa, case, torch.bfloat16, q, k, v, seen)
+        del q, k, v
+        kernels[arch] = {"fwd": time_flash(fa, case, card),
+                         "bwd": time_flash_bwd(fa, ref, case, card),
+                         "errs": (fwd_err, bwd_err)}
+        bwd_parts(fa, case, card)
+    lap = phase_seconds("5e, the kernels at both shapes", lap)
+    served = {}
+    for arch in (QWEN3_ARCH, MINICPM_ARCH):
+        served[arch] = full_depth_serve(card, configs, lm, serve, fa,
+                                        counters, arch)
+        lap = phase_seconds(f"5e, {arch} served", lap)
+    torch.cuda.empty_cache()
+    trained = {MINICPM_ARCH: dense_train(card, configs.get(MINICPM_ARCH),
+                                         MINICPM_TRAIN_BATCH, lm, train,
+                                         counters)}
+    lap = phase_seconds(f"5e, {MINICPM_ARCH} trained", lap)
+    torch.cuda.empty_cache()
+    full = configs.get(QWEN3_ARCH)
+    print(f"train {QWEN3_ARCH}: every published width, depth cut to "
+          f"{QWEN3_TRAIN_LAYERS} of {full.n_layers} layers, batch "
+          f"{QWEN3_TRAIN_BATCH} x {PROMPT}", flush=True)
+    trained[QWEN3_ARCH] = dense_train(
+        card, cut_config(full, QWEN3_TRAIN_LAYERS), QWEN3_TRAIN_BATCH, lm,
+        train, counters)
+    phase_seconds(f"5e, {QWEN3_ARCH} trained", lap)
+    return {"kernels": kernels, "served": served, "trained": trained}
 
 
 def scan_inputs(case, seed: int = 0) -> tuple:
@@ -4448,7 +4640,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     # 1. build
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     built = build.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f}s",
           flush=True)
@@ -4472,6 +4664,7 @@ def main() -> int:
                  or "ssm_scan" in row["kernel"]
                  or "flash_fwd_mla" in row["kernel"]) and row["spill"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled")
+    t0 = phase_seconds("1 (build)", t0)
 
     # 2. kernels against their plain twins
     errs = check_kernels(fa, ref)
@@ -4479,6 +4672,7 @@ def main() -> int:
     wkv_main_err = check_wkv6(wkv)
     wkv_bwd_err = check_wkv6_bwd(wkv, ref)
     scan_errs = check_scan(ss, ref)
+    t0 = phase_seconds("2 (kernels against their plain twins)", t0)
 
     # 3-5 for the dense main paths, TinyLlama-1.1B and Gemma-7B (hd 256)
     counters = {"flash_attention": (fa.flash_attention, "launches"),
@@ -4493,12 +4687,11 @@ def main() -> int:
     launches = dense_serve(card, configs, serve, counters,
                            ARCH)["flash_attention"]
 
-    # 4a. kernel timings at the main path's shape, at hd 128 and hd 256
+    # 4a. kernel timings at the main path's shape and at hd 256 (hd 128 at
+    # Qwen3-14B's shape in 5e)
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(fa, MAIN, card)
-    time_flash(fa, HD128, card)
     time_flash(fa, GEMMA_B2, card)
     bwd = time_flash_bwd(fa, ref, MAIN, card)
-    time_flash_bwd(fa, ref, HD128, card)
     bwd_parts(fa, MAIN, card)
 
     # 4b and 5 for TinyLlama-1.1B
@@ -4511,6 +4704,7 @@ def main() -> int:
     trained = train_path(card, configs.get(ARCH), BATCH, train, counters)
     train_vs_plain(card, configs.get(ARCH), BATCH, lm)
     reduced_dense(card, configs, lm, train, counters)
+    t0 = phase_seconds("3-5 (TinyLlama-1.1B served and trained)", t0)
 
     # 3-5 for the RWKV main path
     wkv_entry = rwkv_path(card, configs, lm, serve, wkv, counters)
@@ -4519,6 +4713,7 @@ def main() -> int:
     # checkpoints) and backward
     wkv_bwd_entry = rwkv_train(card, configs, lm, train, wkv, ref, counters)
     wkv_bwd_entry["max_abs_err"] = wkv_bwd_err
+    t0 = phase_seconds("3-5 (RWKV6-3B served and trained)", t0)
 
     # 3-5 for Gemma-7B (hd 256), last: the phases above run as they ran
     # before it was added, so their host-bound times stay comparable, and
@@ -4543,6 +4738,7 @@ def main() -> int:
     gemma_trained = train_path(card, gemma_cfg, GEMMA_TRAIN_BATCH, train,
                                counters)
     train_vs_plain(card, gemma_cfg, GEMMA_TRAIN_BATCH, lm)
+    t0 = phase_seconds("3-5 (Gemma-7B served and trained)", t0)
 
     # 5b. DeepSeek-MoE 16B and Chameleon-34B served at full width and
     # depth, each on a card with the earlier models' memory released; the
@@ -4574,8 +4770,10 @@ def main() -> int:
     # loss through the MLA-layout forward and backward
     mla_bwd_t = time_flash_mla_bwd(fa, ref, card)
     v3_trained = v3_train(card, configs, lm, train, counters)
+    t0 = phase_seconds("5b (DeepSeek-MoE 16B, Chameleon-34B, DeepSeek-V3)",
+                       t0)
 
-    # 5c. Hymba-1.5B, last of the models: the SSM block, the windowed
+    # 5c. Hymba-1.5B: the SSM block, the windowed
     # flash forward at 25 heads, the serve at full width and depth, then
     # its training at full width and depth (the flash backward with the
     # window, the scan's forward with checkpoints and its backward)
@@ -4583,6 +4781,7 @@ def main() -> int:
         card, configs, lm, serve, fa, counters)
     hymba_step, hymba_bwd, scan_t = hymba_train(card, configs, lm, train, fa,
                                                 ss, ref, counters)
+    t0 = phase_seconds("5c (Hymba-1.5B)", t0)
 
     # 5d. Whisper-small, the encoder-decoder, at every published width and
     # full depth: the flash forward and backward at its decoder's shape
@@ -4595,19 +4794,34 @@ def main() -> int:
     bwd_parts(fa, WHISPER, card)
     served[WHISPER_ARCH] = whisper_serve(card, configs, lm, serve, counters)
     whisper_trained = whisper_train(card, configs, lm, train, counters)
+    t0 = phase_seconds("5d (Whisper-small)", t0)
+
+    # 5e. Qwen3-14B and MiniCPM-2B: the flash forward and backward at their
+    # shapes, both served at every published width and full depth,
+    # MiniCPM-2B trained at full depth (its WSD schedule, its tied table),
+    # Qwen3-14B at every published width cut to QWEN3_TRAIN_LAYERS
+    dense5e = qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
+                                  counters)
+    served.update(dense5e["served"])
+    t0 = phase_seconds("5e (Qwen3-14B, MiniCPM-2B)", t0)
 
     # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
     # released
     torch.cuda.empty_cache()
     pipeline, mega_summary = pipeline_phase(card)
+    t0 = phase_seconds("6 (the float64 pipeline)", t0)
     # 7. the sweep service and its CLI on the card
     service = service_phase(card, mega_summary)
+    t0 = phase_seconds("7 (the sweep service and CLI)", t0)
     # 8. the inverse designer on the card
     inverse = inverse_phase(card)
+    t0 = phase_seconds("8 (the inverse designer)", t0)
     # 9. the dry run: three cells predicted against measured, the fp8 KV
     # cache, and the sweep's roofline rows
     torch.cuda.empty_cache()
     dry = dryrun_phase(card, configs, counters)
+    t0 = phase_seconds("9 (the dry run)", t0)
+    print(f"chip_smoke phases: {t0 - start:.1f} s in all", flush=True)
 
     fwd_src = {"route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4657,7 +4871,16 @@ def main() -> int:
         "launches": served[WHISPER_ARCH]["launches"],
         "max_abs_err": errs[WHISPER][0], "ms": whisper_t[0],
         "plain_ms": whisper_t[1], "bound_ms": whisper_t[3],
-        "bound_by": whisper_t[4], "library_ms": whisper_t[2]}, {
+        "bound_by": whisper_t[4], "library_ms": whisper_t[2]}, *[{
+        # the same wrapper and source at Qwen3-14B's 40 heads of 128 (GQA
+        # expanded before the call) and MiniCPM-2B's 36 heads of 64: their
+        # serves
+        "name": f"flash_attention_{label}", **fwd_src,
+        "launches": served[arch]["launches"],
+        "max_abs_err": dense5e["kernels"][arch]["errs"][0],
+        **timing(dense5e["kernels"][arch]["fwd"])}
+        for label, arch in (("qwen3", QWEN3_ARCH),
+                            ("minicpm", MINICPM_ARCH))], {
         "name": "flash_attention_bwd", **bwd_src,
         "launches": trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[MAIN][1], "ms": bwd[0], "plain_ms": bwd[1],
@@ -4681,7 +4904,16 @@ def main() -> int:
         "launches": whisper_trained["launches"]["flash_attention_bwd"],
         "max_abs_err": errs[WHISPER][1], "ms": whisper_bwd[0],
         "plain_ms": whisper_bwd[1], "bound_ms": whisper_bwd[3],
-        "bound_by": whisper_bwd[4], "library_ms": whisper_bwd[2]}, {
+        "bound_by": whisper_bwd[4], "library_ms": whisper_bwd[2]}, *[{
+        # the same wrapper and source at Qwen3-14B's and MiniCPM-2B's
+        # training shapes (Qwen3-14B at its depth cut)
+        "name": f"flash_attention_bwd_{label}", **bwd_src,
+        "launches": dense5e["trained"][arch]["launches"][
+            "flash_attention_bwd"],
+        "max_abs_err": dense5e["kernels"][arch]["errs"][1],
+        **timing(dense5e["kernels"][arch]["bwd"])}
+        for label, arch in (("qwen3", QWEN3_ARCH),
+                            ("minicpm", MINICPM_ARCH))], {
         # the same wrapper and source at DeepSeek-V3's MLA layout (its own
         # wgmma kernels in bf16, dK and dV summed over the heads and dV
         # into dK, as the main path calls it): V3's training at MLA_TRAIN;
@@ -4720,6 +4952,12 @@ def main() -> int:
                       "whisper_train": {k: whisper_trained[k] for k in (
                           "step_ms", "tokens_per_s", "peak_gb", "launches",
                           "losses", "params_b")},
+                      **{f"{label}_train": {k: dense5e["trained"][arch][k]
+                                            for k in (
+                          "step_ms", "tokens_per_s", "peak_gb", "launches",
+                          "losses", "params_b", "schedule", "lrs")}
+                         for label, arch in (("qwen3", QWEN3_ARCH),
+                                             ("minicpm", MINICPM_ARCH))},
                       "v3_mla_block": v3_block}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"service": service}))

@@ -1260,6 +1260,78 @@ def test_whisper_train_step_launches_decoder_flash_only(dev):
 
 
 # ---------------------------------------------------------------------------
+# Qwen3-14B and MiniCPM-2B, narrow and shallow (the configs of
+# tests/test_torch_qwen3_minicpm.py): Qwen3's GQA 5 : 1 at hd 128 with
+# QK-norm, MiniCPM's 64-dim heads, tied table and depth-scaled residuals
+# ---------------------------------------------------------------------------
+
+
+SHAPED = {
+    "qwen3": ("qwen3-14b", dict(
+        name="qwen3-shaped-smoke", n_layers=2, d_model=512, n_heads=10,
+        n_kv_heads=2, head_dim=128, d_ff=1024, vocab=512, qk_norm=True,
+        rope_theta=1e6)),
+    "minicpm": ("minicpm-2b", dict(
+        name="minicpm-shaped-smoke", n_layers=2, d_model=384, n_heads=6,
+        n_kv_heads=6, head_dim=64, d_ff=768, vocab=512,
+        tied_embeddings=True, residual_scale=1.4 / 2 ** 0.5)),
+}
+
+
+def _shaped(which):
+    import repro_torch.configs as configs
+    arch, over = SHAPED[which]
+    return dataclasses.replace(configs.get(arch, reduced=True), **over)
+
+
+@pytest.mark.parametrize("which", sorted(SHAPED))
+def test_qwen3_minicpm_forward_launches_one_kernel_per_layer(dev, which):
+    """The shaped config's forward at 2 x 2048 through the flash forward,
+    one launch a layer, its logits within 2e-2 of the plain twins'."""
+    cfg = _shaped(which)
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD),
+                           device=dev)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        got = lm.build(cfg).forward(params, tokens)
+        assert fa.flash_attention.launches - before == cfg.n_layers
+        want = lm.build(cfg, force="plain").forward(params, tokens)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("which", sorted(SHAPED))
+def test_qwen3_minicpm_train_step_matches_plain(dev, which):
+    """One loss + backward of the shaped config at 2 x 2048 with remat
+    full: two flash forwards and one backward a layer; the loss within
+    2e-2 and every gradient leaf (MiniCPM's tied table one leaf, Qwen3's
+    QK-norm scales among them) within 5e-2 relative L2 of the plain
+    twins'."""
+    cfg = _shaped(which)
+    params = lm.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                dtype=torch.float32)
+    leaves = torch.utils._pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, ops.FLASH_THRESHOLD + 1),
+                           device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    counters = (fa.flash_attention, fa.flash_attention_bwd)
+    before = [c.launches for c in counters]
+    loss = lm.build(cfg).loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    n = cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == [2 * n, n]
+    want = lm.build(cfg, force="plain").loss(params, batch)
+    wants = torch.autograd.grad(want, leaves)
+    assert abs(loss.item() - want.item()) <= 2e-2 * abs(want.item())
+    assert ("unembed" in params["embed"]) == (which == "qwen3")
+    for g, w in zip(grads, wants):
+        assert torch.isfinite(g).all()
+        assert ((g - w).norm() / w.norm()).item() <= 5e-2
+
+
+# ---------------------------------------------------------------------------
 # The float64 pipeline: cuda against cpu
 # ---------------------------------------------------------------------------
 
