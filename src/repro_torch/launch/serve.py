@@ -21,6 +21,7 @@ import time
 import torch
 
 import repro_torch.configs as configs
+from repro_torch import obs
 from repro_torch.models import lm as lm_mod
 
 
@@ -41,17 +42,22 @@ def generate(model, params, prompts: torch.Tensor, max_seq: int,
     output to the prefill and to every decode step (the JAX `generate`
     hands its decode steps neither, and raises at the first: R14)."""
     b, prompt_len = prompts.shape
-    cache = model.init_cache(b, max_seq, prompts.device)
-    kw = ({} if model.cfg.encdec is None
-          else {"enc_out": model.encode(params, frames)})
-    logits = model.prefill(params, prompts, cache, **kw)
-    tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
-    out = [tok]
-    for i in range(gen - 1):
-        logits = model.decode_step(params, tok, cache, prompt_len + i, **kw)
+    with obs.span("generate", prompts, batch=b, length=prompt_len, gen=gen):
+        cache = model.init_cache(b, max_seq, prompts.device)
+        kw = ({} if model.cfg.encdec is None
+              else {"enc_out": model.encode(params, frames)})
+        with obs.span("generate.prefill", prompts):
+            logits = model.prefill(params, prompts, cache, **kw)
         tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
-        out.append(tok)
-    return torch.cat(out, dim=1)
+        out = [tok]
+        for i in range(gen - 1):
+            logits = model.decode_step(params, tok, cache, prompt_len + i,
+                                       **kw)
+            tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+            out.append(tok)
+        toks = torch.cat(out, dim=1)
+        obs.mark("generate.enqueued", prompts)
+    return toks
 
 
 def main(argv=None):

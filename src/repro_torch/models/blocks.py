@@ -28,6 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, _matmul
@@ -129,12 +130,18 @@ def moe(p: Params, dims: MoEDims, x: torch.Tensor):
     once.  The load-balance loss is mean_G(sum_E(frac * mean_prob)) * E,
     `frac` from the routing before the capacity cut; padding rows count in
     both means, as in the JAX block."""
+    with obs.span("moe", x, batch=x.shape[0], length=x.shape[1]):
+        return _moe(p, dims, x)
+
+
+def _moe(p: Params, dims: MoEDims, x: torch.Tensor):
     b, s, d = x.shape
     e, cap = dims.n_experts, dims.capacity
     xg, valid = group_tokens(x, dims.group_size)
     n_g, g_size = valid.shape
     n_rows = n_g * g_size
     probs, expert, gates, position, kept, frac = route(p, dims, xg, valid)
+    obs.count_moe(kept, b * s * dims.top_k, e * n_g * cap)
 
     # buffer slot of each (token, slot): expert-major, then group, position
     group = torch.arange(n_g, device=x.device)[:, None, None]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import obs
 from repro_torch.convert import is_stacked
 
 
@@ -128,27 +129,37 @@ def make_train_step(loss_fn: Callable, cfg: AdamWConfig,
 
     def step(state: TrainState, batch: dict):
         leaves, spec = pytree.tree_flatten(state.params)
-        for p in leaves:
-            p.requires_grad_(True)
-        micro = ([batch] if accum_steps == 1 else
-                 [{k: x.reshape(accum_steps, -1, *x.shape[1:])[i]
-                   for k, x in batch.items()} for i in range(accum_steps)])
-        loss, gsum = 0.0, None
-        for mb in micro:
-            value = loss_fn(state.params, mb)
-            # a leaf with no path to the loss (the MoE router bias enters
-            # only the top-k sort) gets a zero gradient, as under
-            # jax.value_and_grad; AdamW then leaves it where it is
-            grads = torch.autograd.grad(value, leaves, materialize_grads=True)
-            loss = loss + value.detach()
-            gsum = ([g.float() for g in grads] if gsum is None
-                    else [a + g for a, g in zip(gsum, grads)])
-        if accum_steps > 1:
-            loss = loss / accum_steps
-            gsum = [g / accum_steps for g in gsum]
-        grads = pytree.tree_unflatten(gsum, spec)
-        state = adamw_update(state, grads, cfg, grad_transform)
-        return state, {"loss": loss.float(), "grad_norm": global_norm(gsum),
+        like, first = leaves[0], next(iter(batch.values()))
+        with obs.span("step", like, batch=first.shape[0],
+                      length=first.shape[-1], step=state.step + 1):
+            for p in leaves:
+                p.requires_grad_(True)
+            micro = ([batch] if accum_steps == 1 else
+                     [{k: x.reshape(accum_steps, -1, *x.shape[1:])[i]
+                       for k, x in batch.items()}
+                      for i in range(accum_steps)])
+            loss, gsum = 0.0, None
+            for mb in micro:
+                with obs.span("step.forward", like):
+                    value = loss_fn(state.params, mb)
+                # a leaf with no path to the loss (the MoE router bias
+                # enters only the top-k sort) gets a zero gradient, as
+                # under jax.value_and_grad; AdamW then leaves it where it is
+                with obs.span("step.backward", like):
+                    grads = torch.autograd.grad(value, leaves,
+                                                materialize_grads=True)
+                loss = loss + value.detach()
+                gsum = ([g.float() for g in grads] if gsum is None
+                        else [a + g for a, g in zip(gsum, grads)])
+            if accum_steps > 1:
+                loss = loss / accum_steps
+                gsum = [g / accum_steps for g in gsum]
+            grads = pytree.tree_unflatten(gsum, spec)
+            with obs.span("step.optimizer", like):
+                state = adamw_update(state, grads, cfg, grad_transform)
+            metrics = {"loss": loss.float(), "grad_norm": global_norm(gsum),
                        "step": state.step}
+            obs.mark("step.enqueued", like)
+        return state, metrics
 
     return step

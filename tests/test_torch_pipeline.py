@@ -208,6 +208,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  *(SRC / "repro_torch" / "inverse").glob("*.py"),
                  SRC / "repro_torch" / "sweep_cli.py",
                  SRC / "repro_torch" / "scenarios.py",
+                 SRC / "repro_torch" / "obs.py",
                  *(SRC / "repro_torch" / "launch").glob("*.py"),
                  *(SRC / "repro_torch" / "distributed").glob("*.py"),
                  *(SRC / "repro_torch" / "models").glob("*.py"),
