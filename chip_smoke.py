@@ -210,13 +210,19 @@ Phases, each fatal on failure:
      flash forward and backward in bf16 at their prefill and training
      shapes (4, 2048, 40, 128) and (4, 2048, 36, 64) against the plain
      twins (phase 2's bars) and timed beside SDPA, the plain twins and
-     the bounds, the backward's three launches by profiler; both served
+     the bounds, the backward's three launches by profiler; AdamW's
+     multi-tensor kernels at MiniCPM-2B's 362 leaves (`adamw_phase`: one
+     step against the plain loop within 1e-6, the norm against float64;
+     the update with its clip norm, the norm alone, the plain loop and
+     clip_grad_norm_ + AdamW(fused=True) timed beside the bytes bound);
+     both served
      at every published width and full depth as in 5b (exactly 40 flash
      forwards a serve; each layer's attention and the prefill logits
      within 2e-2 of the plain twins; prefill ms, decode ms/token, peak
      memory); MiniCPM-2B trained at full depth (batch 4 x 2048) and
      Qwen3-14B at every published width cut to QWEN3_TRAIN_LAYERS (batch
-     2 x 2048), each step exactly 2n flash forwards and n backwards, the
+     2 x 2048), each step exactly 2n flash forwards and n backwards (and,
+     in every training phase, AdamW's planned launches over every leaf), the
      LR AdamW took from `schedule_for` recorded and printed (WSD for
      MiniCPM-2B, cosine for Qwen3-14B), the step through the kernels
      against the plain twins with the dense bars (MiniCPM-2B's tied table
@@ -576,6 +582,10 @@ QWEN3_ARCH = "qwen3-14b"
 MINICPM_ARCH = "minicpm-2b"
 MINICPM_SHAPE = (4, 2048, 2048, 36, 64, True, None, 0, None)
 MINICPM_TRAIN_BATCH = 4
+# AdamW's kernels against the plain loop (tests/test_torch_cuda.py's
+# ADAMW_REL: the loop's fp32 operations in its order with IEEE rounding;
+# the clip scale and PyTorch's division by a Python float differ by ulps)
+ADAMW_BAR = 1e-6
 QWEN3_TRAIN_LAYERS = 7
 QWEN3_TRAIN_BATCH = 2
 # The selective scan's kernels against their plain twins (phase 2):
@@ -614,7 +624,7 @@ PEAK_MUFU = 16 * 132 * 1.98e9
 # Every launch counter, in the order the script reports them
 COUNTERS = ("flash_attention", "flash_attention_mla", "flash_attention_bwd",
             "flash_attention_bwd_mla", "wkv6", "wkv6_bwd", "selective_scan",
-            "selective_scan_bwd")
+            "selective_scan_bwd", "adamw", "adamw_leaves", "global_norm")
 # (B, S, H, hd, chunk, decay, with_s0, pad): w = exp(-exp(decay + 0.5 N));
 # pad > 0 lays r, k, v, w out one element into a wider buffer with a token
 # stride of H*hd + pad elements (the kernel's 4-byte copy path)
@@ -869,7 +879,8 @@ def ptxas_report(log: str) -> list:
             mangled = m.group(1)
             name = re.search(
                 r"(?<=\d)(flash_[a-z0-9_]+?|wkv6_[a-z_]*kernel)[IE]"
-                r"|(?<=\d)(ssm_scan_[a-z_]*kernel)[IE]", mangled)
+                r"|(?<=\d)(ssm_scan_[a-z_]*kernel)[IE]"
+                r"|(?<=\d)(adamw_kernel|norm_[a-z]+_kernel)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             dt = ("bf16" if "__nv_bfloat16" in mangled else "f32"
                   if re.search(r"ILi\d+EfE|IfE", mangled) else "")
@@ -1718,6 +1729,20 @@ def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
+def optimizer_counts(state) -> dict:
+    """The AdamW kernels' counts of one `make_train_step` step over
+    `state` (fp32 grads): the update's launches and leaves, and the
+    launches of two norms (the clip's and the metrics')."""
+    from repro_torch.kernels import adamw as aw
+    ps = tree_leaves(state.params)
+    numels = [p.numel() for p in ps]
+    upd = aw.plan([(p.dtype, torch.float32) for p in ps], numels,
+                  aw.MAX_LEAVES)
+    norm = aw.plan([torch.float32] * len(ps), numels, aw.MAX_NORM_LEAVES)
+    return {"adamw": len(upd), "adamw_leaves": len(ps),
+            "global_norm": 2 * (len(norm) + 1)}
+
+
 def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
     """Phase 3 for training: `build_trainer` on `cfg` at batch x PROMPT, a
     warm-up step, then TRAIN_STEPS steps, each with the counts set to 0
@@ -1757,16 +1782,18 @@ def train_path(card, cfg, batch: int, train, counters, fixed=None) -> dict:
           f"launches per step {per_step} [{card}]", flush=True)
     n = cfg.n_layers
     mtp = int(cfg.mtp)
-    want = (counts(wkv6=2 * n, wkv6_bwd=n) if cfg.rwkv else counts(
-        flash_attention_mla=2 * n + mtp, flash_attention_bwd_mla=n + mtp)
-        if cfg.mla is not None else counts(
-        flash_attention=2 * n, flash_attention_bwd=n,
+    opt = optimizer_counts(state)
+    want = (counts(wkv6=2 * n, wkv6_bwd=n, **opt) if cfg.rwkv else counts(
+        flash_attention_mla=2 * n + mtp, flash_attention_bwd_mla=n + mtp,
+        **opt) if cfg.mla is not None else counts(
+        flash_attention=2 * n, flash_attention_bwd=n, **opt,
         **({"selective_scan": 2 * n, "selective_scan_bwd": n}
            if cfg.ssm is not None else {})))
     if any(c != want for c in per_step):
         fail(f"train {cfg.name} launched {per_step}; want {want} a step (a "
              "forward per layer, its recompute, and a backward per layer, "
-             "and the MTP block's forward and backward)")
+             "and the MTP block's forward and backward; AdamW's kernels "
+             "over every leaf)")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train {cfg.name}: a loss is not finite: {losses}")
     if fixed is not None:
@@ -2035,7 +2062,8 @@ def reduced_dense(card, configs, lm, train, counters) -> None:
         if (rel > 2e-2 or not math.isfinite(loss)
                 or fwd != counts(flash_attention=n)
                 or trained != counts(flash_attention=2 * n,
-                                     flash_attention_bwd=n)):
+                                     flash_attention_bwd=n,
+                                     **optimizer_counts(state))):
             fail(f"reduced {cfg.name} through the kernels: rel {rel}, loss "
                  f"{loss}, launches {fwd} / {trained}")
         del model, state, step, logits, want
@@ -3008,7 +3036,121 @@ def dense_train(card, cfg, batch: int, lm, train, counters) -> dict:
     return {**trained, "schedule": kind, "lrs": [lr for _, lr in steps]}
 
 
-def qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
+def adamw_phase(card, configs, lm, aw) -> dict:
+    """Phase 5e's first part: AdamW's kernels at MiniCPM-2B's 362 fp32
+    leaves (2,724,880,896 params; the decay mask of its param tree), fp32
+    grads drawn with a norm far above the clip.  One step through the
+    kernels against the plain loop run a leaf at a time with the plain
+    norm's scale: p, m and v each within ADAMW_BAR of the loop's (max |got
+    - want| over max |want|, a leaf), the norm within ADAMW_BAR of
+    float64's.  Then, by CUDA events over repeated calls, the update with
+    its clipping norm as `adamw_update` runs it, the norm alone (the
+    metrics' second one), the plain loop and the plain norm beside the
+    bytes bound (the update's 28 B and a norm's 4 B a param at
+    PEAK_BYTES), and as `library_ms` `torch.optim.AdamW(fused=True)` after
+    `clip_grad_norm_(foreach=True)` (a yardstick the port never calls);
+    the kernels' device time by profiler and the host's time a call.
+    Returns the numbers of the `kernels` line's two entries."""
+    import numpy as np
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.optim import AdamWConfig, decay_mask
+    torch.cuda.empty_cache()
+    with FakeTensorMode():
+        fake = lm.build(configs.get(MINICPM_ARCH)).init(
+            None, torch.float32, device="cpu")
+    shapes = [p.shape for p in tree_leaves(fake)]
+    decay = decay_mask(fake)
+    n = sum(s.numel() for s in shapes)
+    gen = torch.Generator("cuda").manual_seed(0)
+    ps = [0.02 * torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    gs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    ms = [torch.zeros(s, device="cuda") for s in shapes]
+    vs = [torch.zeros(s, device="cuda") for s in shapes]
+    cfg = AdamWConfig()
+    # step 1's LR and bias corrections, as `optim.adamw_update` takes them
+    setup = (1e-2, float(np.float32(1) - np.float32(cfg.b1)),
+             float(np.float32(1) - np.float32(cfg.b2)))
+    p0 = [p.clone() for p in ps]
+    aw.adamw(ps, gs, ms, vs, decay, cfg, *setup)
+    scale = torch.clamp(cfg.clip_norm / (aw.global_norm_plain(gs) + 1e-9),
+                        max=1.0)
+    err = 0.0
+    for i in range(len(ps)):
+        p, m, v = p0[i], torch.zeros_like(ms[i]), torch.zeros_like(vs[i])
+        p0[i] = None
+        aw.update_plain([p], [gs[i]], [m], [v], [decay[i]], scale, cfg,
+                        *setup)
+        err = max(err, rel_err(ps[i], p), rel_err(ms[i], m),
+                  rel_err(vs[i], v))
+        del p, m, v
+    del p0
+    norm64 = math.sqrt(sum(g.double().square().sum().item() for g in gs))
+    norm_err = abs(aw.global_norm(gs).item() - norm64) / norm64
+    print(f"adamw at {MINICPM_ARCH}'s {len(shapes)} leaves ({n} fp32 "
+          f"params, {sum(decay)} decayed): one step, kernels vs the plain "
+          f"loop rel max err {err:.3e} (p, m, v; bar {ADAMW_BAR}); norm "
+          f"{norm64:.6e}, kernels' rel err {norm_err:.3e} against float64 "
+          f"[{card}]", flush=True)
+    if err > ADAMW_BAR or norm_err > ADAMW_BAR:
+        fail(f"adamw kernels: rel err {err}, norm rel err {norm_err}")
+
+    def step():
+        aw.adamw(ps, gs, ms, vs, decay, cfg, *setup)
+
+    def plain():
+        aw.adamw_plain(ps, gs, ms, vs, decay, cfg, *setup)
+    upd_bound, norm_bound = (b * n / PEAK_BYTES * 1e3 for b in (28, 4))
+    got = {"ms": time_ms(step, 10), "norm_ms": time_ms(
+        lambda: aw.global_norm(gs), 10), "host_ms": host_ms(step, 10)}
+    rows = device_kernels(step)
+    parts = {k: (sum(e.self_device_time_total for e in rows if k in e.key)
+                 / 1e3, sum(e.count for e in rows if k in e.key))
+             for k in ("norm_partial_kernel", "norm_final_kernel",
+                       "adamw_kernel")}
+    got["plain_ms"] = time_ms(plain, 3, warmup=1)
+    got["plain_host_ms"] = host_ms(plain, 2)
+    got["plain_norm_ms"] = time_ms(lambda: aw.global_norm_plain(gs), 3,
+                                   warmup=1)
+    del ms, vs
+    torch.cuda.empty_cache()
+    for p, g in zip(ps, gs):
+        p.grad = g
+    opt = torch.optim.AdamW(
+        [{"params": [p for p, d in zip(ps, decay) if d]},
+         {"params": [p for p, d in zip(ps, decay) if not d],
+          "weight_decay": 0.0}],
+        lr=setup[0], betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+        weight_decay=cfg.weight_decay, fused=True)
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(ps, cfg.clip_norm, foreach=True)
+        opt.step()
+    got["library_ms"] = time_ms(library, 10)
+    got["library_step_ms"] = time_ms(opt.step, 10)
+    got["library_norm_ms"] = time_ms(lambda: torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(gs))), 10)
+    del opt, ps, gs
+    torch.cuda.empty_cache()
+    bound = upd_bound + norm_bound
+    print(f"adamw at {MINICPM_ARCH}'s leaves: update with its clip norm "
+          f"{got['ms']:.3f} ms ({got['ms'] / bound:.3f} x the bytes bound "
+          f"{bound:.3f} = {upd_bound:.3f} + {norm_bound:.3f}; the kernels' "
+          f"device time " + (", ".join(f"{k} {t:.3f} ms x{c}" for k, (t, c)
+                                       in parts.items() if c)
+                             or "not measured: no profiler rows")
+          + f"); host {got['host_ms']:.3f} ms a call; the norm alone "
+          f"{got['norm_ms']:.3f} ms (bound {norm_bound:.3f}); plain loop "
+          f"{got['plain_ms']:.3f} ms (host {got['plain_host_ms']:.3f}), "
+          f"plain norm {got['plain_norm_ms']:.3f} ms; library: "
+          f"clip_grad_norm_ + AdamW(fused=True) {got['library_ms']:.3f} ms "
+          f"(the step alone {got['library_step_ms']:.3f}, the foreach norm "
+          f"{got['library_norm_ms']:.3f}) [{card}]", flush=True)
+    return {**got, "bound_ms": bound, "norm_bound_ms": norm_bound,
+            "max_abs_err": err, "norm_err": norm_err}
+
+
+def qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref, aw,
                         counters) -> dict:
     """Phase 5e, after Whisper-small, the card's memory released before
     each model: the flash forward and backward at Qwen3-14B's (HD128) and
@@ -3016,16 +3158,18 @@ def qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
     against the plain twins (the forward's output within 2e-2 max abs and
     its lse within 1e-4, the backward's dq, dk and dv within 2e-2 relative
     max) and timed beside SDPA and their bounds, the backward's three
-    launches by profiler; both models served at every published width and
+    launches by profiler; AdamW's kernels at MiniCPM-2B's leaves
+    (`adamw_phase`); both models served at every published width and
     full depth (`full_depth_serve`: exactly 40 flash forwards a serve and
     nothing else, each layer's attention and the prefill logits within
     2e-2 of the plain twins, prefill ms, decode ms/token, peak memory);
     MiniCPM-2B trained at full depth and Qwen3-14B at every published
     width, cut to QWEN3_TRAIN_LAYERS (`dense_train`: 2n flash forwards and
-    n backwards a step, the loss within 2e-2 and each gradient leaf within
-    GRAD_BAR of the plain twins', MiniCPM's tied table one leaf).  Returns
-    {"kernels": {arch: {"fwd": time_flash's, "bwd": time_flash_bwd's,
-    "errs": (forward max abs, backward max abs)}}, "served": {arch:
+    n backwards a step and AdamW's kernels over every leaf, the loss
+    within 2e-2 and each gradient leaf within GRAD_BAR of the plain
+    twins', MiniCPM's tied table one leaf).  Returns {"kernels": {arch:
+    {"fwd": time_flash's, "bwd": time_flash_bwd's, "errs": (forward max
+    abs, backward max abs)}, "adamw": adamw_phase's}, "served": {arch:
     full_depth_serve's}, "trained": {arch: dense_train's}}."""
     lap = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3041,6 +3185,8 @@ def qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
                          "errs": (fwd_err, bwd_err)}
         bwd_parts(fa, case, card)
     lap = phase_seconds("5e, the kernels at both shapes", lap)
+    kernels["adamw"] = adamw_phase(card, configs, lm, aw)
+    lap = phase_seconds("5e, AdamW's kernels", lap)
     served = {}
     for arch in (QWEN3_ARCH, MINICPM_ARCH):
         served[arch] = full_depth_serve(card, configs, lm, serve, fa,
@@ -4628,6 +4774,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch.configs as configs
+    from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import selective_scan as ss
@@ -4654,7 +4801,8 @@ def main() -> int:
                   f" {row['spill']} bytes spill stores", flush=True)
             # the tensor-core kernels and the MLA layout's backward: no
             # spills, no serialized wgmma; the wkv6 backward's span walk,
-            # the scan kernels and the MLA layout's forward: no spills
+            # the scan kernels, the MLA layout's forward and AdamW's
+            # kernels: no spills
             if (("_bf16<" in row["kernel"]
                  or "flash_bwd_mla" in row["kernel"])
                     and (row["spill"] or row["c75"])):
@@ -4662,6 +4810,8 @@ def main() -> int:
                      f"{row['c75']}")
             if (("wkv6_pair_kernel" in row["kernel"]
                  or "ssm_scan" in row["kernel"]
+                 or "adamw_kernel" in row["kernel"]
+                 or "norm_" in row["kernel"]
                  or "flash_fwd_mla" in row["kernel"]) and row["spill"]):
                 fail(f"{row['kernel']}: {row['spill']} bytes spilled")
     t0 = phase_seconds("1 (build)", t0)
@@ -4683,7 +4833,10 @@ def main() -> int:
                 "wkv6": (wkv.wkv6, "launches"),
                 "wkv6_bwd": (wkv.wkv6_bwd, "launches"),
                 "selective_scan": (ss.selective_scan, "launches"),
-                "selective_scan_bwd": (ss.selective_scan_bwd, "launches")}
+                "selective_scan_bwd": (ss.selective_scan_bwd, "launches"),
+                "adamw": (aw.adamw, "launches"),
+                "adamw_leaves": (aw.adamw, "leaves"),
+                "global_norm": (aw.global_norm, "launches")}
     launches = dense_serve(card, configs, serve, counters,
                            ARCH)["flash_attention"]
 
@@ -4801,8 +4954,9 @@ def main() -> int:
     # MiniCPM-2B trained at full depth (its WSD schedule, its tied table),
     # Qwen3-14B at every published width cut to QWEN3_TRAIN_LAYERS
     dense5e = qwen3_minicpm_phase(card, configs, lm, serve, train, fa, ref,
-                                  counters)
+                                  aw, counters)
     served.update(dense5e["served"])
+    adamw_t = dense5e["kernels"]["adamw"]
     t0 = phase_seconds("5e (Qwen3-14B, MiniCPM-2B)", t0)
 
     # 6. the float64 DeepNVM++ pipeline, on a card with the models' memory
@@ -4940,7 +5094,28 @@ def main() -> int:
         "launches": hymba_step["selective_scan_bwd"],
         "max_abs_err": scan_errs[1], "ms": scan_t["backward"][0],
         "plain_ms": scan_t["backward"][1], "bound_ms": scan_t["backward"][2],
-        "bound_by": scan_t["backward"][3], "library_ms": None}]}))
+        "bound_by": scan_t["backward"][3], "library_ms": None}, {
+        # no TPU kernel: XLA fuses the JAX update; the update kernel with
+        # its clip norm at MiniCPM-2B's leaves, launches a MiniCPM-2B step;
+        # the library time is clip_grad_norm_ + AdamW(fused=True)
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "src/repro/optim/optimizer.py:69",
+        "launches": dense5e["trained"][MINICPM_ARCH]["launches"]["adamw"],
+        "max_abs_err": adamw_t["max_abs_err"], "ms": adamw_t["ms"],
+        "plain_ms": adamw_t["plain_ms"], "bound_ms": adamw_t["bound_ms"],
+        "bound_by": "bytes", "library_ms": adamw_t["library_ms"]}, {
+        # the norm alone (the metrics' second norm a step); the library
+        # time is torch._foreach_norm's
+        "name": "global_norm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "src/repro/optim/optimizer.py:51",
+        "launches": dense5e["trained"][MINICPM_ARCH]["launches"][
+            "global_norm"],
+        "max_abs_err": adamw_t["norm_err"], "ms": adamw_t["norm_ms"],
+        "plain_ms": adamw_t["plain_norm_ms"],
+        "bound_ms": adamw_t["norm_bound_ms"], "bound_by": "bytes",
+        "library_ms": adamw_t["library_norm_ms"]}]}))
     print(json.dumps({"served": served, "moe_dropped_slots": moe_dropped,
                       "hymba_ssm_block": hymba_ssm,
                       "moe_train": {k: moe_trained[k] for k in (

@@ -247,7 +247,9 @@ def records() -> dict:
 def counters() -> dict:
     """Every count of the port in one dict: the MoE counters since the
     tracer was turned on (one device read) and the kernel wrappers' launch
-    counts, read where they are kept."""
+    counts, read where they are kept, with the leaves AdamW's kernels
+    updated (`adamw.leaves`)."""
+    from repro_torch.kernels.adamw import adamw, global_norm
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.selective_scan import (selective_scan,
@@ -257,8 +259,9 @@ def counters() -> dict:
            "moe.kept_pairs": sum(int(acc) for acc in _T.moe_kept.values()),
            "moe.buffer_rows": _T.moe_rows}
     for fn in (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd,
-               selective_scan, selective_scan_bwd):
+               selective_scan, selective_scan_bwd, adamw, global_norm):
         out[f"{fn.__name__}.launches"] = fn.launches
         if hasattr(fn, "launches_mla"):
             out[f"{fn.__name__}.launches_mla"] = fn.launches_mla
+    out["adamw.leaves"] = adamw.leaves
     return out

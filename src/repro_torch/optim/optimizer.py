@@ -9,7 +9,10 @@ the gradients before the update.
 
 Unlike the JAX version, `adamw_update` updates the state in place (params,
 mu, nu and step) and returns it: TinyLlama-1.1B's fp32 params, mu and nu
-come to 13 GB, and a functional update would hold them twice.
+come to 13 GB, and a functional update would hold them twice.  On CUDA
+tensors the update and `global_norm` run the multi-tensor kernels of
+`kernels/adamw.py` (a few launches a step, no host sync); on CPU tensors
+their plain twins, the loop over the leaves.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.utils._pytree as pytree
 
 from repro_torch import obs
 from repro_torch.convert import is_stacked
+from repro_torch.kernels import adamw as adamw_kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +58,7 @@ pytree.register_pytree_node(
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.stack([x.float().square().sum()
-                        for x in pytree.tree_leaves(tree)]).sum().sqrt()
+    return adamw_kernels.global_norm(pytree.tree_leaves(tree))
 
 
 def decay_mask(params: dict) -> list[bool]:
@@ -70,10 +73,8 @@ def decay_mask(params: dict) -> list[bool]:
     1-D leaves (`ln_f.scale`, `ln_enc.scale`) escape.  The port keeps
     blocks as a list of per-layer dicts, where the same scale is (d,), so
     it decays by this rule to give the same update."""
-    return pytree.tree_leaves({
-        name: pytree.tree_map(
-            lambda p, stacked=is_stacked(name): stacked or p.dim() >= 2, sub)
-        for name, sub in params.items()})
+    return [is_stacked(name) or p.dim() >= 2
+            for name, sub in params.items() for p in pytree.tree_leaves(sub)]
 
 
 def adamw_init(params: dict) -> TrainState:
@@ -90,27 +91,15 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     """One AdamW step on `state`, in place; returns it."""
     if grad_transform is not None:
         grads = grad_transform(grads)
-    flat_g = pytree.tree_leaves(grads)
-    scale = torch.clamp(cfg.clip_norm / (global_norm(flat_g) + 1e-9), max=1.0)
     step = state.step + 1
     lr = float(cfg.schedule(step)) if cfg.schedule else 3e-4
     # the bias corrections in fp32, as the JAX step.astype(float32) gives
     b1c = float(np.float32(1) - np.float32(cfg.b1) ** np.float32(step))
     b2c = float(np.float32(1) - np.float32(cfg.b2) ** np.float32(step))
-    flat_p = pytree.tree_leaves(state.params)
-    with torch.no_grad():
-        for p, g, m, v, decay in zip(flat_p, flat_g,
-                                     pytree.tree_leaves(state.mu),
-                                     pytree.tree_leaves(state.nu),
-                                     decay_mask(state.params), strict=True):
-            g = g.float() * scale
-            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-            v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-            delta = (m / b1c) / ((v / b2c).sqrt() + cfg.eps)
-            p32 = p.float()
-            if decay:
-                delta = delta + cfg.weight_decay * p32
-            p.copy_(p32 - lr * delta)
+    adamw_kernels.adamw(
+        pytree.tree_leaves(state.params), pytree.tree_leaves(grads),
+        pytree.tree_leaves(state.mu), pytree.tree_leaves(state.nu),
+        decay_mask(state.params), cfg, lr, b1c, b2c)
     state.step = step
     return state
 

@@ -1,8 +1,8 @@
 """The CUDA kernels (flash attention forward and backward, both at
 DeepSeek-V3's MLA layout too, WKV6 forward and backward, the selective scan
-forward and backward) against their plain twins, the models' launches
-through them (Whisper's decoder among them), and the float64 DeepNVM++ pipeline
-(the engines, the golden specs, the DTCO analyses, the sweep service and
+forward and backward, AdamW's update and norm) against their plain twins,
+the models' launches through them (Whisper's decoder among them), and the
+float64 DeepNVM++ pipeline (the engines, the golden specs, the DTCO analyses, the sweep service and
 the inverse designer) on `cuda` against the same pipeline on `cpu` (1e-12
 relative, equal tuned organizations; the inverse designer's gradients
 within 1e-10 of their largest component, its solve within 1e-9), on the
@@ -1675,3 +1675,228 @@ def test_fp8_kv_cache_decode_on_cuda(dev):
     assert 2 * n8 == n16
     logits = m8.prefill(params, prompts, c8)
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# AdamW's multi-tensor kernels (kernels/adamw.py) against the plain loop
+# ---------------------------------------------------------------------------
+
+# p, m and v within 1e-6 of the loop's, relative to the leaf's largest: the
+# kernel does the loop's fp32 operations in its order with IEEE rounding;
+# what differs is the clip scale (the two norms sum in other orders: a few
+# ulps where the clip engages) and PyTorch's CUDA division by a Python
+# float, a product with its reciprocal (1 ulp), so three steps stay within
+# ~10 ulps (6e-7).  A bf16 param rounds the same fp32 value, so it is held
+# to one bf16 ulp (2^-7 relative) where those ulps cross a rounding edge.
+ADAMW_REL = 1e-6
+BF16_ULP = 2.0 ** -7
+
+
+def _adamw_setup(step: int, cfg):
+    """(lr, b1c, b2c) as `optim.adamw_update` computes them."""
+    b1c = float(np.float32(1) - np.float32(cfg.b1) ** np.float32(step))
+    b2c = float(np.float32(1) - np.float32(cfg.b2) ** np.float32(step))
+    return float(cfg.schedule(step)), b1c, b2c
+
+
+def _leaf_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _norm64(leaves) -> float:
+    return sum(x.double().square().sum().item() for x in leaves) ** 0.5
+
+
+def _adamw_counts():
+    from repro_torch.kernels import adamw as ak
+    return (ak.adamw.launches, ak.adamw.leaves, ak.global_norm.launches)
+
+
+def test_adamw_kernels_match_the_loop_at_minicpm_2b_leaves(dev):
+    """MiniCPM-2B's 362 fp32 leaves (the 282,822,912-entry tied table, the
+    decayed block scales, the undecayed `ln_f`) over 3 steps with the clip
+    engaged (norm ~5e4), idle (~5e-2) and engaged: `adamw_update` on the
+    kernels with no host sync, against the loop run a leaf at a time with
+    the plain norm's scale; the norms within 1e-6 of float64's; launches as
+    planned and every leaf through the kernel each step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import (tree_flatten, tree_leaves,
+                                     tree_unflatten)
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   decay_mask, global_norm)
+    with FakeTensorMode():
+        fake = lm.build(configs.get("minicpm-2b")).init(
+            None, torch.float32, device="cpu")
+    shapes = [p.shape for p in tree_leaves(fake)]
+    decay = decay_mask(fake)
+    spec = tree_flatten(fake)[1]
+    n = len(shapes)
+    assert n == 362 and not decay[1] and decay[2] and len(shapes[2]) == 1
+    sizes = (1.0, 1e-6, 3.0)
+
+    def draw(i, k):
+        g = torch.Generator(dev).manual_seed(1000 * k + i)
+        return torch.randn(shapes[i], generator=g, device=dev) * (
+            0.02 if k == 0 else sizes[k - 1])
+
+    cfg = AdamWConfig(schedule=lambda s: 1e-2 * s)
+    state = adamw_init(tree_unflatten([draw(i, 0) for i in range(n)], spec))
+    upd = len(ak.plan([(torch.float32, torch.float32)] * n,
+                      [s.numel() for s in shapes], ak.MAX_LEAVES))
+    norm = len(ak.plan([torch.float32] * n, [s.numel() for s in shapes],
+                       ak.MAX_NORM_LEAVES)) + 1
+    assert (upd, norm) == (6, 3)
+    scales, before = [], _adamw_counts()
+    for k in range(1, 4):
+        gs = [draw(i, k) for i in range(n)]
+        want = _norm64(gs)
+        got = global_norm(gs).item()
+        assert abs(got - want) <= 1e-6 * want
+        assert (want > cfg.clip_norm) == (k != 2)
+        scales.append(torch.clamp(cfg.clip_norm / (
+            ak.global_norm_plain(gs) + 1e-9), max=1.0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            adamw_update(state, tree_unflatten(gs, spec), cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del gs
+    assert [a - b for a, b in zip(_adamw_counts(), before)] == [
+        3 * upd, 3 * n, 3 * norm + 3 * norm]
+    got = [tree_leaves(getattr(state, f)) for f in ("params", "mu", "nu")]
+    worst = 0.0
+    for i in range(n):
+        p, m, v = draw(i, 0), torch.zeros(shapes[i], device=dev), \
+            torch.zeros(shapes[i], device=dev)
+        for k in range(1, 4):
+            ak.update_plain([p], [draw(i, k)], [m], [v], [decay[i]],
+                            scales[k - 1], cfg, *_adamw_setup(k, cfg))
+        worst = max(worst, *(_leaf_rel(g[i], w)
+                             for g, w in zip(got, (p, m, v))))
+    assert worst <= ADAMW_REL
+
+
+def _mixed_leaves(dev):
+    """(params, grads) of every case the kernels take: fp32 and bf16 params
+    and grads in all four pairs, odd lengths, two chunks, a misaligned
+    param view, zero gradients on a decayed leaf ("seg*") and an undecayed
+    one (a top-level 1-D leaf), a transposed (non-contiguous) gradient,
+    1-D leaves decayed and not, and an empty leaf."""
+    from repro_torch.kernels import adamw as ak
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    bf16 = torch.bfloat16
+    params = {
+        "embed": {"table": rnd(300, 96)},
+        "ln_f": {"scale": rnd(4099)},
+        "router": {"bias": rnd(64)},
+        "seg0": [{"w": rnd(2 * ak.CHUNK + 3), "scale": rnd(97),
+                  "wb": rnd(64, 33, dtype=bf16), "wm": rnd(1 + 4099)[1:],
+                  "zero": rnd(1001), "wt": rnd(40, 24),
+                  "empty": rnd(0), "wf": rnd(7, dtype=bf16)}],
+    }
+    grads = {
+        "embed": {"table": rnd(300, 96)},
+        "ln_f": {"scale": rnd(4099, dtype=bf16)},
+        "router": {"bias": torch.zeros(64, device=dev)},
+        "seg0": [{"w": rnd(2 * ak.CHUNK + 3), "scale": rnd(97),
+                  "wb": rnd(64, 33, dtype=bf16), "wm": rnd(4099),
+                  "zero": torch.zeros(1001, device=dev),
+                  "wt": rnd(24, 40).t(), "empty": rnd(0),
+                  "wf": rnd(7)}],
+    }
+    assert params["seg0"][0]["wm"].data_ptr() % 16 == 4
+    return params, grads
+
+
+def test_adamw_kernels_match_the_loop_on_mixed_leaves(dev):
+    """3 steps, the clip engaged, idle and engaged, through the kernels and
+    through the plain loop on copies: m and v within ADAMW_REL, fp32
+    params within ADAMW_REL, bf16 params within one bf16 ulp; the
+    zero-gradient leaves' m and v stay 0, the decayed one moves by the
+    decay alone (as the loop's), the undecayed one not at all."""
+    import copy
+
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim import AdamWConfig, adamw_init, decay_mask
+    params, grads = _mixed_leaves(dev)
+    bias = params["router"]["bias"].clone()
+    cfg = AdamWConfig(schedule=lambda s: 1e-2)
+    state, ref_state = adamw_init(params), adamw_init(copy.deepcopy(params))
+    decay = decay_mask(params)
+    before = _adamw_counts()
+    for k, size in enumerate((10.0, 1e-4, 10.0), 1):
+        gs = [g * size for g in tree_leaves(grads)]
+        assert sum(not g.is_contiguous() for g in gs) == 1
+        assert (_norm64(gs) > cfg.clip_norm) == (k != 2)
+        setup = _adamw_setup(k, cfg)
+        ak.adamw(tree_leaves(state.params), gs, tree_leaves(state.mu),
+                 tree_leaves(state.nu), decay, cfg, *setup)
+        ak.adamw_plain(tree_leaves(ref_state.params), gs,
+                       tree_leaves(ref_state.mu), tree_leaves(ref_state.nu),
+                       decay, cfg, *setup)
+    assert _adamw_counts()[1] - before[1] == 3 * len(decay)
+    for field in ("params", "mu", "nu"):
+        for g, w in zip(tree_leaves(getattr(state, field)),
+                        tree_leaves(getattr(ref_state, field)), strict=True):
+            if not w.numel():
+                continue
+            if w.dtype == torch.bfloat16:
+                diff = (g.float() - w.float()).abs()
+                assert bool((diff <= BF16_ULP * w.float().abs()).all())
+            else:
+                assert _leaf_rel(g, w) <= ADAMW_REL, field
+    for name in ("zero",):
+        assert not state.mu["seg0"][0][name].any()
+        assert not state.nu["seg0"][0][name].any()
+    assert torch.equal(state.params["seg0"][0]["zero"],
+                       ref_state.params["seg0"][0]["zero"])
+    assert torch.equal(state.params["router"]["bias"], bias)
+    assert not state.mu["router"]["bias"].any()
+
+
+def test_adamw_global_norm_is_deterministic_and_exact(dev):
+    """The norm kernels over fp32 and bf16 grads, a transposed one and an
+    empty one among them: two calls bitwise equal, within 1e-6 of float64,
+    `global_norm.launches` up by the planned launches plus one."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.kernels import adamw as ak
+    _, grads = _mixed_leaves(dev)
+    gs = tree_leaves(grads)
+    before = ak.global_norm.launches
+    a, b = ak.global_norm(gs), ak.global_norm(gs)
+    planned = len(ak.plan([g.dtype for g in gs], [g.numel() for g in gs],
+                          ak.MAX_NORM_LEAVES))
+    assert ak.global_norm.launches - before == 2 * (planned + 1)
+    assert a.shape == () and a.dtype == torch.float32 and torch.equal(a, b)
+    want = _norm64(gs)
+    assert abs(a.item() - want) <= 1e-6 * want
+
+
+@pytest.mark.parametrize("what", ["param_fp16", "m_bf16", "grad_fp64"])
+def test_adamw_kernels_refuse_other_dtypes(dev, what):
+    """On CUDA tensors any dtype but float32 and bfloat16 (and moments not
+    in float32) raises: no fallback to the loop."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim import AdamWConfig
+    ps = [torch.zeros(8, device=dev)]
+    gs = [torch.ones(8, device=dev)]
+    ms, vs = [torch.zeros(8, device=dev)], [torch.zeros(8, device=dev)]
+    if what == "param_fp16":
+        ps = [ps[0].half()]
+    elif what == "m_bf16":
+        ms = [ms[0].bfloat16()]
+    else:
+        gs = [gs[0].double()]
+    with pytest.raises(ValueError, match="adamw"):
+        ak.adamw(ps, gs, ms, vs, [True], AdamWConfig(), 1e-3, 0.1, 0.05)

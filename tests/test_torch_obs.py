@@ -251,15 +251,19 @@ def test_nothing_is_counted_on_fake_tensors():
 
 
 def test_counters_carry_the_kernels_launch_counts():
+    from repro_torch.kernels.adamw import adamw, global_norm
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.wkv6 import wkv6_bwd
     c = obs.counters()
     assert c["flash_attention.launches"] == flash_attention.launches
     assert c["flash_attention.launches_mla"] == flash_attention.launches_mla
     assert c["wkv6_bwd.launches"] == wkv6_bwd.launches
+    assert c["adamw.launches"] == adamw.launches
+    assert c["adamw.leaves"] == adamw.leaves
+    assert c["global_norm.launches"] == global_norm.launches
     assert {k.split(".")[0] for k in c} == {
         "moe", "flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
-        "selective_scan", "selective_scan_bwd"}
+        "selective_scan", "selective_scan_bwd", "adamw", "global_norm"}
 
 
 # ---------------------------------------------------------------------------
