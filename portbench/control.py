@@ -42,7 +42,7 @@ def train_readings(run) -> dict:
         return {k: v[: v.shape[0] // 2] for k, v in b.items()}
 
     from portbench import weights
-    names = weights.names(run.cfg)
+    names = weights.names(run.cfg, run.arch)
     t = time.perf_counter()
     ref = train.reference_steps(run, batch, n)
     secs = {"reference_s": time.perf_counter() - t}
@@ -61,18 +61,19 @@ def serve_readings(run) -> dict:
     import torch
     from portbench import weights
     from portbench.kinds.serve import prompts_of
-    from portbench.reference.model import Reference, strict_fp32
+    from portbench.reference.model import strict_fp32
     schedule = gen.serve_schedule(run.mix, run.seconds)
     check = gen.check_sample(schedule, run.mix["check_batches"], run.seed)
     prompts = prompts_of(run, [schedule[i] for i in check])
     strict_fp32()
-    params = weights.make(run.cfg, run.seed, run.device, torch.bfloat16)
+    params = weights.make(run.cfg, run.seed, run.device, torch.bfloat16,
+                          run.arch)
     gaps = {"control": [], "token_altered": []}
     rel = {"control": [], "token_altered": []}
     secs = {}
     for prec in ("fp32", "fp8"):
         t = time.perf_counter()
-        ref = Reference(run.cfg, prec)
+        ref = run.arch.Reference(run.cfg, prec)
         logits = {i: ref.last_logits(params, prompts[i]) for i in check}
         secs[f"{prec}_s"] = time.perf_counter() - t
         if prec == "fp32":

@@ -43,6 +43,7 @@ class Run:
     t_start: float
     per_layer: list
     end_to_end: list
+    arch: object               # the configuration's module, `spec.arch`
     here: Path = spec.HERE     # the portbench directory the files came from
 
 
@@ -169,11 +170,13 @@ def make_run(workload: str, seed: int, seconds: float, trace: bool,
     bench = spec.load_benchmark(root)
     cell = spec.workload(bench, workload)
     e2e, per_layer = spec.metrics_of(bench, workload)
-    return Run(bench=bench, cell=cell, cfg=spec.config(cell["config"], here),
+    cfg = spec.config(cell["config"], here)
+    return Run(bench=bench, cell=cell, cfg=cfg,
                mix=spec.traffic(cell["traffic"], here),
                limits=spec.limits(workload, here), seed=seed,
                seconds=seconds, trace=trace, device=device, t_start=t_start,
-               per_layer=per_layer, end_to_end=e2e, here=here)
+               per_layer=per_layer, end_to_end=e2e,
+               arch=spec.arch(cfg, here), here=here)
 
 
 def forbidden_modules() -> list[str]:

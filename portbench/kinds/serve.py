@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import correct, flops, gen, program, weights
+from portbench import correct, gen, weights
 from portbench.harness import Outcome, Profiler, Run, free, readers, sync
 from portbench.spans import Tap, span
 
@@ -62,10 +62,11 @@ def reference_gaps(run: Run, prompts: dict, served: dict, logits: dict,
     served tokens and the program's last-position logits against the
     reference's over the same prompts.  A batch whose logits the program
     never produced reads an infinite logit gap."""
-    from portbench.reference.model import Reference, strict_fp32
+    from portbench.reference.model import strict_fp32
     strict_fp32()
-    params = weights.make(run.cfg, run.seed, run.device, torch.bfloat16)
-    ref = Reference(run.cfg, prec)
+    params = weights.make(run.cfg, run.seed, run.device, torch.bfloat16,
+                          run.arch)
+    ref = run.arch.Reference(run.cfg, prec)
     gaps, rel = [], []
     for i in check:
         want = ref.last_logits(params, prompts[i])
@@ -82,8 +83,8 @@ def run(run: Run) -> Outcome:
     mix, dev = run.mix, run.device
     bsz, new = mix["batch"], mix["new_tokens"]
     phases, t = {}, time.perf_counter()
-    model = lm_mod.build(program.arch(run.cfg))
-    params = weights.make(run.cfg, run.seed, dev, torch.bfloat16)
+    model = lm_mod.build(run.arch.port_config(run.cfg))
+    params = weights.make(run.cfg, run.seed, dev, torch.bfloat16, run.arch)
     sync(dev)
     phases["weights_s"], t = time.perf_counter() - t, time.perf_counter()
     schedule = gen.serve_schedule(mix, run.seconds)
@@ -110,7 +111,9 @@ def run(run: Run) -> Outcome:
         ttft, served, enqueue, late, logits = [], {}, [], [], {}
         for b in schedule:
             due = t0 + b["due"]
-            _wait_until(due)
+            with (span("wait") if prof and prof.on
+                  else contextlib.nullcontext()):
+                _wait_until(due)
             tc = time.perf_counter()
             late.append(tc - due)
             tap.armed = b["index"] in checked
@@ -151,7 +154,7 @@ def run(run: Run) -> Outcome:
         n_tr = min(len(schedule), mix["trace_batches"])
         ctx = {"run": run, "reduced": red, "calls": prof.spans.calls,
                "host_enqueue_s": enqueue[n_tr:] or enqueue,
-               "stretch_flops": sum(flops.prefill_flops(
+               "stretch_flops": sum(run.arch.prefill_flops(
                    run.cfg, bsz, b["length"]) for b in schedule[:n_tr]),
                "stretch_batches": n_tr}
         profile = (red, mods, ctx)

@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import correct, flops, gen, program, weights
+from portbench import correct, gen, weights
 from portbench.harness import Outcome, Profiler, Run, free, readers, sync
 
 
@@ -50,7 +50,7 @@ def program_steps(run: Run, params: dict, batch, n_check: int):
     from repro_torch.models import lm as lm_mod
     from repro_torch.optim import AdamWConfig, adamw_init, make_train_step
     cfg = run.cfg
-    arch = program.arch(cfg)
+    arch = run.arch.port_config(cfg)
     o = cfg["optimizer"]
     model = lm_mod.build(arch, remat=cfg["remat"])
     step = make_train_step(model.loss, AdamWConfig(
@@ -71,7 +71,7 @@ def program_steps(run: Run, params: dict, batch, n_check: int):
                 1 - o["b1"])
     sync(run.device)
     step_s = time.perf_counter() - t
-    p0 = weights.make(cfg, run.seed, run.device, torch.float32)
+    p0 = weights.make(cfg, run.seed, run.device, torch.float32, run.arch)
     delta = _norms(p.detach() - q for (_, p), (_, q) in zip(
         weights.leaves(state.params), weights.leaves(p0)))
     del p0
@@ -85,8 +85,9 @@ def reference_steps(run: Run, batch, n_check: int, prec: str = "fp32"):
     from portbench.reference.model import strict_fp32
     from portbench.reference.train import Trainer
     strict_fp32()
-    params = weights.make(run.cfg, run.seed, run.device, torch.float32)
-    tr = Trainer(run.cfg, params, prec)
+    params = weights.make(run.cfg, run.seed, run.device, torch.float32,
+                          run.arch)
+    tr = Trainer(run.arch.Reference(run.cfg, prec), params)
     losses, grad_norms = [], None
     for k in range(n_check):
         b = batch(k)
@@ -96,7 +97,8 @@ def reference_steps(run: Run, batch, n_check: int, prec: str = "fp32"):
             grad_norms = norms
     tr.free_state()
     free(run.device)
-    p0 = weights.make(run.cfg, run.seed, run.device, torch.float32)
+    p0 = weights.make(run.cfg, run.seed, run.device, torch.float32,
+                      run.arch)
     delta = [(p - q).norm().item() for (_, p), (_, q) in zip(
         weights.leaves(params), weights.leaves(p0))]
     return {"losses": losses, "grad_norms": grad_norms, "delta_norms": delta}
@@ -108,8 +110,8 @@ def run(run: Run) -> Outcome:
     tokens_per_step = mix["batch"] * mix["seq_len"]
     batch = _feed(run)
     phases, t = {}, time.perf_counter()
-    params = weights.make(run.cfg, run.seed, dev, torch.float32)
-    names = weights.names(run.cfg)
+    params = weights.make(run.cfg, run.seed, dev, torch.float32, run.arch)
+    names = weights.names(run.cfg, run.arch)
     sync(dev)
     phases["weights_s"], t = time.perf_counter() - t, time.perf_counter()
     state, step, prog = program_steps(run, params, batch, n_check)
@@ -162,7 +164,7 @@ def run(run: Run) -> Outcome:
         red = prof.reduce()
         ctx = {"run": run, "reduced": red, "calls": prof.spans.calls,
                "host_enqueue_s": enqueue[traced:] or enqueue,
-               "stretch_flops": traced * flops.train_step_flops(
+               "stretch_flops": traced * run.arch.train_step_flops(
                    run.cfg, mix["batch"], mix["seq_len"]),
                "stretch_steps": traced}
         profile = (red, mods, ctx)

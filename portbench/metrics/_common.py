@@ -79,14 +79,19 @@ def _attn_shape(call):
 
 def flash_fwd_roofline_pct(ctx) -> float | None:
     """Sum of the calls' roofline times over their device time: each
-    forward span of ops.attention, recomputed ones included."""
+    forward span of ops.attention, recomputed ones included.  A span to
+    which the profiler tied no device time (it drops the link of a kernel
+    now and then) is left out of both sums: a call's bound counts only
+    with its time."""
     red, calls = ctx["reduced"], ctx["calls"].get("attention", [])
     bound = dev = 0.0
     for s in red.forward("attention"):
         b, sq, skv, h, hd, causal, el, window, grad = _attn_shape(
             calls[s.index])
-        if window is not None or s.device_us <= 0:
+        if window is not None:
             return None   # a windowed count is not frozen here
+        if s.device_us <= 0:
+            continue
         bound += flops.roofline_s(
             flops.attention_flops(b, sq, skv, h, hd, causal),
             flops.attention_bytes(b, sq, skv, h, hd, el, lse=grad))
@@ -96,12 +101,10 @@ def flash_fwd_roofline_pct(ctx) -> float | None:
 
 def flash_bwd_roofline_pct(ctx) -> float | None:
     """The backward of every forward (not recomputed) ops.attention call
-    that needed a gradient, joined by sequence number."""
+    that needed a gradient, joined by sequence number, each call's bound
+    with its own joined time (a call with none joined is left out)."""
     red, calls = ctx["reduced"], ctx["calls"].get("attention", [])
-    dev = red.backward_us.get("attention", 0.0) * 1e-6
-    if dev <= 0 or not red.backward_joined.get("attention"):
-        return None
-    bound = 0.0
+    bound = dev = 0.0
     for s in red.forward("attention"):
         if s.in_backward:
             continue
@@ -109,8 +112,9 @@ def flash_bwd_roofline_pct(ctx) -> float | None:
             calls[s.index])
         if window is not None:
             return None
-        if grad:
+        if grad and s.backward_us > 0:
             bound += flops.roofline_s(
                 flops.attention_bwd_flops(b, sq, skv, h, hd, causal),
                 flops.attention_bwd_bytes(b, sq, skv, h, hd, el))
-    return 100.0 * bound / dev if bound > 0 else None
+            dev += s.backward_us * 1e-6
+    return 100.0 * bound / dev if dev > 0 else None

@@ -1,6 +1,7 @@
-"""The training step of the reference: the loss of `model.Reference`,
-autograd's gradients, global-norm clipping and AdamW with the
-configuration's schedule, all in float32.
+"""The training step of the reference: the loss of a plain reference model
+(the `Reference` of the cell's architecture module), autograd's gradients,
+global-norm clipping and AdamW with the configuration's schedule, all in
+float32.
 
 AdamW as the configuration states it: g scaled by min(1, clip / (|g| +
 1e-9)); m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2; p -= lr (m / (1 -
@@ -16,8 +17,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from portbench.reference.model import Reference
 
 
 def wsd(step: int, peak: float, warmup: int, total: int,
@@ -50,13 +49,14 @@ def flat_leaves(params) -> list[tuple[str, torch.Tensor]]:
 
 
 class Trainer:
-    """Steps the reference from `params` (trained in place) on batches."""
+    """Steps the reference model `ref` (its `cfg` and `loss`) from `params`
+    (trained in place) on batches."""
 
-    def __init__(self, cfg: dict, params: dict, prec: str = "fp32"):
-        self.cfg, self.ref = cfg, Reference(cfg, prec)
+    def __init__(self, ref, params: dict):
+        self.cfg, self.ref = ref.cfg, ref
         self.params = params
         self.named = flat_leaves(params)
-        self.opt = cfg["optimizer"]
+        self.opt = ref.cfg["optimizer"]
         no_decay = set(self.opt.get("no_decay", ()))
         self.decay = [name not in no_decay for name, _ in self.named]
         self.m = self.v = None

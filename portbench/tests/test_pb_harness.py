@@ -126,6 +126,7 @@ def test_the_benchmark_file_keeps_to_its_shape():
         assert (spec.HERE / "configs" / f"{w['config']}.json").is_file()
         assert (spec.HERE / "traffic" / f"{w['traffic']}.json").is_file()
         assert (spec.HERE / "limits" / f"{w['name']}.json").is_file()
+        assert spec.arch(spec.config(w["config"])).Reference
         e2e, per_layer = spec.metrics_of(bench, w["name"])
         names = {m["name"] for m in e2e}
         assert "setup_s" in names and len(names) >= 2 and per_layer

@@ -93,7 +93,7 @@ def test_adamw_steps_match_the_port(fp32_port):
         clip_norm=o["clip_norm"], schedule=schedule_for(
             dataclasses.replace(arch, name="minicpm-tiny"))))
     state = adamw_init(weights.make(cfg, 5, "cpu", torch.float32))
-    tr = Trainer(cfg, weights.make(cfg, 5, "cpu", torch.float32))
+    tr = Trainer(Reference(cfg), weights.make(cfg, 5, "cpu", torch.float32))
     for k in range(3):
         toks = _tokens(cfg, seed=10 + k)
         state, m = step(state, {"tokens": toks[:, :-1],

@@ -4,7 +4,8 @@ nodes to the forward ops that recorded them."""
 
 import pytest
 
-from portbench import trace
+from portbench import flops, trace
+from portbench.metrics import _common
 from portbench.trace import Ev
 
 
@@ -31,6 +32,19 @@ def test_idle_gaps_are_named_by_the_host_activity():
     gaps = dict(red.idle_gaps)
     assert gaps == {"wait": 50, "pb:serve.batch": 25,
                     "(idle gaps under 20 us)": 2}
+
+
+def test_idle_time_under_a_wait_for_an_arrival_is_the_waits():
+    """The host reads a batch's token (a copy that ends the device's work
+    and returns after it), then waits for the next arrival."""
+    host = Ev("pb:stretch", 0, 200, children=[
+        Ev("pb:serve.batch#0", 0, 50, children=[
+            Ev("cudaMemcpyAsync", 10, 48)]),
+        Ev(trace.WAIT, 60, 150),
+        Ev("pb:serve.batch#1", 150, 200)])
+    dev = [(0, 45, "k"), (150, 200, "k")]
+    red = trace.reduce([host], dev, (0, 200))
+    assert dict(red.idle_gaps) == {trace.WAIT: 90, "cudaMemcpyAsync": 15}
 
 
 def _step(fwd_thread=1):
@@ -61,6 +75,7 @@ def test_backward_joins_by_sequence_number_and_forward_thread():
         (0, 10.0, False), (1, 7.0, True)]
     assert red.backward_us["unembed"] == 30.0
     assert red.backward_joined["unembed"] == 1
+    assert [s.backward_us for s in spans] == [30.0, 0.0]
 
 
 def test_no_join_where_the_forward_thread_differs():
@@ -72,3 +87,33 @@ def test_no_join_where_the_forward_thread_differs():
 def test_span_annotations_are_not_device_work():
     assert trace._annotation("pb:adamw_update#2")
     assert not trace._annotation("flash_fwd_bf16<64>")
+
+
+def _attention_ctx(fwd_us, bwd_us):
+    """Spans of ops.attention calls at MiniCPM-2B's training shape, each
+    with the forward and joined backward device us given."""
+    q = {"shape": (4, 2048, 36, 64), "dtype": "bfloat16", "grad": True}
+    call = {"args": [q, q, q], "kwargs": {}}
+    spans = [trace.SpanTime("attention", i, 1, f, False, set(), 0.0, 0.0, b)
+             for i, (f, b) in enumerate(zip(fwd_us, bwd_us))]
+    red = trace.Reduced(1.0, 1.0, spans, {}, {}, [], [])
+    return {"reduced": red, "calls": {"attention": [call] * len(spans)}}
+
+
+def test_a_call_the_profiler_tied_no_time_to_is_left_out_of_both_sums():
+    fwd_s = flops.roofline_s(
+        flops.attention_flops(4, 2048, 2048, 36, 64, True),
+        flops.attention_bytes(4, 2048, 2048, 36, 64, 2, lse=True))
+    bwd_s = flops.roofline_s(
+        flops.attention_bwd_flops(4, 2048, 2048, 36, 64, True),
+        flops.attention_bwd_bytes(4, 2048, 2048, 36, 64, 2))
+    whole = _attention_ctx([250.0, 250.0], [800.0, 800.0])
+    holed = _attention_ctx([250.0, 0.0, 250.0], [800.0, 0.0, 800.0])
+    for ctx in (whole, holed):
+        assert _common.flash_fwd_roofline_pct(ctx) == pytest.approx(
+            100 * fwd_s / 250e-6)
+        assert _common.flash_bwd_roofline_pct(ctx) == pytest.approx(
+            100 * bwd_s / 800e-6)
+    none = _attention_ctx([0.0], [0.0])
+    assert _common.flash_fwd_roofline_pct(none) is None
+    assert _common.flash_bwd_roofline_pct(none) is None

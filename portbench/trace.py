@@ -13,7 +13,10 @@ an interval), all in microseconds on one clock, and the stretch's window.
   event the same number and the forward thread.  A span's backward time is
   the device time of the evaluate_function events whose (sequence number,
   forward thread) an op of the span recorded, less any span nested in
-  them (a recomputed forward under remat).
+  them (a recomputed forward under remat); each span keeps its own.
+- Idle gaps are named, for the breakdown only, by what the host was
+  doing: the time under the loop's `pb:wait` ranges (waits for arrivals)
+  as the wait, the rest by the host event open where the gap began.
 - Kernel names serve only the breakdown, never attribution.
 """
 
@@ -26,6 +29,7 @@ from portbench.spans import PREFIX
 
 BACKWARD = "autograd::engine::evaluate_function"
 SHORT_GAP_US = 20.0   # shorter idle gaps are summed under one name
+WAIT = PREFIX + "wait"   # the benchmark's loop waiting for an arrival
 
 
 @dataclasses.dataclass
@@ -53,6 +57,7 @@ class SpanTime:
     seqs: set
     t0: float = 0.0           # host time the span opened and closed
     t1: float = 0.0
+    backward_us: float = 0.0  # device time of its joined backward
 
 
 @dataclasses.dataclass
@@ -174,7 +179,9 @@ def reduce(roots: list[Ev], device: list[tuple], window: tuple[float, float],
             continue
         for q in s.seqs:
             for b in by_key.get((q, s.thread), ()):
-                bwd_us[s.label] = bwd_us.get(s.label, 0.0) + _own(b)[0]
+                us = _own(b)[0]
+                s.backward_us += us
+                bwd_us[s.label] = bwd_us.get(s.label, 0.0) + us
                 joined[s.label] = joined.get(s.label, 0) + 1
 
     busy = union([(a, b) for a, b, _ in device], lo, hi)
@@ -198,9 +205,9 @@ def reduce(roots: list[Ev], device: list[tuple], window: tuple[float, float],
 
 
 def _name_gaps(gaps, host) -> dict[str, float]:
-    """Idle time by what the host was doing when each gap began: the
-    deepest host event open at its start (gaps under SHORT_GAP_US summed
-    apart)."""
+    """Idle time by what the host was doing: a gap's time under a WAIT
+    range is the wait's, the rest goes to the deepest host event open at
+    the gap's start (gaps under SHORT_GAP_US summed apart)."""
     import numpy as np
     named: dict[str, float] = {}
     short = sum(g1 - g0 for g0, g1 in gaps if g1 - g0 < SHORT_GAP_US)
@@ -211,8 +218,15 @@ def _name_gaps(gaps, host) -> dict[str, float]:
     t0 = np.array([h[0] for h in host])
     t1 = np.array([h[1] for h in host])
     depth = np.array([h[2] for h in host], dtype=np.float64)
+    waits = union([(h[0], h[1]) for h in host if h[3] == WAIT],
+                  -np.inf, np.inf)
     for g0, g1 in gaps:
         if g1 - g0 < SHORT_GAP_US:
+            continue
+        waited = sum(max(0.0, min(b, g1) - max(a, g0)) for a, b in waits)
+        if waited:
+            named[WAIT] = named.get(WAIT, 0.0) + waited
+        if waited >= g1 - g0:
             continue
         open_ = (t0 <= g0) & (t1 > g0)
         if open_.any():
@@ -220,5 +234,5 @@ def _name_gaps(gaps, host) -> dict[str, float]:
             name = _SPAN.sub(lambda m: PREFIX + m.group(1), host[i][3])
         else:
             name = "(no host event)"
-        named[name] = named.get(name, 0.0) + (g1 - g0)
+        named[name] = named.get(name, 0.0) + (g1 - g0 - waited)
     return named

@@ -11,6 +11,8 @@ rather than read the program's."""
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 # leaves kept in float32 whatever the matrices' dtype
@@ -75,17 +77,20 @@ def _draw(gen: torch.Generator, shape, spec, dtype) -> torch.Tensor:
     return t.mul_(spec ** -0.5)
 
 
-def make(cfg: dict, seed: int, device, dtype) -> dict:
-    """The params, matrices in `dtype`, drawn from `seed` on `device`."""
+def make(cfg: dict, seed: int, device, dtype, arch=None) -> dict:
+    """The params, matrices in `dtype`, drawn from `seed` on `device`, in
+    the layout of `arch` (the cell's architecture module, `spec.arch`; the
+    decoder's, this module's own, where None)."""
+    arch = arch or sys.modules[__name__]
     gen = torch.Generator(device).manual_seed(seed)
     d, v = cfg["d_model"], cfg["vocab"]
     params: dict = {"embed": {"table": _draw(gen, (v, d), d, dtype)}}
     if not cfg["tied_embeddings"]:
         params["embed"]["unembed"] = _draw(gen, (d, v), d, dtype)
     params["ln_f"] = {"scale": _draw(gen, (d,), _NORM, dtype)}
-    for i, (kind, count) in enumerate(segments(cfg)):
+    for i, (kind, count) in enumerate(arch.segments(cfg)):
         blocks: list[dict] = [{} for _ in range(count)]
-        for path, (shape, spec) in block_layout(cfg, kind).items():
+        for path, (shape, spec) in arch.block_layout(cfg, kind).items():
             stacked = _draw(gen, (count, *shape), spec, dtype)
             for blk, leaf in zip(blocks, stacked.unbind(0)):
                 _put(blk, path, leaf)
@@ -93,12 +98,14 @@ def make(cfg: dict, seed: int, device, dtype) -> dict:
     return params
 
 
-def names(cfg: dict) -> list[str]:
-    """The leaves' paths in `leaves(make(cfg, ...))` order, nothing drawn."""
+def names(cfg: dict, arch=None) -> list[str]:
+    """The leaves' paths in `leaves(make(cfg, ..., arch))` order, nothing
+    drawn."""
+    arch = arch or sys.modules[__name__]
     out = ["embed.table"] + ([] if cfg["tied_embeddings"]
                              else ["embed.unembed"]) + ["ln_f.scale"]
-    for i, (kind, count) in enumerate(segments(cfg)):
-        layout = block_layout(cfg, kind)
+    for i, (kind, count) in enumerate(arch.segments(cfg)):
+        layout = arch.block_layout(cfg, kind)
         out += [f"seg{i}.{j}.{path}" for j in range(count) for path in layout]
     return out
 
